@@ -1,0 +1,150 @@
+"""Fused E-step with the next sufficient statistics: the port of K1,
+vireo_tpu/ops/pallas_em.py::fused_estep_stats.
+
+One call computes, for int8 counts AD, DP (V, C), weights Wa, Wd
+(V, K) and a (1, K) log prior:
+
+    loglik  = AD.T @ Wa + DP.T @ Wd
+    id_prob = softmax(loglik + log_prior)
+    S1      = AD @ bf16(id_prob[:, :Ks]),  SS = DP @ bf16(id_prob[:, :Ks])
+    lb_p    = sum(loglik * id_prob),  kl_id = KL(id_prob || prior)
+
+with W = [Wa | Wd] rounded to bf16 and float32 sums, as the TPU kernel
+rounds them. `fused_estep_stats` launches the CUDA kernel
+(csrc/fused_estep.cu) for tensors on a card and runs the plain version
+`fused_estep_stats_reference` for tensors on the CPU; on a card it
+launches or raises, and never falls back. `LAUNCHES` counts the
+kernel's launches.
+"""
+
+import ctypes
+
+import torch
+
+__all__ = ["fused_estep_stats", "fused_estep_stats_reference", "LAUNCHES"]
+
+# number of fused_estep_stats calls that launched the CUDA kernel
+LAUNCHES = 0
+
+_LIB = None
+
+
+def _library():
+    global _LIB
+    if _LIB is None:
+        from ._build import load_library
+        lib = load_library("fused_estep")
+        ptr = ctypes.c_void_p
+        lib.vireo_fused_estep_stats.argtypes = [ptr] * 9 + [
+            ctypes.c_int] * 4 + [ptr]
+        lib.vireo_fused_estep_stats.restype = ctypes.c_int
+        lib.vireo_fused_estep_cell_block.argtypes = []
+        lib.vireo_fused_estep_cell_block.restype = ctypes.c_int
+        lib.vireo_fused_estep_max_k.argtypes = []
+        lib.vireo_fused_estep_max_k.restype = ctypes.c_int
+        lib.vireo_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.vireo_cuda_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def _prepare(Wa, Wd, id_log_prior, stats_cols):
+    K = Wa.shape[1]
+    Ks = K if stats_cols is None else int(stats_cols)
+    if not 0 < Ks <= K:
+        raise ValueError("stats_cols=%s outside 1..%d" % (stats_cols, K))
+    W = torch.cat([Wa, Wd], dim=1).to(torch.bfloat16)
+    prior = id_log_prior.to(torch.float32).reshape(1, K)
+    return K, Ks, W, prior
+
+
+def fused_estep_stats_reference(ad, dp, Wa, Wd, id_log_prior,
+                                stats_cols=None):
+    """Plain PyTorch version of the kernel, with the same bf16 rounding.
+
+    Returns (S1 (V, Ks), SS (V, Ks), id_prob (C, K), loglik (C, K),
+    lb_p, kl_id), all float32; the scalars are 0-d tensors.
+    """
+    from .counts import DenseCounts
+    K, Ks, W, prior = _prepare(Wa, Wd, id_log_prior, stats_cols)
+    W = W.to(torch.float32)
+    counts = DenseCounts(ad, dp)
+    loglik = counts.cell_loglik(W[:, :K].contiguous(),
+                                W[:, K:].contiguous())
+    logp = loglik + prior
+    logp = logp - logp.amax(dim=-1, keepdim=True)
+    e = torch.exp(logp)
+    id_prob = e / e.sum(dim=-1, keepdim=True)
+    idb = id_prob[:, :Ks].to(torch.bfloat16).to(torch.float32)
+    S1, SS = counts.suff_stats(idb)
+    lb_p = torch.sum(loglik * id_prob)
+    pos = id_prob > 0
+    safe_log = torch.log(torch.where(pos, id_prob, torch.ones_like(id_prob)))
+    kl_id = torch.sum(torch.where(pos, id_prob * (safe_log - prior),
+                                  torch.zeros_like(id_prob)))
+    return S1, SS, id_prob, loglik, lb_p, kl_id
+
+
+def fused_estep_stats(ad, dp, Wa, Wd, id_log_prior, stats_cols=None):
+    """One fused pass over (ad, dp); JAX's 6-tuple in JAX's layouts.
+
+    ad, dp: (V, C) int8, unpadded (the kernel masks ragged edges).
+    Wa, Wd: (V, K) float weights. id_log_prior: (1, K) or (K,).
+    stats_cols: only the first `stats_cols` assignment columns feed S1
+    and SS (default all K); the doublet phase passes the singlet count.
+    """
+    if ad.device.type == "cpu":
+        return fused_estep_stats_reference(ad, dp, Wa, Wd, id_log_prior,
+                                           stats_cols)
+    if ad.device.type != "cuda":
+        raise ValueError("fused_estep_stats runs on CUDA or CPU tensors, "
+                         "not %s" % ad.device)
+    return _launch(ad, dp, Wa, Wd, id_log_prior, stats_cols)
+
+
+def _launch(ad, dp, Wa, Wd, id_log_prior, stats_cols):
+    global LAUNCHES
+    K, Ks, W, prior = _prepare(Wa, Wd, id_log_prior, stats_cols)
+    V, C = ad.shape
+    if ad.dtype != torch.int8 or dp.dtype != torch.int8:
+        raise TypeError("the CUDA kernel reads int8 counts, got %s/%s"
+                        % (ad.dtype, dp.dtype))
+    if dp.shape != ad.shape or Wa.shape != (V, K) or Wd.shape != (V, K):
+        raise ValueError("shape mismatch: ad %s dp %s Wa %s Wd %s"
+                         % (tuple(ad.shape), tuple(dp.shape),
+                            tuple(Wa.shape), tuple(Wd.shape)))
+    if V == 0 or C == 0:
+        raise ValueError("empty counts (%d x %d)" % (V, C))
+    device = ad.device
+    for name, t in (("dp", dp), ("W", W), ("prior", prior)):
+        if t.device != device:
+            raise ValueError("%s is on %s, counts on %s"
+                             % (name, t.device, device))
+    lib = _library()
+    max_k = lib.vireo_fused_estep_max_k()
+    if K > max_k:
+        raise ValueError("the kernel takes at most %d assignment columns, "
+                         "got %d" % (max_k, K))
+    ad = ad.contiguous()
+    dp = dp.contiguous()
+    W = W.contiguous()
+    prior = prior.contiguous()
+    cb = lib.vireo_fused_estep_cell_block()
+    f32 = dict(dtype=torch.float32, device=device)
+    S = torch.empty((V, 2 * Ks), **f32)
+    id_prob = torch.empty((C, K), **f32)
+    loglik = torch.empty((C, K), **f32)
+    partials = torch.empty((-(-C // cb), 2), **f32)
+    scal = torch.empty((2,), **f32)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.vireo_fused_estep_stats(
+            ad.data_ptr(), dp.data_ptr(), W.data_ptr(), prior.data_ptr(),
+            S.data_ptr(), id_prob.data_ptr(), loglik.data_ptr(),
+            partials.data_ptr(), scal.data_ptr(), V, C, K, Ks, stream)
+    if err != 0:
+        raise RuntimeError("fused_estep_stats kernel launch failed: %s "
+                           "(code %d)" % (lib.vireo_cuda_error_string(err)
+                                          .decode(), err))
+    LAUNCHES += 1
+    return S[:, :Ks], S[:, Ks:], id_prob, loglik, scal[0], scal[1]
