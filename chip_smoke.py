@@ -7,16 +7,28 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. environment: torch, CUDA and nvcc versions, the card's name and power
    limit; there is no CPU path;
-2. build: the CUDA kernel (K1) from the sources in the checkout;
-3. K1 against its plain PyTorch version on the card, at the slice's two
+2. build: the CUDA kernels, K1 (csrc/fused_estep.cu) and K2/K3
+   (csrc/packed_counts.cu), from the sources in the checkout, one nvcc
+   for each, started together;
+3. K1 against its plain PyTorch version on the card, at the slice's
    shapes, with the tolerances below, and both times;
-4. the full-size main path: a seeded synthetic pool of 30000 variants x
-   100000 cells x 16 donors with 8% doublets through
-   `vireo_wrap(n_init=20, random_seed=0)`, with the kernel's launch
+4. K2 and K3 against their plain versions on the card at the shapes the
+   packed rung gives them (edge, warm, refit, doublet and a capacity
+   pool that only the packed rung holds on this card), exactly on
+   integer weights and within a stated bound on float weights, and both
+   times;
+5. the full-size main path on the dense rung: a seeded synthetic pool
+   of 30000 variants x 100000 cells x 16 donors with 8% doublets
+   through `vireo_wrap(n_init=20, random_seed=0)`, with K1's launch
    count over that run, phase times, peak memory and accuracy against
-   the simulation's truth; then a small pool run on the card and on the
-   CPU, whose calls must agree;
-5. the CLI on a small synthetic cellSNP folder.
+   the simulation's truth;
+6. the same pool and call on the packed rung, chosen by the ladder under
+   VIREO_DENSE_BUDGET_GB=4: K2's and K3's launch counts (and no K1),
+   phase times, peak memory, accuracy, and agreement with the dense
+   run's calls;
+7. small pools on the card against the CPU: the dense rung, then the
+   int8-hybrid, packed-hybrid and COO rungs of a heavy-tailed pool;
+8. the CLI on a small synthetic cellSNP folder.
 
 The line before the last is the kernel table as JSON; the last line is
 `{"ok": true, "device": {...}}`.
@@ -61,6 +73,37 @@ EDGE_SHAPE = dict(V=1000, C=700, K=210, Ks=20)
 # the full-size main path (benchmarks/e2e_100k.py's pool)
 MAIN = dict(n_var=30000, n_cell=100000, n_donor=16, n_init=20)
 
+# --- K2/K3 tolerances (kernel vs plain version on the same inputs) ------
+# exact: integer weights in [-2, 2] make every product and partial sum an
+#   integer of magnitude at most 30 x (terms of one output) <= 9e6 < 2^24,
+#   exact in float32 in any order: the kernel must equal the plain version.
+# float: weights in the fit's ranges; the two versions sum the same
+#   float32 products in different orders, which Higham's bound limits to
+#   |err| <= 2 gamma_n sum|terms| elementwise, gamma_n = n u / (1 - n u),
+#   u = 2^-24, n the terms of one output (n_cell for K2, 2 n_var for K3);
+#   sum|terms| is the plain version on |W| (the counts are >= 0).
+F32_UNIT = 2.0 ** -24
+# label, V, C, N, kernels checked. warm/refit: the EM fit's N = 20 x 16
+# and 16; doublet: K + C(K,2) = 136; capacity: 3e10 count cells, which
+# dense int8 cannot hold on this card and the packed rung can.
+K23_SHAPES = (
+    ("edge", 1001, 1999, 21, ("suff_stats", "cell_loglik")),
+    ("warm", 30000, 100000, 320, ("suff_stats", "cell_loglik")),
+    ("refit", 30000, 100000, 16, ("suff_stats", "cell_loglik")),
+    ("doublet", 30000, 100000, 136, ("cell_loglik",)),
+    ("capacity", 100000, 300000, 16, ("suff_stats", "cell_loglik")),
+)
+# the packed main path's budget: int8 (6.0e9 B) does not fit, packed
+# (3.0e9 B) does; what a card with about 7 GiB free gives (55% of it)
+PACKED_BUDGET_GB = "4"
+# the small heavy-tailed pool of the other rungs
+SMALL_RUNGS = dict(n_var=3000, n_cell=8000, n_donor=4)
+# its ELBO against the CPU's: the COO rung sums with atomic index_add_,
+# so its float32 path changes from run to run, and a fit stops once an
+# iteration gains < 0.01, at a point that depends on that path; one call
+# measured 2.4e-6 and the next 1.7e-5 (the hybrids 3e-7)
+RUNG_ELBO_RTOL = 1e-4
+
 
 def log(*args):
     print(*args, flush=True)
@@ -84,10 +127,15 @@ def phase_environment(torch):
 
 
 def phase_build():
-    from vireo_tpu_torch.ops import fused_em
+    """Both kernel libraries, their nvcc runs started together."""
+    from concurrent.futures import ThreadPoolExecutor
+    from vireo_tpu_torch.ops import fused_em, packed
     t0 = time.perf_counter()
-    fused_em._library()
-    log("[build] K1 built and loaded in %.2f s" % (time.perf_counter() - t0))
+    with ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(fused_em._library), pool.submit(packed._library)]:
+            f.result()
+    log("[build] K1 and K2/K3 built and loaded in %.2f s"
+        % (time.perf_counter() - t0))
 
 
 def _k1_inputs(torch, V, C, K, seed, device):
@@ -138,6 +186,18 @@ def _check(name, got, ref, rtol, atol):
     return float(err.max())
 
 
+def _timed_pair(torch, run_kernel, run_plain):
+    """Median ms of kernel and plain version by CUDA events, in turns:
+    plain, kernel, kernel, plain (three runs each)."""
+    run_kernel()
+    run_plain()
+    torch.cuda.synchronize()
+    p_ms = _time_ms(torch, run_plain)
+    k_ms = _time_ms(torch, run_kernel) + _time_ms(torch, run_kernel)
+    p_ms += _time_ms(torch, run_plain)
+    return float(np.median(k_ms)), float(np.median(p_ms)), len(k_ms)
+
+
 def phase_k1(torch):
     from vireo_tpu_torch.ops import fused_em
     from vireo_tpu_torch.ops.counts import DenseCounts
@@ -174,23 +234,13 @@ def phase_k1(torch):
         if label == "edge":
             continue
 
-        def run_kernel():
-            fused_em.fused_estep_stats(*args, stats_cols=Ks)
-
-        def run_plain():
-            fused_em.fused_estep_stats_reference(*args, stats_cols=Ks)
-
-        run_kernel()
-        run_plain()
-        torch.cuda.synchronize()
-        # in turns: plain, kernel, kernel, plain
-        p_ms = _time_ms(torch, run_plain)
-        k_ms = _time_ms(torch, run_kernel) + _time_ms(torch, run_kernel)
-        p_ms += _time_ms(torch, run_plain)
-        res = dict(ms=float(np.median(k_ms)), plain_ms=float(np.median(p_ms)),
-                   max_abs_err=max(errs))
+        ms, plain_ms, n = _timed_pair(
+            torch, lambda: fused_em.fused_estep_stats(*args, stats_cols=Ks),
+            lambda: fused_em.fused_estep_stats_reference(*args,
+                                                         stats_cols=Ks))
+        res = dict(ms=ms, plain_ms=plain_ms, max_abs_err=max(errs))
         log("[k1]   median ms: kernel %.3f  plain %.3f  (CUDA events, %d "
-            "runs each)" % (res["ms"], res["plain_ms"], len(k_ms)))
+            "runs each)" % (ms, plain_ms, n))
         results[label] = res
         del args
         torch.cuda.empty_cache()
@@ -223,33 +273,162 @@ def _singlet_accuracy(d, ID_prob, doublet_prob):
         doublet_fpr=float(np.mean(called_doublet[singlets])))
 
 
-def phase_main_path(torch):
-    from vireo_tpu_torch.ops import fused_em
-    from vireo_tpu_torch.sim.synth import synth_pool_counts
-    from vireo_tpu_torch.engine.wrap import vireo_wrap
+def _k23_inputs(torch, V, C, seed, device):
+    """Uniform random packed bytes, every nibble value equally likely, in
+    row blocks on the card (the padding nibble of an odd C included:
+    the kernels must mask it, the plain versions drop it)."""
+    from vireo_tpu_torch.ops.packed import PackedCounts
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    Cb = (C + 1) // 2
+    mats = []
+    for _ in range(2):
+        p = torch.empty((V, Cb), dtype=torch.uint8, device=device)
+        for r0 in range(0, V, 8192):
+            r1 = min(r0 + 8192, V)
+            p[r0:r1] = torch.randint(0, 256, (r1 - r0, Cb), generator=g,
+                                     dtype=torch.uint8, device=device)
+        mats.append(p)
+    return PackedCounts(mats[0], mats[1], (V, C))
 
+
+def _k23_weights(torch, name, V, C, N, g, device, exact):
+    """(W,) for K2, (Wa, Wd) for K3: integers in [-2, 2] when `exact`,
+    else probabilities (K2) and digamma-fold ranges (K3)."""
+    def draw(rows, lo, hi):
+        if exact:
+            return torch.randint(-2, 3, (rows, N), generator=g,
+                                 device=device).float()
+        return lo + (hi - lo) * torch.rand((rows, N), generator=g,
+                                           device=device)
+    if name == "suff_stats":
+        return (draw(C, 0.0, 1.0),)
+    return draw(V, -1.0, 4.0), draw(V, -4.01, -0.01)
+
+
+def phase_k23(torch):
+    """K2 and K3 against their plain versions at K23_SHAPES."""
+    from vireo_tpu_torch.ops import counts, packed
+    dev = torch.device("cuda")
+    kern = {"suff_stats": lambda pc, *w: pc.suff_stats(*w),
+            "cell_loglik": lambda pc, *w: (pc.cell_loglik(*w),)}
+    plain = {"suff_stats": lambda pc, *w: packed.suff_stats_reference(
+                 pc.ad_p, pc.dp_p, pc.n_cell, *w),
+             "cell_loglik": lambda pc, *w: (packed.cell_loglik_reference(
+                 pc.ad_p, pc.dp_p, pc.n_cell, *w),)}
+    results = {}
+    pc = None
+    for label, V, C, N, names in K23_SHAPES:
+        if pc is None or pc.shape != (V, C):
+            pc = None
+            torch.cuda.empty_cache()
+            if label == "capacity":
+                budget = counts.device_dense_budget(dev)
+                rung = counts.ladder_rung((V, C), float(packed.PACK_MAX),
+                                          budget)
+                log("[k23] capacity pool %d x %d (%.1e count cells): dense "
+                    "int8 needs %.1f GiB, packed %.1f GiB; the budget on "
+                    "this card is %.1f GiB; the ladder's rung: %s"
+                    % (V, C, float(V) * C, 2.0 * V * C / 2**30,
+                       float(V) * C / 2**30, budget / 2**30, rung))
+                if rung != "packed":
+                    raise AssertionError("the capacity pool is not on the "
+                                         "packed rung")
+            t0 = time.perf_counter()
+            pc = _k23_inputs(torch, V, C, seed=V + C, device=dev)
+            torch.cuda.synchronize()
+            log("[k23] %d x %d packed counts drawn on the card in %.2f s"
+                % (V, C, time.perf_counter() - t0))
+        g = torch.Generator(device=dev)
+        g.manual_seed(V + C + N)
+        for name in names:
+            log("[k23] %s %s V=%d C=%d N=%d" % (label, name, V, C, N))
+            w = _k23_weights(torch, name, V, C, N, g, dev, exact=True)
+            got = kern[name](pc, *w)
+            ref = plain[name](pc, *w)
+            for gt, rf in zip(got, ref):
+                if not torch.equal(gt, rf):
+                    raise AssertionError(
+                        "%s on integer weights differs from its plain "
+                        "version by %.3e" % (name,
+                                             float((gt - rf).abs().max())))
+            log("[k23]   integer weights: equal to the plain version")
+            w = _k23_weights(torch, name, V, C, N, g, dev, exact=False)
+            got = kern[name](pc, *w)
+            ref = plain[name](pc, *w)
+            mag = plain[name](pc, *(x.abs() for x in w))
+            n = C if name == "suff_stats" else 2 * V
+            gamma = n * F32_UNIT / (1 - n * F32_UNIT)
+            errs = [_bound_check("%s[%d] float" % (name, i), gt, rf,
+                                 2 * gamma * m)
+                    for i, (gt, rf, m) in enumerate(zip(got, ref, mag))]
+            del got, ref, mag
+            res = dict(max_abs_err=max(errs))
+            if label != "edge":
+                res["ms"], res["plain_ms"], nrun = _timed_pair(
+                    torch, lambda: kern[name](pc, *w),
+                    lambda: plain[name](pc, *w))
+                log("[k23]   median ms: kernel %.3f  plain %.3f  (CUDA "
+                    "events, %d runs each)" % (res["ms"], res["plain_ms"],
+                                               nrun))
+            results[(label, name)] = res
+            del w
+            torch.cuda.empty_cache()
+    del pc
+    torch.cuda.empty_cache()
+    return results
+
+
+def _bound_check(name, got, ref, bound):
+    err = (got - ref).abs()
+    bad = int((err > bound).sum())
+    rel = float((err / ref.abs().clamp(min=1e-30)).max())
+    log("[k23]   %-22s max_abs_err %.3e  max|ref| %.3e  max rel err %.3e  "
+        "max bound %.3e  %s" % (name, float(err.max()),
+                                float(ref.abs().max()), rel,
+                                float(bound.max()),
+                                "ok" if bad == 0 else "%d OVER" % bad))
+    if bad:
+        raise AssertionError("%s disagrees with its plain version" % name)
+    return float(err.max())
+
+
+def _main_pool():
+    from vireo_tpu_torch.sim.synth import synth_pool_counts
     V, C, K = MAIN["n_var"], MAIN["n_cell"], MAIN["n_donor"]
     t0 = time.perf_counter()
     d = synth_pool_counts(V, C, K, doublet_rate=0.08, density=0.01, seed=0)
-    log("[main] pool %d x %d x %d, %d nonzeros, generated on the host in "
-        "%.2f s" % (V, C, K, d["DP"].nnz, time.perf_counter() - t0))
+    log("[main] pool %d x %d x %d, %d nonzeros (largest count %d), "
+        "generated on the host in %.2f s" % (V, C, K, d["DP"].nnz,
+                                             int(d["DP"].max()),
+                                             time.perf_counter() - t0))
+    return d
 
+
+def _run_main(torch, d, tag):
+    """vireo_wrap on the main pool as a user calls it, with every kernel
+    launch count set to 0 just before and read just after."""
+    from vireo_tpu_torch.ops import fused_em, packed
+    from vireo_tpu_torch.engine.wrap import vireo_wrap
+    V, C, K = MAIN["n_var"], MAIN["n_cell"], MAIN["n_donor"]
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     phases = {}
     fused_em.LAUNCHES = 0
+    for key in packed.LAUNCHES:
+        packed.LAUNCHES[key] = 0
     t0 = time.perf_counter()
     res = vireo_wrap(d["AD"], d["DP"], n_donor=K, n_init=MAIN["n_init"],
                      random_seed=0, check_doublet=True, verbose=False,
                      timing=phases)
     wall = time.perf_counter() - t0
-    launches = fused_em.LAUNCHES
+    launches = dict(K1=fused_em.LAUNCHES, K2=packed.LAUNCHES["suff_stats"],
+                    K3=packed.LAUNCHES["cell_loglik"])
     peak = torch.cuda.max_memory_allocated()
     for name, sec in phases.items():
-        log("[main] phase %-15s %.3f s" % (name, sec))
-    log("[main] vireo_wrap wall %.3f s, peak device memory %.3f GiB, K1 "
-        "launches %d" % (wall, peak / 2**30, launches))
-    if launches < 1:
-        raise AssertionError("the main path did not launch K1")
+        log("[%s] phase %-15s %.3f s" % (tag, name, sec))
+    log("[%s] vireo_wrap wall %.3f s, peak device memory %.3f GiB, "
+        "launches %s" % (tag, wall, peak / 2**30, json.dumps(launches)))
 
     ID_prob, dbl = res["ID_prob"], res["doublet_prob"]
     assert ID_prob.shape == (C, K) and dbl.shape == (C, K * (K - 1) // 2)
@@ -259,12 +438,55 @@ def phase_main_path(torch):
         assert np.all(np.isfinite(res[key])), key
     np.testing.assert_allclose(ID_prob.sum(1) + dbl.sum(1), 1.0, atol=1e-4)
     acc = _singlet_accuracy(d, ID_prob, dbl)
-    log("[main] " + json.dumps(acc))
-    log("[main] LB_list max %.6e, LB_doublet %.6e"
-        % (float(np.max(res["LB_list"])), float(res["LB_doublet"])))
+    log("[%s] %s" % (tag, json.dumps(acc)))
+    log("[%s] LB_list max %.6e, LB_doublet %.6e"
+        % (tag, float(np.max(res["LB_list"])), float(res["LB_doublet"])))
     if acc["singlet_accuracy"] < 0.99:
         raise AssertionError("singlet accuracy %.5f < 0.99"
                              % acc["singlet_accuracy"])
+    return res, launches
+
+
+def phase_main_path(torch, d):
+    """The dense rung: K1 in the doublet phase."""
+    res, launches = _run_main(torch, d, "main")
+    if launches["K1"] < 1:
+        raise AssertionError("the main path did not launch K1")
+    return res, launches
+
+
+def phase_packed_main_path(torch, d, dense_res):
+    """The same pool and call on the packed rung, which the ladder picks
+    under VIREO_DENSE_BUDGET_GB=PACKED_BUDGET_GB (set for this call
+    only): K2 and K3 in every iteration and the doublet phase, no K1."""
+    from vireo_tpu_torch.ops import counts
+    V, C = MAIN["n_var"], MAIN["n_cell"]
+    saved = os.environ.get("VIREO_DENSE_BUDGET_GB")
+    os.environ["VIREO_DENSE_BUDGET_GB"] = PACKED_BUDGET_GB
+    try:
+        budget = counts.device_dense_budget()
+        rung = counts.ladder_rung((V, C), float(d["DP"].max()), budget)
+        log("[packed] VIREO_DENSE_BUDGET_GB=%s: budget %.1f GiB, int8 needs "
+            "%.1f GiB, packed %.1f GiB; the ladder's rung: %s"
+            % (PACKED_BUDGET_GB, budget / 2**30, 2.0 * V * C / 2**30,
+               float(V) * C / 2**30, rung))
+        if rung != "packed":
+            raise AssertionError("the main pool is not on the packed rung")
+        res, launches = _run_main(torch, d, "packed")
+    finally:
+        if saved is None:
+            del os.environ["VIREO_DENSE_BUDGET_GB"]
+        else:
+            os.environ["VIREO_DENSE_BUDGET_GB"] = saved
+    if launches["K2"] < 1 or launches["K3"] < 1 or launches["K1"] != 0:
+        raise AssertionError("the packed path launched %s; it must launch "
+                             "K2 and K3 and not K1" % json.dumps(launches))
+    agree = _matched_agreement(res["ID_prob"], dense_res["ID_prob"])
+    log("[packed] argmax agreement with the dense run %.5f after label "
+        "matching; LB_doublet %.6e vs dense %.6e"
+        % (agree, res["LB_doublet"], dense_res["LB_doublet"]))
+    if agree < 0.99:
+        raise AssertionError("packed and dense calls disagree")
     return launches
 
 
@@ -305,6 +527,74 @@ def phase_small_cross_check(torch):
     # float32 vs float64 fits of one optimum: the ELBO to 1e-5
     np.testing.assert_allclose(gpu["LB_doublet"], cpu["LB_doublet"],
                                rtol=1e-5)
+
+
+def phase_small_rungs(torch):
+    """A seeded small pool with ~3% of its sites given an extra depth of
+    150-400 reads (above both the int8 cap 127 and the nibble cap 15),
+    their alleles drawn from the pool's own genotypes, on the
+    int8-hybrid, packed-hybrid and COO rungs of the card (picked by the
+    ladder under budgets in units of n_var x n_cell bytes, and handed to
+    vireo_wrap prebuilt), against the dense rung on the CPU (float64):
+    the same calls up to the donors' labels, and the ELBO to
+    RUNG_ELBO_RTOL."""
+    from vireo_tpu_torch.ops import counts
+    from vireo_tpu_torch.sim.synth import synth_pool_counts
+    from vireo_tpu_torch.engine.wrap import vireo_wrap
+    import scipy.sparse as sp
+    V, C, K = (SMALL_RUNGS[k] for k in ("n_var", "n_cell", "n_donor"))
+    d = synth_pool_counts(V, C, K, doublet_rate=0.08, density=0.05, seed=5)
+    rng = np.random.RandomState(5)
+    DP = d["DP"].tocoo()
+    hot = rng.rand(DP.nnz) < 0.03
+    r, c = DP.row[hot], DP.col[hot]
+    extra = rng.randint(150, 400, len(r))
+    theta = np.array([0.01, 0.5, 0.99])
+    p1 = theta[d["GT"][r, d["donor"][c]]]
+    second = np.where(d["donor2"][c] >= 0, d["donor2"][c], d["donor"][c])
+    p = 0.5 * (p1 + theta[d["GT"][r, second]])
+    AD = sp.csc_matrix(d["AD"] + sp.csc_matrix(
+        (rng.binomial(extra, p).astype(np.float64), (r, c)), shape=(V, C)))
+    DP = sp.csc_matrix(d["DP"] + sp.csc_matrix(
+        (extra.astype(np.float64), (r, c)), shape=(V, C)))
+    vmax = float(DP.max())
+    cpu = vireo_wrap(AD, DP, n_donor=K, n_init=5, random_seed=2,
+                     verbose=False, device="cpu")
+    for rung, units in (("int8-hybrid", 2), ("packed-hybrid", 1),
+                        ("coo", 0)):
+        budget = max(units * V * C, 1)
+        if counts.ladder_rung((V, C), vmax, budget) != rung:
+            raise AssertionError("budget %d does not give the %s rung"
+                                 % (budget, rung))
+        t0 = time.perf_counter()
+        c = counts.counts_from_scipy(AD, DP, device=torch.device("cuda"),
+                                     dense_budget=budget)
+        gpu = vireo_wrap(c, n_donor=K, n_init=5, random_seed=2,
+                         verbose=False)
+        # doublet cells split their small singlet mass between two
+        # donors almost evenly, so their singlet argmax is a near tie
+        # that float32 and float64 may break apart: the calls compared
+        # are the confident singlets (max ID_prob >= 0.9 on the CPU) and
+        # the doublet calls (max doublet_prob >= 0.9)
+        conf = cpu["ID_prob"].max(1) >= 0.9
+        agree = _matched_agreement(gpu["ID_prob"][conf], cpu["ID_prob"][conf])
+        dbl = np.mean((gpu["doublet_prob"].max(1) >= 0.9)
+                      == (cpu["doublet_prob"].max(1) >= 0.9))
+        log("[rungs] %s (%s%s) on the card vs dense on the CPU: argmax "
+            "agreement %.5f over %d confident singlets after label "
+            "matching (%.5f over all cells), doublet calls %.5f, "
+            "LB_doublet %.6e vs %.6e, %.2f s"
+            % (rung, type(c).__name__,
+               "/" + type(c.base).__name__ if hasattr(c, "base") else "",
+               agree, int(conf.sum()),
+               _matched_agreement(gpu["ID_prob"], cpu["ID_prob"]), dbl,
+               gpu["LB_doublet"], cpu["LB_doublet"],
+               time.perf_counter() - t0))
+        if agree < 0.99 or dbl < 0.99:
+            raise AssertionError("%s calls disagree with the dense rung's"
+                                 % rung)
+        np.testing.assert_allclose(gpu["LB_doublet"], cpu["LB_doublet"],
+                                   rtol=RUNG_ELBO_RTOL)
 
 
 def phase_cli():
@@ -354,21 +644,34 @@ def main():
     phase_environment(torch)
     phase_build()
     k1 = phase_k1(torch)
-    launches = phase_main_path(torch)
+    k23 = phase_k23(torch)
+    d = _main_pool()
+    dense_res, dense_launches = phase_main_path(torch, d)
+    packed_launches = phase_packed_main_path(torch, d, dense_res)
+    del d, dense_res
     phase_small_cross_check(torch)
+    phase_small_rungs(torch)
     phase_cli()
 
-    main_shape = k1["doublet"]
+    # each kernel at its main-path shape: K1 at the doublet phase's, K2
+    # and K3 at the warm restarts' (N = 20 x 16)
+    table = [
+        ("fused_estep_stats", "vireo_tpu_torch/csrc/fused_estep.cu",
+         "vireo_tpu/ops/pallas_em.py:145", dense_launches["K1"],
+         k1["doublet"]),
+        ("packed_suff_stats", "vireo_tpu_torch/csrc/packed_counts.cu",
+         "vireo_tpu/ops/packed.py:161", packed_launches["K2"],
+         k23[("warm", "suff_stats")]),
+        ("packed_cell_loglik", "vireo_tpu_torch/csrc/packed_counts.cu",
+         "vireo_tpu/ops/packed.py:195", packed_launches["K3"],
+         k23[("warm", "cell_loglik")]),
+    ]
     print(json.dumps({"kernels": [{
-        "name": "fused_estep_stats",
-        "route": "cuda",
-        "source": "vireo_tpu_torch/csrc/fused_estep.cu",
-        "replaces": "vireo_tpu/ops/pallas_em.py:145",
-        "launches": launches,
-        "max_abs_err": main_shape["max_abs_err"],
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-    }]}))
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+        "plain_ms": res["plain_ms"]}
+        for name, source, replaces, launches, res in table]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

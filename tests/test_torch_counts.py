@@ -82,12 +82,6 @@ def test_union_pattern_and_exact_dtype():
     np.testing.assert_array_equal(tc.ad.float().numpy(), AD.toarray())
 
 
-def test_over_budget_raises_not_implemented():
-    AD, DP = _pool(seed=5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        counts_from_scipy(AD, DP, dense_budget=100)
-
-
 @pytest.mark.parametrize("row_chunk", [1, 7, 32, 1000])
 def test_chunked_conversion_is_chunk_independent(pool, row_chunk):
     _, _, _, tc = pool

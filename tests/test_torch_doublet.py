@@ -102,6 +102,31 @@ def test_predict_doublet_unfused_branch(monkeypatch):
                                atol=1e-12)
 
 
+def test_predict_doublet_packed_counts(monkeypatch):
+    """A PackedCounts takes the unfused branch through its own
+    cell_loglik (K3's plain version, float64 on the CPU), as every
+    counts class but an int8 DenseCounts does: JAX's default branch in
+    float64, rtol 1e-10, and K1 is not launched."""
+    from vireo_tpu_torch.ops import fused_em
+    from vireo_tpu_torch.ops.packed import PackedCounts, pack_dense
+    AD, DP = _pool(seed=11)
+    assert DP.max() <= 15
+    jc = jax_dense_counts(AD, DP, dtype=jnp.float64)
+    tc = pack_dense(AD.toarray(), DP.toarray())
+    assert isinstance(tc, PackedCounts)
+    mj, mt = _fitted_pair(AD, DP, jc, tc)
+    monkeypatch.setenv("VIREO_FUSED_DOUBLET", "0")
+    before = fused_em.LAUNCHES
+    dj, sj, lj = jd.predict_doublet(mj, jc, None)
+    dt, st, lt = td.predict_doublet(mt, tc, None)
+    assert fused_em.LAUNCHES == before
+    np.testing.assert_allclose(st, sj, rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(dt, dj, rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(lt, lj, rtol=1e-10)
+    np.testing.assert_allclose(mt.GT_prob, mj.GT_prob, rtol=1e-10,
+                               atol=1e-12)
+
+
 def test_predict_doublet_per_cell_prior(monkeypatch):
     AD, DP = _pool(seed=3)
     jc = jax_dense_counts(AD, DP, dtype=jnp.float64)

@@ -119,7 +119,10 @@ def vireo_wrap(AD, DP=None, GT_prior=None, n_donor=None, learn_GT=True,
     """Run vireo with multiple initializations; returns the reference's
     result dict (vireo_wrap.py:170-183).
 
-    AD, DP: scipy/numpy (n_var, n_cell) counts, or a DenseCounts as AD.
+    AD, DP: scipy/numpy (n_var, n_cell) counts, placed by
+    `ops.counts.counts_from_scipy` on the rung its budget picks, or any
+    prebuilt counts object as AD (DenseCounts, PackedCounts, HybridCounts
+    or SparseCounts), whose device then is the run's default.
     `device`/`dtype` default to the policy of utils/device.py. `nproc`
     is accepted for CLI parity and ignored. `kwargs` may carry model
     flags (ASE_mode, fix_beta_sum, learn_theta, n_GT). `generator`: the

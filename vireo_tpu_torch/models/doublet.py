@@ -3,11 +3,13 @@
 
 The donor axis grows by the C(K,2) donor pairs and the genotype axis by
 the C(G,2) genotype combinations; the assignment E-step then runs once
-on the expanded tensors. With int8 counts and a row prior it runs
-through the fused kernel (ops/fused_em.py), which also yields the
-singlet-slice statistics for the GT refresh; otherwise it takes the
-unfused contraction. The branch depends on the counts' type and the
-prior's shape only, the same on the CPU and on a card.
+on the expanded tensors. With an int8 DenseCounts and a row prior it
+runs through the fused kernel (ops/fused_em.py), which also yields the
+singlet-slice statistics for the GT refresh; every other counts class
+(packed, hybrid, COO, or dense in another type) takes the unfused
+contraction through its own `cell_loglik`, as the JAX package sends only
+a DenseCounts to its kernel. The branch depends on the counts' class and
+type and the prior's shape only, the same on the CPU and on a card.
 """
 
 import dataclasses
@@ -16,6 +18,7 @@ import itertools
 import numpy as np
 import torch
 
+from ..ops.counts import DenseCounts
 from ..ops.math import normalize, softmax_from_loglik, digamma_triplet
 
 __all__ = ["add_doublet_theta", "add_doublet_GT", "predict_doublet",
@@ -129,7 +132,7 @@ def predict_doublet(vobj, AD, DP=None, update_GT=True, update_ID=True,
         prior_row = np.concatenate(
             [id_prior_np[0] * (1 - doublet_rate_prior),
              np.full(n_pair, doublet_rate_prior / n_pair)])
-        if counts.ad.dtype == torch.int8:
+        if isinstance(counts, DenseCounts) and counts.ad.dtype == torch.int8:
             S1, SS, post, logLik_ID = fused_doublet_estep(
                 counts, gt_both, mu_both, sum_both, np.log(prior_row), K)
             llr = (logLik_ID[:, K:].amax(dim=1)

@@ -410,7 +410,8 @@ def run_em_iters(counts, state, priors, cfg, n_iters):
 class Vireo:
     """OO wrapper mirroring the reference `Vireo` class API on top of the
     functional pieces. Posterior properties return numpy copies; `fit`
-    takes numpy/scipy AD, DP or a DenseCounts."""
+    takes numpy/scipy AD, DP or any prebuilt counts object (DenseCounts,
+    PackedCounts, HybridCounts, SparseCounts)."""
 
     def __init__(self, n_cell, n_var, n_donor, n_GT=3, learn_GT=True,
                  learn_theta=True, ASE_mode=False, fix_beta_sum=False,

@@ -1,0 +1,288 @@
+"""4-bit nibble-packed dense counts, the capacity rung of the ladder
+(counterpart of vireo_tpu/ops/packed.py::PackedCounts).
+
+When every AD/DP value is <= 15 (`PACK_MAX`), two cells fit in one
+byte: the packed layout holds a pool in half the device memory of dense
+int8, so a card holds pools twice as large without falling back to the
+COO rung.
+
+Layout, as in the JAX package (vireo_tpu/ops/packed.py:16-20 and
+`_pack_pair`): `ad_p` and `dp_p` are (n_var, ceil(n_cell / 2)) uint8,
+and byte [v, j] holds cell 2j in its low nibble and cell 2j + 1 in its
+high nibble. There is no padding to a block grid; when n_cell is odd
+the high nibble of each row's last byte is zero, and the kernels mask
+it.
+
+The two contractions are the port's K2 and K3:
+
+- `suff_stats`  (K2): S1 = AD @ W, SS = DP @ W
+- `cell_loglik` (K3): AD.T @ Wa + DP.T @ Wd
+
+For tensors on a card each launches its CUDA kernel
+(csrc/packed_counts.cu, float32 weights only) or raises; for tensors on
+the CPU each runs its plain version (`suff_stats_reference`,
+`cell_loglik_reference`), which unpacks a block of rows to the weights'
+type and calls `torch.matmul` on `lo @ W[0::2] + hi @ W[1::2]`; on the
+CPU that is float64, so the port's CPU runs stay exact. `LAUNCHES`
+counts each kernel's launches.
+
+The reductions and `densify` are plain PyTorch over blocks of rows.
+"""
+
+import ctypes
+import dataclasses
+
+import torch
+
+from .math import log_binom_coeff
+
+__all__ = ["PACK_MAX", "PackedCounts", "pack_dense", "packed_suff_stats",
+           "packed_cell_loglik", "suff_stats_reference",
+           "cell_loglik_reference", "LAUNCHES"]
+
+PACK_MAX = 15  # the largest count a nibble holds exactly
+
+# launches of each CUDA kernel (K2, K3)
+LAUNCHES = {"suff_stats": 0, "cell_loglik": 0}
+
+# bytes of one unpacked float block of rows (per plane)
+_CHUNK_BYTES = 1 << 28
+
+_LIB = None
+
+
+def _unpack(p, dtype):
+    """(lo, hi) nibble planes of packed bytes `p`, in `dtype`."""
+    return (p & 0xF).to(dtype), (p >> 4).to(dtype)
+
+
+def _row_blocks(n_var, n_byte, itemsize):
+    rows = max(_CHUNK_BYTES // max(n_byte * itemsize, 1), 1)
+    for r0 in range(0, n_var, rows):
+        yield r0, min(r0 + rows, n_var)
+
+
+def suff_stats_reference(ad_p, dp_p, n_cell, W):
+    """Plain version of K2: (AD @ W, DP @ W) for W (n_cell, N), in W's
+    type, one block of unpacked rows at a time."""
+    V, Cb = ad_p.shape
+    n_odd = n_cell // 2
+    w_even, w_odd = W[0::2].contiguous(), W[1::2].contiguous()
+    S1 = torch.empty((V, W.shape[1]), dtype=W.dtype, device=W.device)
+    SS = torch.empty_like(S1)
+    for r0, r1 in _row_blocks(V, Cb, W.element_size()):
+        for p, out in ((ad_p, S1), (dp_p, SS)):
+            lo, hi = _unpack(p[r0:r1], W.dtype)
+            torch.matmul(lo, w_even, out=out[r0:r1])
+            out[r0:r1].addmm_(hi[:, :n_odd], w_odd)
+    return S1, SS
+
+
+def cell_loglik_reference(ad_p, dp_p, n_cell, Wa, Wd):
+    """Plain version of K3: AD.T @ Wa + DP.T @ Wd for (n_var, N)
+    weights -> (n_cell, N) in cell order, in the weights' type."""
+    V, Cb = ad_p.shape
+    N = Wa.shape[1]
+    even = torch.zeros((Cb, N), dtype=Wa.dtype, device=Wa.device)
+    odd = torch.zeros_like(even)
+    for r0, r1 in _row_blocks(V, Cb, Wa.element_size()):
+        for p, w in ((ad_p, Wa), (dp_p, Wd)):
+            lo, hi = _unpack(p[r0:r1], Wa.dtype)
+            even.addmm_(lo.t(), w[r0:r1])
+            odd.addmm_(hi.t(), w[r0:r1])
+    return torch.stack([even, odd], dim=1).reshape(2 * Cb, N)[:n_cell]
+
+
+def _library():
+    global _LIB
+    if _LIB is None:
+        from ._build import load_library
+        lib = load_library("packed_counts")
+        ptr = ctypes.c_void_p
+        lib.vireo_packed_suff_stats.argtypes = [ptr] * 5 + [
+            ctypes.c_int] * 3 + [ptr]
+        lib.vireo_packed_suff_stats.restype = ctypes.c_int
+        lib.vireo_packed_cell_loglik.argtypes = [ptr] * 5 + [
+            ctypes.c_int] * 3 + [ptr]
+        lib.vireo_packed_cell_loglik.restype = ctypes.c_int
+        lib.vireo_packed_error_string.argtypes = [ctypes.c_int]
+        lib.vireo_packed_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def _check_launch(name, ad_p, dp_p, n_cell, weights):
+    """Validate what the kernels take; returns the contiguous operands."""
+    V, Cb = ad_p.shape
+    if ad_p.dtype != torch.uint8 or dp_p.dtype != torch.uint8:
+        raise TypeError("%s reads uint8 packed counts, got %s/%s"
+                        % (name, ad_p.dtype, dp_p.dtype))
+    if dp_p.shape != ad_p.shape or Cb != (n_cell + 1) // 2:
+        raise ValueError("%s: packed shapes %s/%s do not hold %d cells"
+                         % (name, tuple(ad_p.shape), tuple(dp_p.shape),
+                            n_cell))
+    if V == 0 or n_cell == 0:
+        raise ValueError("%s: empty counts (%d x %d)" % (name, V, n_cell))
+    for w in weights:
+        if w.dtype != torch.float32:
+            raise TypeError("%s takes float32 weights, got %s"
+                            % (name, w.dtype))
+        if w.device != ad_p.device or dp_p.device != ad_p.device:
+            raise ValueError("%s: operands on %s, %s and %s"
+                             % (name, ad_p.device, dp_p.device, w.device))
+    return (ad_p.contiguous(), dp_p.contiguous(),
+            [w.contiguous() for w in weights])
+
+
+def _run(name, fn, args, device):
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError("%s kernel launch failed: %s (code %d)"
+                           % (name, _library().vireo_packed_error_string(
+                               err).decode(), err))
+    LAUNCHES[name] += 1
+
+
+def _on_cpu(name, t):
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError("%s runs on CUDA or CPU tensors, not %s"
+                         % (name, t.device))
+    return False
+
+
+def packed_suff_stats(ad_p, dp_p, n_cell, W):
+    """K2: (AD @ W, DP @ W) -> two (n_var, N). CPU tensors run the
+    plain version; CUDA tensors launch the kernel or raise."""
+    if _on_cpu("suff_stats", ad_p):
+        return suff_stats_reference(ad_p, dp_p, n_cell, W)
+    ad_p, dp_p, (W,) = _check_launch("suff_stats", ad_p, dp_p, n_cell, [W])
+    if W.shape[0] != n_cell:
+        raise ValueError("suff_stats: W has %d rows for %d cells"
+                         % (W.shape[0], n_cell))
+    V, N = ad_p.shape[0], W.shape[1]
+    S1 = torch.empty((V, N), dtype=torch.float32, device=W.device)
+    SS = torch.empty_like(S1)
+    _run("suff_stats", _library().vireo_packed_suff_stats,
+         (ad_p.data_ptr(), dp_p.data_ptr(), W.data_ptr(), S1.data_ptr(),
+          SS.data_ptr(), V, n_cell, N), W.device)
+    return S1, SS
+
+
+def packed_cell_loglik(ad_p, dp_p, n_cell, Wa, Wd):
+    """K3: AD.T @ Wa + DP.T @ Wd -> (n_cell, N) in cell order. CPU
+    tensors run the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if _on_cpu("cell_loglik", ad_p):
+        return cell_loglik_reference(ad_p, dp_p, n_cell, Wa, Wd)
+    ad_p, dp_p, (Wa, Wd) = _check_launch("cell_loglik", ad_p, dp_p, n_cell,
+                                         [Wa, Wd])
+    V, N = ad_p.shape[0], Wa.shape[1]
+    if Wa.shape != (V, N) or Wd.shape != (V, N):
+        raise ValueError("cell_loglik: weights %s/%s for %d variants"
+                         % (tuple(Wa.shape), tuple(Wd.shape), V))
+    out = torch.empty((n_cell, N), dtype=torch.float32, device=Wa.device)
+    _run("cell_loglik", _library().vireo_packed_cell_loglik,
+         (ad_p.data_ptr(), dp_p.data_ptr(), Wa.data_ptr(), Wd.data_ptr(),
+          out.data_ptr(), V, n_cell, N), Wa.device)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedCounts:
+    """Nibble-packed AD/DP counts of `shape` (n_var, n_cell), two cells
+    a byte."""
+    ad_p: torch.Tensor       # (n_var, ceil(n_cell / 2)) uint8
+    dp_p: torch.Tensor
+    shape: tuple
+
+    @property
+    def n_var(self):
+        return self.shape[0]
+
+    @property
+    def n_cell(self):
+        return self.shape[1]
+
+    @property
+    def device(self):
+        return self.ad_p.device
+
+    def suff_stats(self, W):
+        """(AD @ W, DP @ W) for W (n_cell, N) -> two (n_var, N)."""
+        return packed_suff_stats(self.ad_p, self.dp_p, self.n_cell, W)
+
+    def cell_loglik(self, Wa, Wd):
+        """AD.T @ Wa + DP.T @ Wd for (n_var, N) weights -> (n_cell, N)."""
+        return packed_cell_loglik(self.ad_p, self.dp_p, self.n_cell, Wa, Wd)
+
+    def _blocks(self, dtype):
+        """(lo, hi) planes of AD and DP, one block of rows at a time."""
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        for r0, r1 in _row_blocks(self.n_var, self.ad_p.shape[1], itemsize):
+            yield (r0, r1, _unpack(self.ad_p[r0:r1], dtype),
+                   _unpack(self.dp_p[r0:r1], dtype))
+
+    def binom_coeff_sum(self):
+        """Sum of log C(DP, AD) over DP > 0 entries, accumulated in
+        float64 (the zero padding nibble adds 0); a 0-d float64 tensor."""
+        total = torch.zeros((), dtype=torch.float64, device=self.device)
+        for _, _, (a_lo, a_hi), (d_lo, d_hi) in self._blocks(torch.float64):
+            total += log_binom_coeff(d_lo, a_lo).sum()
+            total += log_binom_coeff(d_hi, a_hi).sum()
+        return total
+
+    def row_sums(self):
+        """(AD.sum(axis=1), DP.sum(axis=1)) -> two exact int64 (n_var,)."""
+        ad = torch.empty(self.n_var, dtype=torch.int64, device=self.device)
+        dp = torch.empty_like(ad)
+        for r0, r1, (a_lo, a_hi), (d_lo, d_hi) in self._blocks(torch.int64):
+            ad[r0:r1] = (a_lo + a_hi).sum(dim=1)
+            dp[r0:r1] = (d_lo + d_hi).sum(dim=1)
+        return ad, dp
+
+    def n_vars_per_cell(self):
+        """Number of variants with DP > 0 per cell."""
+        Cb = self.dp_p.shape[1]
+        even = torch.zeros(Cb, dtype=torch.int64, device=self.device)
+        odd = torch.zeros_like(even)
+        for _, _, _, (d_lo, d_hi) in self._blocks(torch.uint8):
+            even += (d_lo > 0).sum(dim=0)
+            odd += (d_hi > 0).sum(dim=0)
+        return torch.stack([even, odd], dim=1).reshape(2 * Cb)[:self.n_cell]
+
+    def densify(self, dtype=torch.int8):
+        """Unpack to a DenseCounts (int8 by default; twice the memory)."""
+        from .counts import DenseCounts
+
+        def full(p):
+            lo, hi = _unpack(p, dtype)
+            return torch.stack([lo, hi], dim=2).reshape(
+                self.n_var, -1)[:, :self.n_cell].contiguous()
+
+        return DenseCounts(full(self.ad_p), full(self.dp_p))
+
+
+def _pack_pair(x):
+    """(V, C) integer counts in [0, 15] -> (V, ceil(C / 2)) uint8 bytes."""
+    x = torch.as_tensor(x)
+    V, C = x.shape
+    if C % 2:
+        x = torch.cat([x, x.new_zeros((V, 1))], dim=1)
+    x = x.to(torch.uint8)
+    return x[:, 0::2] | (x[:, 1::2] << 4)
+
+
+def pack_dense(ad, dp):
+    """PackedCounts from dense (n_var, n_cell) counts (numpy or torch,
+    on the tensors' device); every value must lie in [0, PACK_MAX]."""
+    ad, dp = torch.as_tensor(ad), torch.as_tensor(dp)
+    for name, x in (("AD", ad), ("DP", dp)):
+        if x.numel() and (x.min() < 0 or x.max() > PACK_MAX):
+            raise ValueError("%s holds counts outside [0, %d]"
+                             % (name, PACK_MAX))
+    return PackedCounts(_pack_pair(ad), _pack_pair(dp),
+                        (int(ad.shape[0]), int(ad.shape[1])))
