@@ -8,6 +8,10 @@
   log-likelihood ratio to rtol 1e-5 (float32 sum order only).
 - the unfused branch (bfloat16 counts) against JAX's default branch in
   float64: rtol 1e-10.
+- a 23-donor pool (K + C(K,2) = 276 columns) on int8 counts: through
+  K1's plain version with the fused branch's tolerances, and, with K1's
+  column limit `fused_em.MAX_K` set below 276, around K1 with the
+  unfused branch's float64 tolerances.
 """
 
 import numpy as np
@@ -55,8 +59,8 @@ def test_add_doublet_gt_and_theta():
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-12)
 
 
-def _fitted_pair(AD, DP, jc, tc):
-    kw = dict(n_cell=AD.shape[1], n_var=AD.shape[0], n_donor=3)
+def _fitted_pair(AD, DP, jc, tc, n_donor=3):
+    kw = dict(n_cell=AD.shape[1], n_var=AD.shape[0], n_donor=n_donor)
     np.random.seed(5)
     mj = JVireo(dtype=jnp.float64, **kw)
     mj.fit(jc, max_iter=25, min_iter=3, verbose=False)
@@ -141,3 +145,63 @@ def test_predict_doublet_per_cell_prior(monkeypatch):
     np.testing.assert_allclose(st, sj, rtol=1e-10, atol=1e-12)
     np.testing.assert_allclose(dt, dj, rtol=1e-10, atol=1e-12)
     np.testing.assert_allclose(lt, lj, rtol=1e-10)
+
+
+@pytest.mark.parametrize("route", ["fused", "above_max_k"])
+def test_predict_doublet_23_donors(monkeypatch, route):
+    """23 donors give 276 doublet columns, more than the first CUDA K1
+    took (256), on int8 counts. With K1's limit `MAX_K` above 276 the
+    port sends them through K1 (its plain version here) and matches the
+    JAX kernel in interpret mode at the fused branch's tolerances; with
+    the limit set below 276 it takes the unfused path, as the JAX
+    package's default does, and matches it in float64."""
+    from vireo_tpu_torch.ops import fused_em
+    K = 23
+    AD, DP = _pool(seed=23, V=120, C=200, K=K)
+    tc = counts_from_scipy(AD, DP)
+    assert tc.ad.dtype == torch.int8
+    n_cols = K + K * (K - 1) // 2
+    calls = []
+    real = fused_em.fused_estep_stats
+    monkeypatch.setattr(fused_em, "fused_estep_stats",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    if route == "fused":
+        assert n_cols == 276 <= fused_em.MAX_K
+        jc = jax_counts_from_scipy(AD, DP, max_dense_elems=10)
+        monkeypatch.setenv("VIREO_FUSED_DOUBLET", "interpret")
+    else:
+        monkeypatch.setattr(fused_em, "MAX_K", n_cols - 1)
+        jc = jax_dense_counts(AD, DP, dtype=jnp.float64)
+        monkeypatch.setenv("VIREO_FUSED_DOUBLET", "0")
+    mj, mt = _fitted_pair(AD, DP, jc, tc, n_donor=K)
+    dj, sj, lj = jd.predict_doublet(mj, jc, None)
+    dt, st, lt = td.predict_doublet(mt, tc, None)
+    assert dt.shape == (200, n_cols - K) and st.shape == (200, K)
+    if route == "fused":
+        assert calls == [1]
+        np.testing.assert_allclose(st, sj, atol=1e-5)
+        np.testing.assert_allclose(dt, dj, atol=1e-5)
+        np.testing.assert_allclose(lt, lj, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(mt.GT_prob, mj.GT_prob, atol=1e-5)
+    else:
+        assert calls == []
+        np.testing.assert_allclose(st, sj, rtol=1e-10, atol=1e-12)
+        np.testing.assert_allclose(dt, dj, rtol=1e-10, atol=1e-12)
+        np.testing.assert_allclose(lt, lj, rtol=1e-10)
+        np.testing.assert_allclose(mt.GT_prob, mj.GT_prob, rtol=1e-10,
+                                   atol=1e-12)
+    np.testing.assert_allclose(mt.ID_prob, mj.ID_prob, atol=1e-5)
+
+
+@pytest.mark.parametrize("n_donor,fused", [(23, True), (44, True),
+                                           (45, False)])
+def test_doublet_dispatch_follows_max_k(n_donor, fused):
+    """An int8 DenseCounts goes to K1 while K + C(K,2) <= MAX_K (1024:
+    44 donors give 990 columns, 45 give 1035); any other counts class
+    never does."""
+    from vireo_tpu_torch.ops.packed import pack_dense
+    AD, DP = _pool(seed=1, V=20, C=30)
+    n_cols = n_donor + n_donor * (n_donor - 1) // 2
+    assert td.takes_fused_estep(counts_from_scipy(AD, DP), n_cols) is fused
+    assert not td.takes_fused_estep(
+        pack_dense(AD.toarray(), DP.toarray()), n_cols)

@@ -113,3 +113,34 @@ def test_build_command_targets_sm90a_and_repo_source():
     assert cmd[-1] == str(src)
     assert {"-std=c++17", "-O3", "-shared", "-fPIC"} <= set(cmd)
     assert _build.library_path("fused_estep").parent == _build.BUILD_DIR
+
+
+def test_column_limit_holds_on_the_cpu_too():
+    """fused_estep_stats refuses more than MAX_K assignment columns before
+    it looks at the device, so the CPU runs the card's rule; MAX_K itself
+    goes through."""
+    V, C = 6, 9
+    ad, dp, _, _, _ = _inputs(V, C, 1, seed=3)
+    ad, dp = torch.as_tensor(ad), torch.as_tensor(dp)
+    for K, ok in ((fused_em.MAX_K, True), (fused_em.MAX_K + 1, False)):
+        Wa = torch.zeros((V, K))
+        prior = torch.full((1, K), -float(np.log(K)))
+        if ok:
+            S1, _, idp, _, _, _ = fused_em.fused_estep_stats(
+                ad, dp, Wa, Wa, prior, stats_cols=3)
+            assert idp.shape == (C, K) and S1.shape == (V, 3)
+        else:
+            with pytest.raises(ValueError, match="at most %d"
+                               % fused_em.MAX_K):
+                fused_em.fused_estep_stats(ad, dp, Wa, Wa, prior)
+
+
+def test_max_k_mirrors_the_kernel_source():
+    """The Python constant is the .cu file's kMaxK (which the library's
+    vireo_fused_estep_max_k returns), and it takes 40 donors' doublet
+    space, K = 40 + C(40, 2) = 820."""
+    import re
+    text = _build.source_path("fused_estep").read_text()
+    (value,) = re.findall(r"constexpr int kMaxK = (\d+);", text)
+    assert int(value) == fused_em.MAX_K >= 820
+    assert "return kMaxK;" in text

@@ -294,3 +294,78 @@ def test_build_command_targets_the_packed_source():
     for name in ("vireo_packed_suff_stats", "vireo_packed_cell_loglik",
                  "vireo_packed_error_string"):
         assert name in text
+
+
+def _split_sum(W):
+    return sum(t.double() for t in packed.split_bf16x3(W))
+
+
+@pytest.mark.parametrize("kind", ["probabilities", "digamma_fold",
+                                  "negative", "tiny", "wide", "zeros"])
+def test_bf16x3_split_is_exact(kind):
+    """K2 multiplies nibbles by three bf16 terms of each float32 weight;
+    their sum, taken in float64, is the weight exactly."""
+    rng = np.random.RandomState(7)
+    n = 20000
+    x = {"probabilities": rng.rand(n),
+         "digamma_fold": rng.uniform(-4.01, 4.5, n),
+         "negative": -rng.gamma(0.5, 3.0, n),
+         "tiny": np.sign(rng.randn(n)) * 10.0 ** rng.uniform(-33, -20, n),
+         "wide": np.sign(rng.randn(n)) * 10.0 ** rng.uniform(-30, 30, n),
+         "zeros": np.zeros(n)}[kind]
+    W = torch.as_tensor(x, dtype=torch.float32)
+    hi, mid, lo = packed.split_bf16x3(W)
+    assert all(t.dtype == torch.bfloat16 for t in (hi, mid, lo))
+    assert torch.equal(_split_sum(W), W.double())
+    assert torch.equal(hi, W.to(torch.bfloat16))
+
+
+def test_bf16x3_split_below_its_exact_range():
+    """From 2^-110 up the split is exact; below, the last term falls
+    under bf16's subnormal step 2^-133 and the sum stays within 2^-134."""
+    edge = torch.tensor([2.0 ** -110, -(2.0 ** -110) * 1.2345678,
+                         2.0 ** -100 * 1.9999999], dtype=torch.float32)
+    assert torch.equal(_split_sum(edge), edge.double())
+    W = torch.as_tensor(10.0 ** np.random.RandomState(8).uniform(-44, -34,
+                                                               5000),
+                        dtype=torch.float32)
+    assert float((_split_sum(W) - W.double()).abs().max()) <= 2.0 ** -134
+
+
+def test_split_weights_are_kmajor_and_zero_padded():
+    """K2's B operand: (3, N, ldw) bf16, the transposed terms, each row
+    padded with zeros to a whole 16 bytes (TMA's stride unit) and no
+    further: the kernel's tensor map supplies the ragged tiles."""
+    W = torch.as_tensor(np.random.RandomState(9).rand(37, 5),
+                        dtype=torch.float32)
+    w3 = packed.split_weights_kmajor(W)
+    assert w3.shape == (3, 5, 40) and w3.dtype == torch.bfloat16
+    assert torch.equal(w3.double().sum(0)[:, :37], W.double().t())
+    assert not w3[:, :, 37:].any()
+    assert packed.split_weights_kmajor(W[:32]).shape == (3, 5, 32)
+
+
+def test_smoke_split_weights_need_all_three_terms():
+    """chip_smoke's exact check of K2's three bf16 terms: its weights need
+    mid (all of them) and lo (some), the float32 plain version sums them
+    exactly, as float64 does, and the weights cut to one or two terms
+    give other sums, so a kernel that lost a term would fail it."""
+    import chip_smoke
+    V, C, N = 50, 301, 21
+    g = torch.Generator().manual_seed(3)
+    W = chip_smoke._split_weights(torch, C, N, g, torch.device("cpu"))
+    hi, mid, lo = packed.split_bf16x3(W)
+    nz = W != 0
+    assert 0 < int(nz.sum(0).max()) <= chip_smoke.SPLIT_NNZ
+    assert bool((mid[nz] != 0).all()) and bool((lo[nz] != 0).any())
+    rng = np.random.RandomState(4)
+    tp = packed.pack_dense(rng.randint(0, 16, (V, C)),
+                           rng.randint(0, 16, (V, C)))
+    exact = packed.suff_stats_reference(tp.ad_p, tp.dp_p, C, W.double())
+    f32 = packed.suff_stats_reference(tp.ad_p, tp.dp_p, C, W)
+    for a, b in zip(f32, exact):
+        assert float(b.abs().max()) < 2 ** 24
+        assert torch.equal(a.double(), b)
+    for cut in chip_smoke._fewer_terms(torch, W).values():
+        got = packed.suff_stats_reference(tp.ad_p, tp.dp_p, C, cut)
+        assert not all(torch.equal(a, b) for a, b in zip(got, f32))

@@ -12,61 +12,89 @@
 //   lb_p   = sum loglik * id
 //   kl_id  = sum_{id > 0} id * (log id - log_prior)
 //
-// The counts are converted in registers, products and sums are float32,
-// and W and the id that feeds S carry the same bf16 rounding as the TPU
-// kernel (pallas_em.py:72 and :116). Ragged V and C are masked here, so
-// the caller pads nothing.
+// Precision is the TPU kernel's: W and the id that feeds S are rounded
+// to bf16 (pallas_em.py:72 and :116), the counts (0..127) are exact in
+// bf16, and bf16 x bf16 products are summed in float32, so the tensor
+// cores form exactly the products of the TPU kernel and of the plain
+// version, in another order.
 //
-// What bounds it on an H100: the bytes of int8 counts. At the slice's
-// doublet shape (V = 30000, C = 100000, K = 136, Ks = 16) the two
-// matrices are 6 GB, while W is 16 MB and the outputs about 120 MB.
-// The Pallas design keeps a whole (V, 128) panel of each matrix in
-// 100 MB of VMEM and forms loglik and S from that one resident panel;
-// an SM has 227 KB of shared memory, so that cannot carry over. This
-// first design reads the counts twice, once per kernel, each time
-// exactly once and in full rows of 32 bytes:
+// What bounds it on an H100. At the doublet shape (V = 30000,
+// C = 100000, K = 136, Ks = 16) the E-step is 1.6 TFLOP and the
+// statistics 0.2 TFLOP; the counts are 6 GB, so two reads of them take
+// about 3.6 ms at 3.35 TB/s, and that is the floor of this two-pass
+// design. The first design ran both contractions on the CUDA cores at
+// about 15 TFLOP/s (117 ms). Both now run on the tensor cores (wgmma,
+// hopper_gemm.cuh), fed by rings of shared-memory stages (the weights
+// by TMA, the counts by cp.async):
 //
-//   estep_kernel: one block per 64 cells, looping over V in tiles of 16
-//     variants staged through shared memory; loglik (64 x K) stays in
-//     registers; the softmax runs in the epilogue, one warp per cell;
-//     each block writes id, loglik and one (lb_p, kl_id) partial.
-//   stats_kernel: one block per 64 variants, looping over all cells in
-//     tiles of 32 in a fixed order, forming S1 and SS from the counts
-//     and bf16(id); block 0 also sums the scalar partials in block
-//     order.
+//   estep_kernel: one block per 128 cells (64 a warpgroup), looping over
+//     column tiles of K (at most 256 columns, so any K up to kMaxK is
+//     taken) and, for each, over V in k-blocks of 64 variants. AD^T is
+//     M-major in memory (cells contiguous), so A is built in registers
+//     from the (64 variants x 128 cells) count tile staged in shared
+//     memory: a warp's fragment rows g and g + 8 are its cells 2g and
+//     2g + 1, so each bf16 pair is two bytes of one cell column. B is
+//     W^T, which the wrapper writes K-major, (2, K, ldv) bf16. Each tile
+//     of loglik goes to ll_out; after the last
+//     tile the block reads its rows back and runs the softmax, one warp
+//     per cell, writing id, loglik, bf16(id[:, :Ks]) transposed into the
+//     (Ks, ldc) scratch that is the statistics' B, and one
+//     (lb_p, kl_id) partial per block.
+//   hopper::rows_kernel with the int8 codec: S = [AD; DP] bf16(id), one
+//     block per 128 variants, all cells in k-blocks of 64; AD rows are
+//     K-major, so each A register is two adjacent cells of one row.
+//   sum_partials: one thread sums the partials in block order.
 //
-// No atomics, so the results do not change from run to run. The
-// arithmetic is on the CUDA cores (FMA), not the tensor cores: a single
-// pass and tensor-core tiles are later work.
+// The Pallas design forms loglik and S from one (V, 128) panel resident
+// in 100 MB of VMEM; a single pass here would need S summed across cell
+// blocks, by atomics (which change from run to run) or by one (V, 2Ks)
+// buffer per block, so K1 keeps two passes over the counts.
+//
+// No atomics, so the results do not change from run to run. Count rows
+// may have any length and alignment (hopper_gemm.cuh); ragged V, C, K
+// and Ks are covered by TMA's zero fill of the B boxes past their
+// tensor maps' logical sizes and masked at the stores.
 //
 // Interface: a plain C entry point, loaded with ctypes. It launches on
 // the caller's stream, allocates nothing, and returns
 // cudaGetLastError() (or cudaErrorInvalidValue for shapes it does not
 // take).
 
-#include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_gemm.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxK = 256;
+using namespace hopper;
 
-// estep_kernel tiling
-constexpr int kCellBlock = 64;                 // cells per block
-constexpr int kVarTile = 16;                   // variants per smem tile
-constexpr int kCellGroups = 16;                // threads along cells
-constexpr int kCellsPerThread = kCellBlock / kCellGroups;   // 4
-constexpr int kKGroups = kThreads / kCellGroups;            // 16
+// The most assignment columns K the wrapper sends here (mirrored by
+// vireo_tpu_torch/ops/fused_em.py::MAX_K). The kernel tiles K and keeps
+// nothing K-sized in registers or shared memory, so it does not set the
+// bound: the outputs do. id and loglik are (C, K) float32 in device
+// memory, 2 x 4 x C x K bytes = 0.82 GB at C = 100000 and K = 1024, and
+// the counts are read once per column tile (four times at K = 1024).
+// n_donor <= 44 gives K = n + C(n, 2) <= 990.
+constexpr int kMaxK = 1024;
 
-// stats_kernel tiling
-constexpr int kVarBlock = 64;                  // variants per block
-constexpr int kCellTile = 32;                  // cells per smem tile
-constexpr int kSGroups = 16;                   // threads along stats cols
-constexpr int kVarGroups = kThreads / kSGroups;             // 16
-constexpr int kVarsPerThread = kVarBlock / kVarGroups;      // 4
+constexpr int kCellBlock = kBlockRows;  // cells an E-step block
+constexpr int kVarK = kKBlock;          // variants an E-step k-block
+
+template <int BN_>
+struct EstepShape {
+  static constexpr int BN = BN_;
+  static constexpr int A_PITCH = kCellBlock + 16;
+  static constexpr int B_BYTES = 2 * kVarK * BN * 2;
+  static constexpr int A_BYTES = 2 * kVarK * A_PITCH;
+  static constexpr int STAGE = B_BYTES + A_BYTES;
+  static constexpr int STAGES = ring_depth(STAGE);
+  static constexpr size_t SMEM = (size_t)STAGES * STAGE + kSmemAlign;
+  static_assert(STAGES >= 2, "a ring needs two stages");
+  static_assert(STAGE % kSmemAlign == 0, "stages keep the alignment");
+};
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1)
@@ -80,104 +108,132 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// KPT: k columns per thread, >= ceil(K / kKGroups).
-template <int KPT>
-__global__ void __launch_bounds__(kThreads) estep_kernel(
-    const int8_t* __restrict__ ad, const int8_t* __restrict__ dp,
-    const __nv_bfloat16* __restrict__ w, const float* __restrict__ prior,
+template <int BN>
+__global__ void __launch_bounds__(kBlockThreads, 1) estep_kernel(
+    const uint8_t* __restrict__ ad, const uint8_t* __restrict__ dp, int V,
+    int C, const __grid_constant__ CUtensorMap wt_map,
+    const float* __restrict__ prior, int K, int Ks,
     float* __restrict__ id_out, float* __restrict__ ll_out,
-    float* __restrict__ partials, int V, int C, int K) {
-  extern __shared__ float smem[];
-  // main loop: a_s, d_s [kVarTile][kCellBlock], w_s [kVarTile][2K]
-  float* a_s = smem;
-  float* d_s = a_s + kVarTile * kCellBlock;
-  float* w_s = d_s + kVarTile * kCellBlock;
-  // epilogue (reuses the same memory): ll_s [kCellBlock][K]
-  float* ll_s = smem;
-  __shared__ float red_s[2][kThreads / 32];
+    __nv_bfloat16* __restrict__ id_t, long long ldc,
+    float* __restrict__ partials) {
+  using S = EstepShape<BN>;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  __shared__ float red_s[2][kBlockThreads / 32];
+  __shared__ uint64_t b_full[S::STAGES];
 
   const int tid = threadIdx.x;
-  const int tc = tid % kCellGroups;
-  const int tk = tid / kCellGroups;
-  const int two_k = 2 * K;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
   const long long c0 = (long long)blockIdx.x * kCellBlock;
+  const int nkb = (V + kVarK - 1) / kVarK;
+  const int total = nkb * ((K + S::BN - 1) / S::BN);
 
-  float acc[kCellsPerThread][KPT];
-#pragma unroll
-  for (int i = 0; i < kCellsPerThread; ++i)
-#pragma unroll
-    for (int j = 0; j < KPT; ++j) acc[i][j] = 0.f;
+  auto stage = [&](int i) { return smem + (size_t)i * S::STAGE; };
+  // W^T by TMA (one thread), the counts by every thread's cp.async
+  auto load = [&](int f) {
+    uint8_t* st = stage(f % S::STAGES);
+    const int v0 = (f % nkb) * kVarK;
+    if (tid == 0)
+      load_b<2, S::BN, kVarK>(st, &wt_map, &b_full[f % S::STAGES],
+                              (f / nkb) * S::BN, v0);
+    load_byte_rows<kVarK, kCellBlock>(st + S::B_BYTES, ad, v0, V, C, c0);
+    load_byte_rows<kVarK, kCellBlock>(st + S::B_BYTES + kVarK * S::A_PITCH,
+                                      dp, v0, V, C, c0);
+  };
 
-  for (int v0 = 0; v0 < V; v0 += kVarTile) {
-    for (int idx = tid; idx < kVarTile * kCellBlock; idx += kThreads) {
-      const int r = idx / kCellBlock;
-      const long long v = v0 + r;
-      const long long c = c0 + idx % kCellBlock;
-      float a = 0.f, d = 0.f;
-      if (v < V && c < C) {
-        const size_t off = (size_t)v * (size_t)C + (size_t)c;
-        a = (float)ad[off];
-        d = (float)dp[off];
-      }
-      a_s[idx] = a;
-      d_s[idx] = d;
-    }
-    for (int idx = tid; idx < kVarTile * two_k; idx += kThreads) {
-      const long long v = v0 + idx / two_k;
-      w_s[idx] = (v < V)
-          ? __bfloat162float(w[(size_t)v * two_k + idx % two_k]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < kVarTile; ++r) {
-      float a[kCellsPerThread], d[kCellsPerThread];
+  float acc[BN / 2];
 #pragma unroll
-      for (int i = 0; i < kCellsPerThread; ++i) {
-        a[i] = a_s[r * kCellBlock + tc + kCellGroups * i];
-        d[i] = d_s[r * kCellBlock + tc + kCellGroups * i];
-      }
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+  if (tid == 0)
+    for (int i = 0; i < S::STAGES; ++i) mbar_init(&b_full[i]);
+  __syncthreads();
 #pragma unroll
-      for (int j = 0; j < KPT; ++j) {
-        const int k = tk + kKGroups * j;
-        const float wa = (k < K) ? w_s[r * two_k + k] : 0.f;
-        const float wd = (k < K) ? w_s[r * two_k + K + k] : 0.f;
-#pragma unroll
-        for (int i = 0; i < kCellsPerThread; ++i) {
-          acc[i][j] = fmaf(a[i], wa, acc[i][j]);
-          acc[i][j] = fmaf(d[i], wd, acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();
+  for (int f = 0; f < S::STAGES - 1; ++f) {
+    if (f < total) load(f);
+    cp_async_commit();
   }
 
-  // loglik block to shared memory, then one warp per cell row
-#pragma unroll
-  for (int i = 0; i < kCellsPerThread; ++i)
-#pragma unroll
-    for (int j = 0; j < KPT; ++j) {
-      const int k = tk + kKGroups * j;
-      if (k < K) ll_s[(tc + kCellGroups * i) * K + k] = acc[i][j];
-    }
-  __syncthreads();
+  // this warp's 16 cells; fragment row g is cell cb + 2g, row g + 8 is
+  // cell cb + 2g + 1
+  const int cb = wg * 64 + warp * 16 + 2 * g;
 
-  const int warp = tid / 32, lane = tid % 32;
+  for (int f = 0; f < total; ++f) {
+    cp_async_wait<S::STAGES - 2>();
+    __syncthreads();
+    mbar_wait(&b_full[f % S::STAGES], (f / S::STAGES) & 1);
+
+    const uint8_t* st = stage(f % S::STAGES);
+    const long long v0 = (long long)(f % nkb) * kVarK;
+    uint32_t frag[2][kVarK / 16][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const uint8_t* src = m ? dp : ad;
+      const uint8_t* base = st + S::B_BYTES + m * kVarK * S::A_PITCH;
+#pragma unroll
+      for (int s = 0; s < kVarK / 16; ++s) {
+        const uint8_t* p[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          // variants 16s + 2c, +1, +8, +9 of the k-block
+          const int r = 16 * s + 2 * c + (q & 1) + 8 * (q >> 1);
+          p[q] = byte_row(base + r * S::A_PITCH, src, v0 + r, C, c0) + cb;
+        }
+        frag[m][s][0] = bf16_pair(p[0][0], p[1][0]);
+        frag[m][s][1] = bf16_pair(p[0][1], p[1][1]);
+        frag[m][s][2] = bf16_pair(p[2][0], p[3][0]);
+        frag[m][s][3] = bf16_pair(p[2][1], p[3][1]);
+      }
+    }
+
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < kVarK / 16; ++s)
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+        wgmma_rs<BN>(acc, frag[m][s], b_desc<BN, kVarK>(st, m, s), 1);
+    wgmma_commit();
+    // the slot of k-block f - 1, which every warpgroup has finished
+    if (f + S::STAGES - 1 < total) load(f + S::STAGES - 1);
+    cp_async_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+
+    if (f % nkb == nkb - 1) {  // the column tile is done: store it
+      const int k0 = (f / nkb) * S::BN;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const long long cell = c0 + cb + ((i >> 1) & 1);
+        const int k = k0 + 8 * (i >> 2) + 2 * c + (i & 1);
+        if (cell < C && k < K) ll_out[cell * K + k] = acc[i];
+        acc[i] = 0.f;
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the block's loglik rows are written
+
   float lb = 0.f, kl = 0.f;
-  for (int cl = warp; cl < kCellBlock; cl += kThreads / 32) {
-    const long long c = c0 + cl;
-    if (c >= C) break;                      // uniform across the warp
-    const float* row = ll_s + cl * K;
-    float m = -INFINITY;
-    for (int k = lane; k < K; k += 32) m = fmaxf(m, row[k] + prior[k]);
-    m = warp_max(m);
-    float s = 0.f;
-    for (int k = lane; k < K; k += 32) s += expf(row[k] + prior[k] - m);
-    s = warp_sum(s);
+  for (int cl = tid / 32; cl < kCellBlock; cl += kBlockThreads / 32) {
+    const long long cell = c0 + cl;
+    if (cell >= C) break;                   // uniform across the warp
+    const float* row = ll_out + cell * K;
+    float mx = -INFINITY;
+    for (int k = lane; k < K; k += 32) mx = fmaxf(mx, row[k] + prior[k]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int k = lane; k < K; k += 32) sum += expf(row[k] + prior[k] - mx);
+    sum = warp_sum(sum);
     for (int k = lane; k < K; k += 32) {
       const float l = row[k];
-      const float p = expf(l + prior[k] - m) / s;
-      id_out[(size_t)c * K + k] = p;
-      ll_out[(size_t)c * K + k] = l;
+      const float p = expf(l + prior[k] - mx) / sum;
+      id_out[cell * K + k] = p;
+      // the bf16 rounding of the id that feeds S (pallas_em.py:72)
+      if (k < Ks) id_t[k * ldc + cell] = __float2bfloat16(p);
       lb += l * p;
       if (p > 0.f) kl += p * (logf(p) - prior[k]);
     }
@@ -185,152 +241,52 @@ __global__ void __launch_bounds__(kThreads) estep_kernel(
   lb = warp_sum(lb);
   kl = warp_sum(kl);
   if (lane == 0) {
-    red_s[0][warp] = lb;
-    red_s[1][warp] = kl;
+    red_s[0][tid / 32] = lb;
+    red_s[1][tid / 32] = kl;
   }
   __syncthreads();
   if (tid == 0) {
-    float tl = 0.f, tk2 = 0.f;
-    for (int i = 0; i < kThreads / 32; ++i) {
+    float tl = 0.f, tk = 0.f;
+    for (int i = 0; i < kBlockThreads / 32; ++i) {
       tl += red_s[0][i];
-      tk2 += red_s[1][i];
+      tk += red_s[1][i];
     }
     partials[2 * blockIdx.x] = tl;
-    partials[2 * blockIdx.x + 1] = tk2;
+    partials[2 * blockIdx.x + 1] = tk;
   }
 }
 
-// SPT: stats columns per thread, >= ceil(Ks / kSGroups).
-template <int SPT>
-__global__ void __launch_bounds__(kThreads) stats_kernel(
-    const int8_t* __restrict__ ad, const int8_t* __restrict__ dp,
-    const float* __restrict__ id, float* __restrict__ S,
-    const float* __restrict__ partials, float* __restrict__ scal,
-    int V, int C, int K, int Ks, int n_partials) {
-  extern __shared__ float smem[];
-  float* a_s = smem;                               // [kVarBlock][kCellTile]
-  float* d_s = a_s + kVarBlock * kCellTile;        // [kVarBlock][kCellTile]
-  float* i_s = d_s + kVarBlock * kCellTile;        // [kCellTile][Ks]
-
-  const int tid = threadIdx.x;
-  const int ts = tid % kSGroups;
-  const int tv = tid / kSGroups;
-  const long long v0 = (long long)blockIdx.x * kVarBlock;
-
-  float sa[kVarsPerThread][SPT], sd[kVarsPerThread][SPT];
-#pragma unroll
-  for (int i = 0; i < kVarsPerThread; ++i)
-#pragma unroll
-    for (int j = 0; j < SPT; ++j) {
-      sa[i][j] = 0.f;
-      sd[i][j] = 0.f;
-    }
-
-  for (long long c0 = 0; c0 < C; c0 += kCellTile) {
-    for (int idx = tid; idx < kVarBlock * kCellTile; idx += kThreads) {
-      const long long v = v0 + idx / kCellTile;
-      const long long c = c0 + idx % kCellTile;
-      float a = 0.f, d = 0.f;
-      if (v < V && c < C) {
-        const size_t off = (size_t)v * (size_t)C + (size_t)c;
-        a = (float)ad[off];
-        d = (float)dp[off];
-      }
-      a_s[idx] = a;
-      d_s[idx] = d;
-    }
-    for (int idx = tid; idx < kCellTile * Ks; idx += kThreads) {
-      const long long c = c0 + idx / Ks;
-      // the bf16 rounding of the id that feeds S (pallas_em.py:72)
-      i_s[idx] = (c < C)
-          ? __bfloat162float(__float2bfloat16(id[(size_t)c * K + idx % Ks]))
-          : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int cc = 0; cc < kCellTile; ++cc) {
-      float a[kVarsPerThread], d[kVarsPerThread];
-#pragma unroll
-      for (int i = 0; i < kVarsPerThread; ++i) {
-        a[i] = a_s[(tv + kVarGroups * i) * kCellTile + cc];
-        d[i] = d_s[(tv + kVarGroups * i) * kCellTile + cc];
-      }
-#pragma unroll
-      for (int j = 0; j < SPT; ++j) {
-        const int k = ts + kSGroups * j;
-        const float p = (k < Ks) ? i_s[cc * Ks + k] : 0.f;
-#pragma unroll
-        for (int i = 0; i < kVarsPerThread; ++i) {
-          sa[i][j] = fmaf(a[i], p, sa[i][j]);
-          sd[i][j] = fmaf(d[i], p, sd[i][j]);
-        }
-      }
-    }
-    __syncthreads();
+// lb_p and kl_id: the per-block partials summed in block order.
+__global__ void sum_partials(const float* __restrict__ partials, int n,
+                             float* __restrict__ scal) {
+  if (threadIdx.x != 0 || blockIdx.x != 0) return;
+  float lb = 0.f, kl = 0.f;
+  for (int b = 0; b < n; ++b) {
+    lb += partials[2 * b];
+    kl += partials[2 * b + 1];
   }
-
-#pragma unroll
-  for (int i = 0; i < kVarsPerThread; ++i) {
-    const long long v = v0 + tv + kVarGroups * i;
-    if (v >= V) continue;
-#pragma unroll
-    for (int j = 0; j < SPT; ++j) {
-      const int k = ts + kSGroups * j;
-      if (k < Ks) {
-        S[(size_t)v * 2 * Ks + k] = sa[i][j];
-        S[(size_t)v * 2 * Ks + Ks + k] = sd[i][j];
-      }
-    }
-  }
-
-  if (blockIdx.x == 0 && tid == 0) {
-    float lb = 0.f, kl = 0.f;
-    for (int b = 0; b < n_partials; ++b) {
-      lb += partials[2 * b];
-      kl += partials[2 * b + 1];
-    }
-    scal[0] = lb;
-    scal[1] = kl;
-  }
+  scal[0] = lb;
+  scal[1] = kl;
 }
 
-// Opt a kernel in to more than 48 KB of dynamic shared memory.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-// Per-thread column counts that are instantiated; a request rounds up.
-constexpr int kPerThread[] = {1, 2, 3, 4, 6, 9, 12, 16};
-
-int round_per_thread(int n) {
-  for (int p : kPerThread)
-    if (p >= n) return p;
-  return -1;
-}
-
-template <int P>
-void estep_launch(int grid, size_t smem, cudaStream_t s, const int8_t* ad,
-                  const int8_t* dp, const __nv_bfloat16* w,
-                  const float* prior, float* id, float* ll, float* part,
-                  int V, int C, int K, cudaError_t* err) {
-  *err = allow_smem(estep_kernel<P>, smem);
-  if (*err != cudaSuccess) return;
-  estep_kernel<P><<<grid, kThreads, smem, s>>>(ad, dp, w, prior, id, ll,
-                                                part, V, C, K);
-}
-
-template <int P>
-void stats_launch(int grid, size_t smem, cudaStream_t s, const int8_t* ad,
-                  const int8_t* dp, const float* id, float* S,
-                  const float* part, float* scal, int V, int C, int K,
-                  int Ks, int n_part, cudaError_t* err) {
-  *err = allow_smem(stats_kernel<P>, smem);
-  if (*err != cudaSuccess) return;
-  stats_kernel<P><<<grid, kThreads, smem, s>>>(ad, dp, id, S, part, scal,
-                                                V, C, K, Ks, n_part);
+template <int BN>
+cudaError_t launch_estep(int grid, cudaStream_t s, const uint8_t* ad,
+                         const uint8_t* dp, int V, int C, const void* wt,
+                         long long ldv, const float* prior, int K, int Ks,
+                         float* id, float* ll, void* id_t, long long ldc,
+                         float* partials) {
+  using Sh = EstepShape<BN>;
+  auto kernel = estep_kernel<BN>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sh::SMEM);
+  if (err != cudaSuccess) return err;
+  CUtensorMap wt_map;
+  if (!encode_b(&wt_map, wt, 2, K, V, ldv, Sh::BN))
+    return cudaErrorInvalidValue;
+  kernel<<<grid, kBlockThreads, Sh::SMEM, s>>>(
+      ad, dp, V, C, wt_map, prior, K, Ks, id, ll, (__nv_bfloat16*)id_t, ldc,
+      partials);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -345,61 +301,46 @@ const char* vireo_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// ad, dp: (V, C) int8, row-major. w: (V, 2K) bf16, row-major.
-// prior: (K,) float32. S: (V, 2Ks) float32. id, ll: (C, K) float32.
-// partials: (ceil(C / 64), 2) float32 scratch. scal: (2,) float32.
-int vireo_fused_estep_stats(const void* ad, const void* dp, const void* w,
+// ad, dp: (V, C) int8, row-major. wt: (2, K, ldv) bf16, W^T ([Wa | Wd]
+// rounded to bf16, transposed), variants contiguous. prior: (K,)
+// float32. S: (V, 2Ks) float32. id, ll: (C, K) float32. id_t: (Ks, ldc)
+// bf16 scratch. ldv >= V and ldc >= C are multiples of 8 (TMA's 16-byte
+// row stride); nothing past V or C in a row is read. partials:
+// (ceil(C / 128), 2) float32 scratch. scal: (2,) float32.
+int vireo_fused_estep_stats(const void* ad, const void* dp, const void* wt,
                             const void* prior, void* S, void* id, void* ll,
-                            void* partials, void* scal, int V, int C, int K,
-                            int Ks, void* stream) {
-  if (V <= 0 || C <= 0 || K <= 0 || K > kMaxK || Ks <= 0 || Ks > K)
+                            void* id_t, void* partials, void* scal, int V,
+                            int C, int K, int Ks, int ldv, int ldc,
+                            void* stream) {
+  if (V <= 0 || C <= 0 || K <= 0 || K > kMaxK || Ks <= 0 || Ks > K ||
+      V > 0x7FFFFFFF - kVarK)
     return (int)cudaErrorInvalidValue;
-  const int pk = round_per_thread((K + kKGroups - 1) / kKGroups);
-  const int ps = round_per_thread((Ks + kSGroups - 1) / kSGroups);
-  if (pk < 0 || ps < 0) return (int)cudaErrorInvalidValue;
-
   cudaStream_t s = (cudaStream_t)stream;
-  const int8_t* a8 = (const int8_t*)ad;
-  const int8_t* d8 = (const int8_t*)dp;
-  const int grid_a = (C + kCellBlock - 1) / kCellBlock;
-  const int grid_b = (V + kVarBlock - 1) / kVarBlock;
-  size_t smem_main = (size_t)(2 * kVarTile * kCellBlock + kVarTile * 2 * K)
-                     * sizeof(float);
-  size_t smem_epi = (size_t)kCellBlock * K * sizeof(float);
-  const size_t smem_a = smem_main > smem_epi ? smem_main : smem_epi;
-  const size_t smem_b = (size_t)(2 * kVarBlock * kCellTile + kCellTile * Ks)
-                        * sizeof(float);
+  const uint8_t* a8 = (const uint8_t*)ad;
+  const uint8_t* d8 = (const uint8_t*)dp;
+  const int grid = (C + kCellBlock - 1) / kCellBlock;
 
-  cudaError_t err = cudaSuccess;
-#define VIREO_ESTEP(P)                                                     \
-  case P:                                                                  \
-    estep_launch<P>(grid_a, smem_a, s, a8, d8, (const __nv_bfloat16*)w,    \
-                    (const float*)prior, (float*)id, (float*)ll,           \
-                    (float*)partials, V, C, K, &err);                      \
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (hopper::pick_tile(K, 256)) {
+#define VIREO_ESTEP(BN)                                                    \
+  case BN:                                                                 \
+    err = launch_estep<BN>(grid, s, a8, d8, V, C, wt, ldv,                 \
+                           (const float*)prior, K, Ks, (float*)id,         \
+                           (float*)ll, id_t, ldc, (float*)partials);       \
     break;
-  switch (pk) {
-    VIREO_ESTEP(1) VIREO_ESTEP(2) VIREO_ESTEP(3) VIREO_ESTEP(4)
-    VIREO_ESTEP(6) VIREO_ESTEP(9) VIREO_ESTEP(12) VIREO_ESTEP(16)
-    default: return (int)cudaErrorInvalidValue;
-  }
+    VIREO_ESTEP(16) VIREO_ESTEP(32) VIREO_ESTEP(64) VIREO_ESTEP(96)
+    VIREO_ESTEP(128) VIREO_ESTEP(160) VIREO_ESTEP(192) VIREO_ESTEP(224)
+    VIREO_ESTEP(256)
 #undef VIREO_ESTEP
-  if (err != cudaSuccess) return (int)err;
-  err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return (int)err;
 
-#define VIREO_STATS(P)                                                     \
-  case P:                                                                  \
-    stats_launch<P>(grid_b, smem_b, s, a8, d8, (const float*)id,           \
-                    (float*)S, (const float*)partials, (float*)scal, V, C, \
-                    K, Ks, grid_a, &err);                                  \
-    break;
-  switch (ps) {
-    VIREO_STATS(1) VIREO_STATS(2) VIREO_STATS(3) VIREO_STATS(4)
-    VIREO_STATS(6) VIREO_STATS(9) VIREO_STATS(12) VIREO_STATS(16)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef VIREO_STATS
+  err = hopper::launch_rows_any<hopper::Int8, 1>(
+      a8, d8, C, V, id_t, ldc, C, (float*)S, (float*)S + Ks, 2LL * Ks, Ks,
+      s);
   if (err != cudaSuccess) return (int)err;
+
+  sum_partials<<<1, 32, 0, s>>>((const float*)partials, grid, (float*)scal);
   return (int)cudaGetLastError();
 }
 

@@ -9,44 +9,54 @@
 //
 // Layout (vireo_tpu_torch/ops/packed.py): AD and DP are (V, Cb) uint8,
 // Cb = ceil(C / 2), row-major and unpadded; byte [v, j] holds cell 2j in
-// its low nibble and cell 2j + 1 in its high nibble. Weights are float32,
-// row-major: W (C, N); Wa, Wd (V, N). Outputs are float32: S1, SS (V, N);
-// out (C, N) in cell order. Ragged V, Cb and N are masked here, and so is
-// the high nibble of a row's last byte when C is odd; the caller pads
-// nothing. Offsets are 64-bit: one matrix may hold more than 2^31 bytes.
+// its low nibble and cell 2j + 1 in its high nibble. Offsets are 64-bit:
+// one matrix may hold more than 2^31 bytes.
 //
-// What bounds them on an H100: arithmetic on the CUDA cores. A packed
-// byte carries 2 cells x N columns x 2 flop = 4N flop for each of the two
-// matrices; the CUDA cores' ridge point is about 20 flop/byte (67 TFLOP/s
-// float32 at 3.35 TB/s), so every N this path uses (16, 21, 136, 320) is
-// past it. Both kernels therefore read each byte from device memory about
-// once per block of N columns and spend their time in FMA, in the layout
-// of a plain float32 GEMM:
+// K2 on the tensor cores. What bounds it on an H100: a packed byte
+// carries 2 cells x N columns x 2 flop = 4N flop for each matrix, far
+// past the ridge point of the CUDA cores (about 20 flop/byte), so the
+// first, CUDA-core design ran at 28 of their 67 TFLOP/s. Nibbles are
+// exact in bf16, but W is float32, so the wrapper splits it once per call
+// into three bf16 terms, W = hi + mid + lo exactly (ops/packed.py,
+// `split_bf16x3`), written transposed as (3, N, ldw), ldw = C rounded up
+// to a multiple of 8 (TMA's 16-byte row stride):
+// a nibble times a bf16 term is exact in float32, so the kernel forms
+// exactly the products the plain version sums, and the tensor work
+// triples (11.5 TFLOP at N = 320, C = 100000, V = 30000, against 989
+// TFLOP/s of dense bf16). The tensor cores truncate into their float32
+// accumulators at every k16 step, so the kernel sums each k-block of
+// 64 cells there and adds it to float32 sums on the CUDA cores
+// (kRowsMaxTile in hopper_gemm.cuh): on an H100, at N = 320 and dense
+// random counts, 1.2 from the float64 sums where one sum on the tensor
+// cores erred by 153 (cuBLAS's float32: 0.3). The kernel is
+// `hopper::rows_kernel` (hopper_gemm.cuh) with the nibble codec: each
+// packed byte is one A-fragment register (a bf16 pair of adjacent cells),
+// converted in registers, so no float planes are staged; S1 and SS share
+// each B tile. A block owns 128 variants x at most 80 columns; at
+// N = 320 that is four column tiles, and each block pulls C x 80 x 3 x
+// 2 B = 48 MB of split W through its ring, 45 GB in all, from L2: the
+// blocks in flight walk the cells in step, so the 192 MB of split W is
+// read from device memory about once per wave of blocks. The counts,
+// 3 GB, are read from device memory about once and from L2 once per
+// column tile. Measured on an H100 (PERF.md): with W copied by every
+// thread's cp.async the kernel took 30 ms at N = 320, and its copies
+// alone, the MMAs left out, 12.6 ms: 16-byte copies could not bring the
+// split W in fast enough. W comes by TMA, one box per plane and stage:
+// 21.2 ms with one sum on the tensor cores and 160-column tiles, 29.7 ms
+// with the sums added per k-block. About 1.3 us of each k-block's time
+// goes to work that does not overlap the MMAs (the A fragments, the
+// barriers, the adds), which is why the narrower tiles cost time.
 //
-//   suff_kernel (K2): a block owns 128 variant rows x BN columns of BOTH
-//     S1 and SS, so each staged W tile serves AD and DP. It loops over all
-//     cells in tiles of 16 bytes (32 cells): the bytes are loaded once,
-//     unpacked in registers into four float planes (AD lo/hi, DP lo/hi) in
-//     shared memory, and W's even and odd rows of the tile are staged
-//     beside them. Each thread keeps a TA x TN tile of S1 and of SS in
-//     registers.
-//   loglik_kernel (K3): a block owns 128 cell pairs (bytes) x BN columns
-//     and loops over V in tiles of 16 variants, staging the unpacked
-//     planes, Wa and Wd. Each thread keeps TA x TN even cells and TA x TN
-//     odd cells, and writes cells 2j and 2j + 1 straight to cell order, so
-//     there is no interleave pass (the TPU's caller interleaves,
-//     packed.py:222).
-//
-// The N tile is picked by N (16, 32 or 64 columns), so the refit's N = 16
-// keeps every thread busy. Blocks that share rows and differ in their N
-// tile are adjacent in the grid, so their byte reads meet in L2.
+// K3 (`loglik_kernel`) is the first, CUDA-core design: a block owns 128
+// cell pairs (bytes) x BN columns and loops over V in tiles of 16
+// variants, staging unpacked float planes, Wa and Wd in shared memory;
+// each thread keeps TA x TN even cells and TA x TN odd cells and writes
+// cells 2j and 2j + 1 straight to cell order (the TPU's caller
+// interleaves, packed.py:222). Its N tile is picked by N (16, 32 or 64
+// columns). It is the next kernel to move to the tensor cores.
 //
 // No atomics: each output element belongs to one thread of one block and
 // is summed in a fixed order, so results do not change between runs.
-// Products and sums are float32 (FMA), as the TPU kernels accumulate.
-// The faster design is the tensor cores: nibbles are exact in bf16, and
-// the float32 weights would need a split into bf16 terms, or TF32, with
-// a stated tolerance (PERF.md, section 7).
 //
 // Interface: plain C entry points, loaded with ctypes. Each launches on
 // the caller's stream, allocates nothing, and returns cudaGetLastError()
@@ -56,13 +66,13 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "hopper_gemm.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRowsBlock = 128;   // K2: variants a block; K3: bytes a block
-constexpr int kByteTile = 16;     // K2: packed bytes (32 cells) a tile
-constexpr int kVarTile = 16;      // K3: variants a tile
-constexpr int kPad = 4;           // K2 plane row padding, keeps 16-B rows
+constexpr int kRowsBlock = 128;   // bytes (cell pairs) a block
+constexpr int kVarTile = 16;      // variants a tile
 
 // T consecutive floats from shared memory, in 16- or 8-byte loads.
 template <int T>
@@ -95,100 +105,6 @@ __device__ __forceinline__ unsigned packed_byte(const uint8_t* __restrict__ p,
                                                 long long C) {
   const unsigned b = p[off];
   return (2 * j + 1 < C) ? b : (b & 0xFu);
-}
-
-// TA: variant rows a thread; TN: columns a thread; NTN: threads along N.
-template <int TA, int TN, int NTN>
-__global__ void __launch_bounds__(kThreads) suff_kernel(
-    const uint8_t* __restrict__ ad, const uint8_t* __restrict__ dp,
-    const float* __restrict__ w, float* __restrict__ s1,
-    float* __restrict__ ss, int V, int C, int N, int n_tiles) {
-  constexpr int NTA = kThreads / NTN;
-  constexpr int BV = NTA * TA;
-  constexpr int BN = NTN * TN;
-  constexpr int LD = BV + kPad;
-  static_assert(BV == kRowsBlock, "a block owns kRowsBlock variants");
-  // planes[0..3] = AD lo, AD hi, DP lo, DP hi: [kByteTile][LD]
-  __shared__ __align__(16) float planes[4][kByteTile * LD];
-  __shared__ __align__(16) float w_s[2 * kByteTile * BN];
-
-  const int tid = threadIdx.x;
-  const int tn = tid % NTN;
-  const int ta = tid / NTN;
-  const int n0 = (blockIdx.x % n_tiles) * BN;
-  const long long v0 = (long long)(blockIdx.x / n_tiles) * BV;
-  const long long Cl = C;
-  const long long Cb = (Cl + 1) / 2;
-
-  float acc1[TA][TN], acc2[TA][TN];
-#pragma unroll
-  for (int i = 0; i < TA; ++i)
-#pragma unroll
-    for (int k = 0; k < TN; ++k) {
-      acc1[i][k] = 0.f;
-      acc2[i][k] = 0.f;
-    }
-
-  for (long long j0 = 0; j0 < Cb; j0 += kByteTile) {
-    for (int idx = tid; idx < BV * kByteTile; idx += kThreads) {
-      const int r = idx / kByteTile;
-      const int jj = idx % kByteTile;
-      const long long v = v0 + r;
-      const long long j = j0 + jj;
-      unsigned a = 0, d = 0;
-      if (v < V && j < Cb) {
-        const size_t off = (size_t)v * (size_t)Cb + (size_t)j;
-        a = packed_byte(ad, off, j, Cl);
-        d = packed_byte(dp, off, j, Cl);
-      }
-      planes[0][jj * LD + r] = (float)(a & 0xFu);
-      planes[1][jj * LD + r] = (float)(a >> 4);
-      planes[2][jj * LD + r] = (float)(d & 0xFu);
-      planes[3][jj * LD + r] = (float)(d >> 4);
-    }
-    // W rows 2 j0 .. 2 j0 + 2 kByteTile - 1: row 2jj is the even cell of
-    // byte jj, row 2jj + 1 the odd one
-    for (int idx = tid; idx < 2 * kByteTile * BN; idx += kThreads) {
-      const long long c = 2 * j0 + idx / BN;
-      const int n = n0 + idx % BN;
-      w_s[idx] = (c < Cl && n < N) ? w[(size_t)c * (size_t)N + n] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int jj = 0; jj < kByteTile; ++jj) {
-      float al[TA], ah[TA], dl[TA], dh[TA], we[TN], wo[TN];
-      load_row(al, &planes[0][jj * LD + ta * TA]);
-      load_row(ah, &planes[1][jj * LD + ta * TA]);
-      load_row(dl, &planes[2][jj * LD + ta * TA]);
-      load_row(dh, &planes[3][jj * LD + ta * TA]);
-      load_row(we, &w_s[(2 * jj) * BN + tn * TN]);
-      load_row(wo, &w_s[(2 * jj + 1) * BN + tn * TN]);
-#pragma unroll
-      for (int i = 0; i < TA; ++i)
-#pragma unroll
-        for (int k = 0; k < TN; ++k) {
-          acc1[i][k] = fmaf(al[i], we[k], acc1[i][k]);
-          acc1[i][k] = fmaf(ah[i], wo[k], acc1[i][k]);
-          acc2[i][k] = fmaf(dl[i], we[k], acc2[i][k]);
-          acc2[i][k] = fmaf(dh[i], wo[k], acc2[i][k]);
-        }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TA; ++i) {
-    const long long v = v0 + ta * TA + i;
-    if (v >= V) continue;
-#pragma unroll
-    for (int k = 0; k < TN; ++k) {
-      const int n = n0 + tn * TN + k;
-      if (n < N) {
-        s1[(size_t)v * (size_t)N + n] = acc1[i][k];
-        ss[(size_t)v * (size_t)N + n] = acc2[i][k];
-      }
-    }
-  }
 }
 
 // TA: bytes (cell pairs) a thread; TN: columns a thread; NTN: threads
@@ -297,17 +213,6 @@ inline bool grid_size(long long rows, int N, int bn, int* n_tiles,
 }
 
 template <int TA, int TN, int NTN>
-int launch_suff(const uint8_t* ad, const uint8_t* dp, const float* w,
-                float* s1, float* ss, int V, int C, int N, cudaStream_t s) {
-  int n_tiles, blocks;
-  if (!grid_size(V, N, TN * NTN, &n_tiles, &blocks))
-    return (int)cudaErrorInvalidValue;
-  suff_kernel<TA, TN, NTN><<<blocks, kThreads, 0, s>>>(ad, dp, w, s1, ss, V,
-                                                       C, N, n_tiles);
-  return (int)cudaGetLastError();
-}
-
-template <int TA, int TN, int NTN>
 int launch_loglik(const uint8_t* ad, const uint8_t* dp, const float* wa,
                   const float* wd, float* out, int V, int C, int N,
                   cudaStream_t s) {
@@ -327,23 +232,16 @@ const char* vireo_packed_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// ad_p, dp_p: (V, ceil(C / 2)) uint8. w: (C, N) float32. s1, ss: (V, N)
-// float32.
+// ad_p, dp_p: (V, ceil(C / 2)) uint8. w3: (3, N, ldw) bf16, the three
+// terms of W^T, cells contiguous, ldw >= C a multiple of 8. s1, ss:
+// (V, N) float32.
 int vireo_packed_suff_stats(const void* ad_p, const void* dp_p,
-                            const void* w, void* s1, void* ss, int V, int C,
-                            int N, void* stream) {
+                            const void* w3, void* s1, void* ss, int V, int C,
+                            int N, int ldw, void* stream) {
   if (V <= 0 || C <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-  const uint8_t* a = (const uint8_t*)ad_p;
-  const uint8_t* d = (const uint8_t*)dp_p;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (N <= 16)
-    return launch_suff<2, 4, 4>(a, d, (const float*)w, (float*)s1,
-                                (float*)ss, V, C, N, s);
-  if (N <= 32)
-    return launch_suff<4, 4, 8>(a, d, (const float*)w, (float*)s1,
-                                (float*)ss, V, C, N, s);
-  return launch_suff<8, 4, 16>(a, d, (const float*)w, (float*)s1,
-                               (float*)ss, V, C, N, s);
+  return (int)hopper::launch_rows_any<hopper::Nibbles, 3>(
+      (const uint8_t*)ad_p, (const uint8_t*)dp_p, ((long long)C + 1) / 2, V,
+      w3, ldw, C, (float*)s1, (float*)ss, N, N, (cudaStream_t)stream);
 }
 
 // ad_p, dp_p: (V, ceil(C / 2)) uint8. wa, wd: (V, N) float32. out: (C, N)

@@ -18,11 +18,12 @@ import itertools
 import numpy as np
 import torch
 
+from ..ops import fused_em
 from ..ops.counts import DenseCounts
 from ..ops.math import normalize, softmax_from_loglik, digamma_triplet
 
 __all__ = ["add_doublet_theta", "add_doublet_GT", "predict_doublet",
-           "fused_doublet_estep", "doublet_loglik"]
+           "fused_doublet_estep", "doublet_loglik", "takes_fused_estep"]
 
 
 def _pair_idx(n):
@@ -95,15 +96,20 @@ def fused_doublet_estep(counts, gt_both, mu_both, sum_both,
     kernel. Weights are cast to float32 before the kernel rounds them to
     bf16, as in the JAX package. Returns (S1, SS, ID_prob_both,
     logLik_ID), float32."""
-    from ..ops.fused_em import fused_estep_stats
-
     Wfa, Wfd = _doublet_weights(gt_both, mu_both, sum_both)
     prior = torch.as_tensor(np.asarray(log_prior_both),
                             device=counts.device).to(torch.float32)
-    S1, SS, id_prob, loglik, _, _ = fused_estep_stats(
+    S1, SS, id_prob, loglik, _, _ = fused_em.fused_estep_stats(
         counts.ad, counts.dp, Wfa.to(torch.float32), Wfd.to(torch.float32),
         prior.reshape(1, -1), stats_cols=n_donor)
     return S1, SS, id_prob, loglik
+
+
+def takes_fused_estep(counts, n_cols):
+    """Whether the doublet E-step over `n_cols` assignment columns goes
+    through K1: int8 dense counts, and no more columns than K1 takes."""
+    return (isinstance(counts, DenseCounts) and counts.ad.dtype == torch.int8
+            and n_cols <= fused_em.MAX_K)
 
 
 def predict_doublet(vobj, AD, DP=None, update_GT=True, update_ID=True,
@@ -132,7 +138,7 @@ def predict_doublet(vobj, AD, DP=None, update_GT=True, update_ID=True,
         prior_row = np.concatenate(
             [id_prior_np[0] * (1 - doublet_rate_prior),
              np.full(n_pair, doublet_rate_prior / n_pair)])
-        if isinstance(counts, DenseCounts) and counts.ad.dtype == torch.int8:
+        if takes_fused_estep(counts, K + n_pair):
             S1, SS, post, logLik_ID = fused_doublet_estep(
                 counts, gt_both, mu_both, sum_both, np.log(prior_row), K)
             llr = (logLik_ID[:, K:].amax(dim=1)

@@ -3,20 +3,24 @@
 Each kernel source `vireo_tpu_torch/csrc/<name>.cu` has a plain C
 interface. It is compiled by `nvcc` for Hopper (`sm_90a`) into a shared
 library under `vireo_tpu_torch/_build/` (listed in .gitignore) at first
-use, named by a hash of the source and the flags, and loaded with
-ctypes. Nothing is built when a module is imported; a missing `nvcc` or
-a failed build raises.
+use, named by a hash of the source, of the headers it includes from
+`csrc/` (`#include "..."`, followed recursively), and of the flags, and
+loaded with ctypes. nvcc finds those headers beside the source, so no
+include flag is passed. Nothing is built when a module is imported; a
+missing `nvcc` or a failed build raises.
 """
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "source_path",
-           "find_nvcc", "nvcc_command", "library_path", "load_library"]
+           "compiled_files", "find_nvcc", "nvcc_command", "library_path",
+           "load_library"]
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -25,10 +29,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _LOADED = {}
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def source_path(name):
     return CSRC_DIR / (name + ".cu")
+
+
+def compiled_files(name):
+    """The source of kernel library `name` and the headers beside it that
+    it includes, directly or through another header, in a fixed order."""
+    seen, todo = set(), [source_path(name)]
+    while todo:
+        path = todo.pop()
+        if path in seen or not path.is_file():
+            continue
+        seen.add(path)
+        todo += [path.parent / h
+                 for h in _LOCAL_INCLUDE.findall(path.read_text())]
+    return sorted(seen)
 
 
 def find_nvcc():
@@ -52,10 +71,11 @@ def nvcc_command(src, out, nvcc="nvcc"):
 
 
 def library_path(name):
-    src = source_path(name)
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / ("lib%s_%s.so" % (name, digest[:16]))
+    h = hashlib.sha256()
+    for path in compiled_files(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / ("lib%s_%s.so" % (name, h.hexdigest()[:16]))
 
 
 def load_library(name):

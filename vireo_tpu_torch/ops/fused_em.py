@@ -10,18 +10,29 @@ One call computes, for int8 counts AD, DP (V, C), weights Wa, Wd
     lb_p    = sum(loglik * id_prob),  kl_id = KL(id_prob || prior)
 
 with W = [Wa | Wd] rounded to bf16 and float32 sums, as the TPU kernel
-rounds them. `fused_estep_stats` launches the CUDA kernel
-(csrc/fused_estep.cu) for tensors on a card and runs the plain version
+rounds them. `fused_estep_stats` launches the CUDA kernels
+(csrc/fused_estep.cu: the E-step and the statistics on the tensor
+cores) for tensors on a card and runs the plain version
 `fused_estep_stats_reference` for tensors on the CPU; on a card it
-launches or raises, and never falls back. `LAUNCHES` counts the
-kernel's launches.
+launches or raises, and never falls back. Either way it takes at most
+`MAX_K` assignment columns. `LAUNCHES` counts the kernel's launches.
 """
 
 import ctypes
 
 import torch
 
-__all__ = ["fused_estep_stats", "fused_estep_stats_reference", "LAUNCHES"]
+__all__ = ["fused_estep_stats", "fused_estep_stats_reference", "LAUNCHES",
+           "MAX_K"]
+
+# The most assignment columns K that fused_estep_stats takes, on the CPU
+# as on a card (csrc/fused_estep.cu::kMaxK, returned by
+# vireo_fused_estep_max_k). The kernel tiles K, so its registers and
+# shared memory do not bound it; the (C, K) float32 id and loglik in
+# device memory do (0.82 GB at 100000 cells). n_donor <= 44 gives a
+# doublet space of K = n + C(n, 2) <= 990 columns; the doublet phase
+# takes the unfused path above MAX_K.
+MAX_K = 1024
 
 # number of fused_estep_stats calls that launched the CUDA kernel
 LAUNCHES = 0
@@ -35,13 +46,16 @@ def _library():
         from ._build import load_library
         lib = load_library("fused_estep")
         ptr = ctypes.c_void_p
-        lib.vireo_fused_estep_stats.argtypes = [ptr] * 9 + [
-            ctypes.c_int] * 4 + [ptr]
+        lib.vireo_fused_estep_stats.argtypes = [ptr] * 10 + [
+            ctypes.c_int] * 6 + [ptr]
         lib.vireo_fused_estep_stats.restype = ctypes.c_int
-        lib.vireo_fused_estep_cell_block.argtypes = []
-        lib.vireo_fused_estep_cell_block.restype = ctypes.c_int
-        lib.vireo_fused_estep_max_k.argtypes = []
-        lib.vireo_fused_estep_max_k.restype = ctypes.c_int
+        for fn in (lib.vireo_fused_estep_cell_block,
+                   lib.vireo_fused_estep_max_k):
+            fn.argtypes = []
+            fn.restype = ctypes.c_int
+        if lib.vireo_fused_estep_max_k() != MAX_K:
+            raise RuntimeError("fused_estep.cu takes %d columns, MAX_K is %d"
+                               % (lib.vireo_fused_estep_max_k(), MAX_K))
         lib.vireo_cuda_error_string.argtypes = [ctypes.c_int]
         lib.vireo_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -92,7 +106,11 @@ def fused_estep_stats(ad, dp, Wa, Wd, id_log_prior, stats_cols=None):
     Wa, Wd: (V, K) float weights. id_log_prior: (1, K) or (K,).
     stats_cols: only the first `stats_cols` assignment columns feed S1
     and SS (default all K); the doublet phase passes the singlet count.
+    K may not exceed MAX_K (ValueError), on the CPU as on a card.
     """
+    if Wa.shape[1] > MAX_K:
+        raise ValueError("fused_estep_stats takes at most %d assignment "
+                         "columns, got %d" % (MAX_K, Wa.shape[1]))
     if ad.device.type == "cpu":
         return fused_estep_stats_reference(ad, dp, Wa, Wd, id_log_prior,
                                            stats_cols)
@@ -121,14 +139,18 @@ def _launch(ad, dp, Wa, Wd, id_log_prior, stats_cols):
             raise ValueError("%s is on %s, counts on %s"
                              % (name, t.device, device))
     lib = _library()
-    max_k = lib.vireo_fused_estep_max_k()
-    if K > max_k:
-        raise ValueError("the kernel takes at most %d assignment columns, "
-                         "got %d" % (max_k, K))
     ad = ad.contiguous()
     dp = dp.contiguous()
-    W = W.contiguous()
     prior = prior.contiguous()
+    # the kernels' B operands, K-major: W^T for the E-step and
+    # bf16(id[:, :Ks])^T (written by the E-step) for the statistics. The
+    # kernels read them through tensor maps of their logical sizes; a
+    # row is padded to a whole 16 bytes (TMA's stride unit), and nothing
+    # past V or C in it is read.
+    ldv, ldc = -(-V // 8) * 8, -(-C // 8) * 8
+    wt = torch.empty((2, K, ldv), dtype=torch.bfloat16, device=device)
+    wt[:, :, :V] = W.t().reshape(2, K, V)
+    id_t = torch.empty((Ks, ldc), dtype=torch.bfloat16, device=device)
     cb = lib.vireo_fused_estep_cell_block()
     f32 = dict(dtype=torch.float32, device=device)
     S = torch.empty((V, 2 * Ks), **f32)
@@ -139,9 +161,10 @@ def _launch(ad, dp, Wa, Wd, id_log_prior, stats_cols):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.vireo_fused_estep_stats(
-            ad.data_ptr(), dp.data_ptr(), W.data_ptr(), prior.data_ptr(),
+            ad.data_ptr(), dp.data_ptr(), wt.data_ptr(), prior.data_ptr(),
             S.data_ptr(), id_prob.data_ptr(), loglik.data_ptr(),
-            partials.data_ptr(), scal.data_ptr(), V, C, K, Ks, stream)
+            id_t.data_ptr(), partials.data_ptr(), scal.data_ptr(), V, C, K,
+            Ks, ldv, ldc, stream)
     if err != 0:
         raise RuntimeError("fused_estep_stats kernel launch failed: %s "
                            "(code %d)" % (lib.vireo_cuda_error_string(err)

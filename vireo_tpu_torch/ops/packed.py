@@ -19,7 +19,10 @@ The two contractions are the port's K2 and K3:
 - `cell_loglik` (K3): AD.T @ Wa + DP.T @ Wd
 
 For tensors on a card each launches its CUDA kernel
-(csrc/packed_counts.cu, float32 weights only) or raises; for tensors on
+(csrc/packed_counts.cu, float32 weights only) or raises: K2 runs on the
+tensor cores on the three bf16 terms of W that `split_bf16x3` gives,
+which sum to W exactly, so it forms the same products as the plain
+version; K3 runs on the CUDA cores in float32. For tensors on
 the CPU each runs its plain version (`suff_stats_reference`,
 `cell_loglik_reference`), which unpacks a block of rows to the weights'
 type and calls `torch.matmul` on `lo @ W[0::2] + hi @ W[1::2]`; on the
@@ -38,7 +41,8 @@ from .math import log_binom_coeff
 
 __all__ = ["PACK_MAX", "PackedCounts", "pack_dense", "packed_suff_stats",
            "packed_cell_loglik", "suff_stats_reference",
-           "cell_loglik_reference", "LAUNCHES"]
+           "cell_loglik_reference", "split_bf16x3", "split_weights_kmajor",
+           "LAUNCHES"]
 
 PACK_MAX = 15  # the largest count a nibble holds exactly
 
@@ -93,6 +97,33 @@ def cell_loglik_reference(ad_p, dp_p, n_cell, Wa, Wd):
     return torch.stack([even, odd], dim=1).reshape(2 * Cb, N)[:n_cell]
 
 
+def split_bf16x3(W):
+    """Three bf16 tensors hi, mid, lo with hi + mid + lo == W exactly for
+    float32 W with |W| >= 2^-110 or W == 0: hi is W rounded to bf16, and
+    each difference is exact in float32 (the operands lie within a
+    factor 2) and has at most 16, then 8, significant bits. Below 2^-110
+    the last term falls under bf16's subnormal step 2^-133, so the sum
+    is within 2^-134 of W."""
+    hi = W.to(torch.bfloat16)
+    r = W - hi.to(torch.float32)
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.to(torch.float32)).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def split_weights_kmajor(W):
+    """K2's B operand: the three terms of W (n_cell, N) transposed to
+    (3, N, ldw) bf16, cells contiguous. ldw is n_cell rounded up to a
+    whole 16 bytes, the unit of TMA's row strides; the kernel reads no
+    cell past n_cell, and those columns are zero."""
+    C, N = W.shape
+    w3 = torch.zeros((3, N, -(-C // 8) * 8), dtype=torch.bfloat16,
+                     device=W.device)
+    for p, term in enumerate(split_bf16x3(W)):
+        w3[p, :, :C] = term.t()
+    return w3
+
+
 def _library():
     global _LIB
     if _LIB is None:
@@ -100,7 +131,7 @@ def _library():
         lib = load_library("packed_counts")
         ptr = ctypes.c_void_p
         lib.vireo_packed_suff_stats.argtypes = [ptr] * 5 + [
-            ctypes.c_int] * 3 + [ptr]
+            ctypes.c_int] * 4 + [ptr]
         lib.vireo_packed_suff_stats.restype = ctypes.c_int
         lib.vireo_packed_cell_loglik.argtypes = [ptr] * 5 + [
             ctypes.c_int] * 3 + [ptr]
@@ -164,11 +195,12 @@ def packed_suff_stats(ad_p, dp_p, n_cell, W):
         raise ValueError("suff_stats: W has %d rows for %d cells"
                          % (W.shape[0], n_cell))
     V, N = ad_p.shape[0], W.shape[1]
+    w3 = split_weights_kmajor(W)
     S1 = torch.empty((V, N), dtype=torch.float32, device=W.device)
     SS = torch.empty_like(S1)
     _run("suff_stats", _library().vireo_packed_suff_stats,
-         (ad_p.data_ptr(), dp_p.data_ptr(), W.data_ptr(), S1.data_ptr(),
-          SS.data_ptr(), V, n_cell, N), W.device)
+         (ad_p.data_ptr(), dp_p.data_ptr(), w3.data_ptr(), S1.data_ptr(),
+          SS.data_ptr(), V, n_cell, N, w3.shape[2]), W.device)
     return S1, SS
 
 
