@@ -13,17 +13,21 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. K1 against its plain PyTorch version on the card, at the slice's
    shapes (two edge shapes, one with K above 256 and an unaligned C;
    the fit; the 16- and 24-donor doublet phases), with the tolerances
-   below, both times, and the times of K1's two kernels (the E-step and
-   the statistics) from torch.profiler;
+   below, both times, its bound (no single PyTorch call computes the
+   fused E-step and statistics, so it has no library time), and the
+   times of K1's two kernels (the E-step and the statistics) from
+   torch.profiler;
 4. K2 and K3 against their plain versions on the card at the shapes the
    packed rung gives them (edge, warm, refit, doublet and a capacity
-   pool that only the packed rung holds on this card), exactly on
-   integer weights and within a stated bound on float weights, both
-   times, and K2's achieved TFLOP/s; K2 also exactly on weights that
-   need all three of its bf16 terms, with controls that show a kernel
-   dropping a term would fail, and its float error against float64
-   sums beside the plain version's and those of one and two terms (three
-   terms at least K2_TERMS_GAIN times as close as one);
+   pool that only the packed rung holds on this card): exactly on
+   integer weights, exactly on weights that need all three of their
+   bf16 terms, with controls that show a kernel dropping a term would
+   fail, and within a stated bound on float weights; their float error
+   against float64 sums beside the plain version's and those of one and
+   two terms (three terms at least K2_TERMS_GAIN and K3_TERMS_GAIN times
+   as close as one); both times, each kernel's bound and achieved
+   TFLOP/s, and as the library call one cuBLAS float32 torch.matmul on
+   the counts unpacked ahead of the timing, where they fit the card;
 5. the full-size main path on the dense rung: a seeded synthetic pool
    of 30000 variants x 100000 cells x 16 donors with 8% doublets
    through `vireo_wrap(n_init=20, random_seed=0)`, with K1's launch
@@ -35,9 +39,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    run's calls; then both runs again under torch.profiler: each rung's
    device time by kernel and the device's idle share;
 7. small pools on the card against the CPU: the dense rung, then the
-   int8-hybrid, packed-hybrid and COO rungs of a heavy-tailed pool,
-   then a 23-donor pool on the dense rung, whose doublet space
-   (K = 276 columns) goes through K1;
+   int8-hybrid, packed-hybrid and COO rungs of a heavy-tailed pool
+   (each rung's contractions also run twice and must give the same
+   sums bit for bit), then a 23-donor pool on the dense rung, whose
+   doublet space (K = 276 columns) goes through K1;
 8. the CLI on a small synthetic cellSNP folder.
 
 The line before the last is the kernel table as JSON; the last line is
@@ -99,30 +104,45 @@ MAIN = dict(n_var=30000, n_cell=100000, n_donor=16, n_init=20)
 #   float32 products in different orders, which Higham's bound limits to
 #   |err| <= (gamma_n + gamma_m) sum|terms| elementwise,
 #   gamma_n = n u / (1 - n u), u = 2^-24, n and m the terms of one output
-#   on each side: K3 sums 2 n_var on both; K2's plain version sums n_cell
-#   and its kernel 3 n_cell (W = hi + mid + lo, three bf16 terms, each
-#   product exact in float32); sum|terms| is the plain version on |W|
-#   (the counts are >= 0).
+#   on each side: the plain versions sum n_cell (K2) and 2 n_var (K3)
+#   terms, the kernels three times as many (each weight is split into
+#   three bf16 terms, hi + mid + lo, each product exact in float32);
+#   sum|terms| is the plain version on |W| (the counts are >= 0).
 F32_UNIT = 2.0 ** -24
-# K2's exact check of its three bf16 terms: in each column of W,
-# SPLIT_NNZ random cells hold odd integers of magnitude in [2^17, 2^18)
-# with random signs, the other cells 0. Such an integer has 18
-# significant bits: hi holds 8 of them, mid the next 8 and lo (nonzero
-# for about half of them) the rest, so a kernel that drops lo, or mid
-# and lo, gives other sums. Each product nibble x W is exact in float32
-# (22 bits) and each partial sum is an integer below SPLIT_NNZ x 15 x
-# 2^18 < 2^24, exact in any order: the kernel must equal the plain
-# version. The integer weights in [-2, 2] above are exact in bf16 (mid
-# = lo = 0), so they cannot show a lost term.
+# The exact check of the kernels' three bf16 terms: in each column of W
+# (K2; for K3 of [Wa; Wd], the 2 n_var rows together), SPLIT_NNZ random
+# rows hold odd integers of magnitude in [2^17, 2^18) with random signs,
+# the other rows 0. Such an integer has 18 significant bits: hi holds 8
+# of them, mid the next 8 and lo (nonzero for about half of them) the
+# rest, so a kernel that drops lo, or mid and lo, gives other sums. Each
+# product nibble x W is exact in float32 (22 bits) and each partial sum
+# is an integer below SPLIT_NNZ x 15 x 2^18 < 2^24, exact in any order:
+# the kernel must equal the plain version. The integer weights in
+# [-2, 2] above are exact in bf16 (mid = lo = 0), so they cannot show a
+# lost term.
 SPLIT_NNZ = 4
-# K2 on float weights against float64 sums must be at least this many
-# times as close as the same kernel on W rounded to one bf16 term. The
-# three terms only pay if the sums keep what they carry: the tensor
-# cores truncate into their accumulators at every k16 step, and before
-# K2 added each k-block's sums into float32 on the CUDA cores, three
-# terms erred by 153 at N = 320 and one term by 119 (H100, PERF.md);
-# with it 1.2 against 13.3, and at the capacity shape 5.7 against 17.8.
+# K2 and K3 on float weights against float64 sums must be at least this
+# many times as close as the same kernel on the weights rounded to one
+# bf16 term. The three terms only pay if the sums keep what they carry:
+# the tensor cores truncate into their accumulators at every k16 step,
+# and before K2 added each k-block's sums into float32 on the CUDA
+# cores, three terms erred by 153 at N = 320 and one term by 119 (H100,
+# PERF.md); with it 1.2 against 13.3, and at the capacity shape 5.7
+# against 17.8. K3 sums its k-blocks the same way.
 K2_TERMS_GAIN = 2.0
+K3_TERMS_GAIN = 2.0
+# --- bounds: the least time the card could take for a kernel's work,
+# the larger of its operations over the tensor cores' dense bf16 peak
+# (at the kernel's precision: K1 one bf16 term of its weights, K2 and K3
+# three) and the bytes it must move (each input read once, each output
+# written once) over the memory's rate; NVIDIA's data sheet, H100 SXM,
+# at a 700 W power limit
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+# the library call beside K2/K3 takes the counts unpacked to one float32
+# (2 n_var, n_cell) matrix; it is timed only where that matrix takes at
+# most this share of the card's free memory
+LIBRARY_MEM_SHARE = 0.6
 # label, V, C, N, kernels checked. warm/refit: the EM fit's N = 20 x 16
 # and 16; doublet: K + C(K,2) = 136; capacity: 3e10 count cells, which
 # dense int8 cannot hold on this card and the packed rung can.
@@ -138,10 +158,11 @@ K23_SHAPES = (
 PACKED_BUDGET_GB = "4"
 # the small heavy-tailed pool of the other rungs
 SMALL_RUNGS = dict(n_var=3000, n_cell=8000, n_donor=4)
-# its ELBO against the CPU's: the COO rung sums with atomic index_add_,
-# so its float32 path changes from run to run, and a fit stops once an
-# iteration gains < 0.01, at a point that depends on that path; one call
-# measured 2.4e-6 and the next 1.7e-5 (the hybrids 3e-7)
+# its ELBO against the CPU's: a fit stops once an iteration gains < 0.01,
+# at a point that float32 round-off moves; measured on an H100 2.4e-6
+# and 1.7e-5 for COO, 3e-7 for the hybrids, and once 3.8e-4 for COO
+# while it summed with atomic index_add_, whose order changes from run
+# to run (it now sums in a fixed order, which this phase checks)
 RUNG_ELBO_RTOL = 1e-4
 # the many-donor pool: 23 donors give K + C(K,2) = 276 doublet columns
 MANY_DONORS = dict(n_var=3000, n_cell=4000, n_donor=23)
@@ -301,9 +322,21 @@ def phase_k1(torch):
             torch, lambda: fused_em.fused_estep_stats(*args, stats_cols=Ks),
             lambda: fused_em.fused_estep_stats_reference(*args,
                                                          stats_cols=Ks))
-        res = dict(ms=ms, plain_ms=plain_ms, max_abs_err=max(errs))
+        res = dict(ms=ms, plain_ms=plain_ms, max_abs_err=max(errs),
+                   library_ms=None)
         log("[k1]   median ms: kernel %.3f  plain %.3f  (CUDA events, %d "
             "runs each)" % (ms, plain_ms, n))
+        # E-step 2 x 2 V C K and statistics 2 x 2 V C Ks flops (bf16
+        # weights and id); the int8 counts and float32 weights in, S, id
+        # and loglik out
+        res["bound_ms"], res["bound_by"] = _bound(
+            4.0 * V * C * (K + Ks),
+            2.0 * V * C + 8.0 * V * K + 4.0 * K + 8.0 * V * Ks
+            + 8.0 * C * K + 8.0)
+        log("[k1]   bound %.3f ms (%s): the kernel at %.1f%% of it; no "
+            "library call: no single PyTorch call computes the fused "
+            "E-step and statistics" % (res["bound_ms"], res["bound_by"],
+                                       100.0 * res["bound_ms"] / ms))
         split = _kernel_ms(
             torch, lambda: fused_em.fused_estep_stats(*args, stats_cols=Ks),
             K1_KERNELS)
@@ -398,20 +431,34 @@ def _fewer_terms(torch, W):
     return {1: hi.float(), 2: hi.float() + mid.float()}
 
 
-def _k2_split_check(torch, kern, plain, pc, C, N, g, dev):
-    """K2 exactly equal to its plain version on weights that need all
-    three terms; the plain version on the same weights cut to one or
+def _split_weights_of(torch, name, V, C, N, g, device):
+    """The exact three-term check's weights: (W,) for K2, (Wa, Wd) for K3
+    with SPLIT_NNZ nonzeros a column across the two together."""
+    if name == "suff_stats":
+        return (_split_weights(torch, C, N, g, device),)
+    W = _split_weights(torch, 2 * V, N, g, device)
+    return W[:V].contiguous(), W[V:].contiguous()
+
+
+def _cut_terms(torch, w, terms):
+    """Each weight matrix of `w` cut to its first `terms` bf16 terms."""
+    return tuple(_fewer_terms(torch, x)[terms] for x in w)
+
+
+def _split_check(torch, name, kern, plain, pc, N, g, dev):
+    """The kernel exactly equal to its plain version on weights that need
+    all three terms; the plain version on the same weights cut to one or
     two terms must differ, or the check could not see a lost term."""
-    W = _split_weights(torch, C, N, g, dev)
-    got, ref = kern(pc, W), plain(pc, W)
+    w = _split_weights_of(torch, name, pc.n_var, pc.n_cell, N, g, dev)
+    got, ref = kern(pc, *w), plain(pc, *w)
     for gt, rf in zip(got, ref):
         if not torch.equal(gt, rf):
-            raise AssertionError("suff_stats on three-term integer weights "
-                                 "differs from its plain version by %.3e"
-                                 % float((gt - rf).abs().max()))
+            raise AssertionError("%s on three-term integer weights differs "
+                                 "from its plain version by %.3e"
+                                 % (name, float((gt - rf).abs().max())))
     differ = {}
-    for terms, Wt in _fewer_terms(torch, W).items():
-        ctrl = plain(pc, Wt)
+    for terms in (1, 2):
+        ctrl = plain(pc, *_cut_terms(torch, w, terms))
         differ[terms] = sum(int((a != b).sum()) for a, b in zip(ctrl, ref))
         if differ[terms] == 0:
             raise AssertionError("the %d-term control equals the three-term "
@@ -419,29 +466,83 @@ def _k2_split_check(torch, kern, plain, pc, C, N, g, dev):
                                  % terms)
     log("[k23]   three-term integer weights: equal to the plain version; "
         "controls: with %d and %d of %d outputs the one- and two-term sums "
-        "differ" % (differ[1], differ[2], 2 * pc.n_var * N))
+        "differ" % (differ[1], differ[2], sum(x.numel() for x in ref)))
 
 
-def _k2_term_errors(torch, kern, plain, pc, W, got):
-    """Max |error| of S1, SS against float64 sums, for the plain version
-    (float32 on the CUDA cores), the kernel (three terms) and the kernel
-    on W cut to one and two terms."""
-    exact = plain(pc, W.double())
+def _term_errors(torch, name, kern, plain, pc, w, got):
+    """Max |error| of the outputs against float64 sums, for the plain
+    version (float32 on the CUDA cores), the kernel (three terms) and the
+    kernel on the weights cut to one and two terms."""
+    label, gain = (("K2", K2_TERMS_GAIN) if name == "suff_stats"
+                   else ("K3", K3_TERMS_GAIN))
+    exact = plain(pc, *(x.double() for x in w))
 
     def err(out):
         return max(float((a.double() - b).abs().max())
                    for a, b in zip(out, exact))
-    errs = {"plain": err(plain(pc, W)), "3 terms": err(got)}
-    for terms, Wt in _fewer_terms(torch, W).items():
+    errs = {"plain": err(plain(pc, *w)), "3 terms": err(got)}
+    for terms in (1, 2):
         errs["%d term%s" % (terms, "s" if terms > 1 else "")] = err(
-            kern(pc, Wt))
-    log("[k23]   K2 float max_abs_err against float64 sums (max|S| %.3e): "
-        "%s" % (max(float(x.abs().max()) for x in exact),
-                ", ".join("%s %.3e" % kv for kv in errs.items())))
-    if errs["3 terms"] * K2_TERMS_GAIN > errs["1 term"]:
-        raise AssertionError("K2's three terms are not %g times as close to "
-                             "the float64 sums as one term" % K2_TERMS_GAIN)
+            kern(pc, *_cut_terms(torch, w, terms)))
+    log("[k23]   %s float max_abs_err against float64 sums (max|out| "
+        "%.3e): %s" % (label, max(float(x.abs().max()) for x in exact),
+                       ", ".join("%s %.3e" % kv for kv in errs.items())))
+    if errs["3 terms"] * gain > errs["1 term"]:
+        raise AssertionError("%s's three terms are not %g times as close to "
+                             "the float64 sums as one term" % (label, gain))
     return errs
+
+
+def _bound(flops, nbytes):
+    """(ms, what bounds it): the larger of flops at the bf16 peak and
+    bytes at the memory's rate."""
+    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return ((ops_ms, "operations") if ops_ms >= bytes_ms
+            else (bytes_ms, "bytes"))
+
+
+def _k23_bound(name, V, C, N):
+    """K2's or K3's bound: three bf16 terms of the weights, 2 x 2 V C N
+    flops each; the packed counts, the float32 weights and the float32
+    outputs once."""
+    flops = 3 * 2.0 * 2 * V * C * N
+    counts = 2.0 * V * ((C + 1) // 2)
+    if name == "suff_stats":    # W (C, N) in, S1 and SS (V, N) out
+        return _bound(flops, counts + 4.0 * C * N + 8.0 * V * N)
+    return _bound(flops, counts + 8.0 * V * N + 4.0 * C * N)
+
+
+def _unpacked_f32(torch, pc):
+    """[AD; DP] as one (2 n_var, n_cell) float32 matrix, the operand of
+    the library calls timed beside K2 and K3, or None (with the reason
+    logged) where it does not fit the card."""
+    V, C = pc.shape
+    need = 8.0 * V * C
+    free, _ = torch.cuda.mem_get_info()
+    if need > LIBRARY_MEM_SHARE * free:
+        log("[k23]   library calls not timed: the unpacked float32 counts "
+            "take %.1f GB, more than %.0f%% of the card's %.1f GB free"
+            % (need / 1e9, 100 * LIBRARY_MEM_SHARE, free / 1e9))
+        return None
+    X = torch.empty((2 * V, C), dtype=torch.float32, device=pc.device)
+    for m, p in enumerate((pc.ad_p, pc.dp_p)):
+        for r0 in range(0, V, 2048):
+            r1 = min(r0 + 2048, V)
+            rows = X[m * V + r0:m * V + r1]
+            rows[:, 0::2] = (p[r0:r1] & 0xF).float()
+            rows[:, 1::2] = (p[r0:r1] >> 4).float()[:, :C // 2]
+    return X
+
+
+def _library_call(torch, name, X, w):
+    """One cuBLAS float32 GEMM computing K2's or K3's function on the
+    unpacked counts: [S1; SS] = X W, and out = X^T [Wa; Wd]."""
+    if name == "suff_stats":
+        W = w[0]
+        return lambda: torch.matmul(X, W)
+    Wcat = torch.cat(w)
+    return lambda: torch.matmul(X.t(), Wcat)
 
 
 def phase_k23(torch):
@@ -455,10 +556,10 @@ def phase_k23(torch):
              "cell_loglik": lambda pc, *w: (packed.cell_loglik_reference(
                  pc.ad_p, pc.dp_p, pc.n_cell, *w),)}
     results = {}
-    pc = None
+    pc = X = None
     for label, V, C, N, names in K23_SHAPES:
         if pc is None or pc.shape != (V, C):
-            pc = None
+            pc = X = None
             torch.cuda.empty_cache()
             if label == "capacity":
                 budget = counts.device_dense_budget(dev)
@@ -477,58 +578,76 @@ def phase_k23(torch):
             torch.cuda.synchronize()
             log("[k23] %d x %d packed counts drawn on the card in %.2f s"
                 % (V, C, time.perf_counter() - t0))
+            if label != "edge":
+                X = _unpacked_f32(torch, pc)
         g = torch.Generator(device=dev)
         g.manual_seed(V + C + N)
         for name in names:
             log("[k23] %s %s V=%d C=%d N=%d" % (label, name, V, C, N))
             w = _k23_weights(torch, name, V, C, N, g, dev, exact=True)
-            got = kern[name](pc, *w)
             ref = plain[name](pc, *w)
-            for gt, rf in zip(got, ref):
+            for gt, rf in zip(kern[name](pc, *w), ref):
                 if not torch.equal(gt, rf):
                     raise AssertionError(
                         "%s on integer weights differs from its plain "
-                        "version by %.3e" % (name,
-                                             float((gt - rf).abs().max())))
+                        "version by %.3e"
+                        % (name, float((gt - rf).abs().max())))
             log("[k23]   integer weights: equal to the plain version")
-            if name == "suff_stats":
-                _k2_split_check(torch, kern[name], plain[name], pc, C, N, g,
-                                dev)
+            _split_check(torch, name, kern[name], plain[name], pc, N, g, dev)
             w = _k23_weights(torch, name, V, C, N, g, dev, exact=False)
             got = kern[name](pc, *w)
             ref = plain[name](pc, *w)
             mag = plain[name](pc, *(x.abs() for x in w))
-            sides = (3 * C, C) if name == "suff_stats" else (2 * V, 2 * V)
+            sides = (3 * C, C) if name == "suff_stats" else (6 * V, 2 * V)
             gamma = sum(n * F32_UNIT / (1 - n * F32_UNIT) for n in sides)
             errs = [_bound_check("%s[%d] float" % (name, i), gt, rf,
                                  gamma * m)
                     for i, (gt, rf, m) in enumerate(zip(got, ref, mag))]
             res = dict(max_abs_err=max(errs))
-            if name == "suff_stats":
-                res["err_vs_f64"] = _k2_term_errors(
-                    torch, kern[name], plain[name], pc, w[0], got)
+            res["err_vs_f64"] = _term_errors(torch, name, kern[name],
+                                             plain[name], pc, w, got)
             del got, ref, mag
             if label != "edge":
-                res["ms"], res["plain_ms"], nrun = _timed_pair(
-                    torch, lambda: kern[name](pc, *w),
-                    lambda: plain[name](pc, *w))
-                log("[k23]   median ms: kernel %.3f  plain %.3f  (CUDA "
-                    "events, %d runs each)" % (res["ms"], res["plain_ms"],
-                                               nrun))
-                if name == "suff_stats":
-                    # the plain product's flops (2 matrices x 2 V C N),
-                    # and the tensor cores' (three bf16 terms of W)
-                    flop = 4.0 * V * C * N
-                    log("[k23]   K2 achieved %.1f TFLOP/s of the product, "
-                        "%.1f TFLOP/s on the tensor cores"
-                        % (flop / res["ms"] / 1e9,
-                           3 * flop / res["ms"] / 1e9))
+                res.update(_k23_times(torch, name, kern[name],
+                                      plain[name], pc, w, X, V, C, N))
             results[(label, name)] = res
             del w
             torch.cuda.empty_cache()
-    del pc
+    del pc, X
     torch.cuda.empty_cache()
     return results
+
+
+def _k23_times(torch, name, kern, plain, pc, w, X, V, C, N):
+    """Kernel and plain version in turns; the bound, and the library
+    call where it fits."""
+    res = {}
+    res["ms"], res["plain_ms"], nrun = _timed_pair(
+        torch, lambda: kern(pc, *w), lambda: plain(pc, *w))
+    log("[k23]   median ms: kernel %.3f  plain %.3f  (CUDA events, %d runs "
+        "each)" % (res["ms"], res["plain_ms"], nrun))
+    # the product's flops (2 matrices x 2 V C N), and the tensor cores'
+    # (three bf16 terms of the weights)
+    flop = 4.0 * V * C * N
+    log("[k23]   %s achieved %.1f TFLOP/s of the product, %.1f TFLOP/s on "
+        "the tensor cores" % ("K2" if name == "suff_stats" else "K3",
+                              flop / res["ms"] / 1e9,
+                              3 * flop / res["ms"] / 1e9))
+    res["bound_ms"], res["bound_by"] = _k23_bound(name, V, C, N)
+    res["library_ms"] = None
+    if X is not None:
+        call = _library_call(torch, name, X, w)
+        lib_err = max(float((a - b).abs().max()) for a, b in zip(
+            torch.split(call(), V) if name == "suff_stats" else (call(),),
+            plain(pc, *w)))
+        res["library_ms"] = float(np.median(_time_ms(torch, call, reps=6)))
+        log("[k23]   library call (cuBLAS float32, one torch.matmul on the "
+            "unpacked counts) %.3f ms, max |diff| from the plain version "
+            "%.3e" % (res["library_ms"], lib_err))
+    log("[k23]   bound %.3f ms (%s): the kernel at %.1f%% of it"
+        % (res["bound_ms"], res["bound_by"],
+           100.0 * res["bound_ms"] / res["ms"]))
+    return res
 
 
 def _bound_check(name, got, ref, bound):
@@ -733,7 +852,8 @@ def phase_small_rungs(torch):
     ladder under budgets in units of n_var x n_cell bytes, and handed to
     vireo_wrap prebuilt), against the dense rung on the CPU (float64):
     the same calls up to the donors' labels, and the ELBO to
-    RUNG_ELBO_RTOL."""
+    RUNG_ELBO_RTOL; and each rung's contractions, run twice, give the
+    same sums bit for bit."""
     from vireo_tpu_torch.ops import counts
     from vireo_tpu_torch.sim.synth import synth_pool_counts
     from vireo_tpu_torch.engine.wrap import vireo_wrap
@@ -765,6 +885,7 @@ def phase_small_rungs(torch):
         t0 = time.perf_counter()
         c = counts.counts_from_scipy(AD, DP, device=torch.device("cuda"),
                                      dense_budget=budget)
+        _check_repeatable(torch, rung, c)
         gpu = vireo_wrap(c, n_donor=K, n_init=5, random_seed=2,
                          verbose=False)
         # doublet cells split their small singlet mass between two
@@ -791,6 +912,19 @@ def phase_small_rungs(torch):
                                  % rung)
         np.testing.assert_allclose(gpu["LB_doublet"], cpu["LB_doublet"],
                                    rtol=RUNG_ELBO_RTOL)
+
+
+def _check_repeatable(torch, rung, c):
+    """The rung's two contractions twice on the same weights: the same
+    sums bit for bit (no atomics)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    W = torch.rand((c.n_cell, 8), generator=g, device="cuda")
+    Wa = torch.rand((c.n_var, 8), generator=g, device="cuda")
+    twice = [(*c.suff_stats(W), c.cell_loglik(Wa, -Wa)) for _ in range(2)]
+    if not all(torch.equal(a, b) for a, b in zip(*twice)):
+        raise AssertionError("the %s rung's sums change from run to run"
+                             % rung)
 
 
 def phase_many_donors(torch):
@@ -904,7 +1038,8 @@ def main():
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
         "max_abs_err": res["max_abs_err"], "ms": res["ms"],
-        "plain_ms": res["plain_ms"]}
+        "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+        "bound_by": res["bound_by"], "library_ms": res["library_ms"]}
         for name, source, replaces, launches, res in table]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,6 +29,15 @@ from vireo_tpu_torch.cli import vireo_cli as tcli
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _ask_for_the_cpu():
+    """The port's entry points run on the card unless asked for the CPU
+    (utils/device.py); these tests ask for it."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("VIREO_PLATFORM", "cpu")
+        yield
+
 REPO = Path(__file__).resolve().parent.parent
 
 

@@ -17,6 +17,15 @@ from vireo_tpu_torch.ops.counts import (DenseCounts, counts_from_scipy,
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _ask_for_the_cpu():
+    """The port's entry points run on the card unless asked for the CPU
+    (utils/device.py); these tests ask for it."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("VIREO_PLATFORM", "cpu")
+        yield
+
 RTOL = 1e-12
 
 

@@ -31,6 +31,15 @@ from vireo_tpu_torch.models.vireo import Vireo as TVireo
 torch.set_num_threads(1)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _ask_for_the_cpu():
+    """The port's entry points run on the card unless asked for the CPU
+    (utils/device.py); these tests ask for it."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("VIREO_PLATFORM", "cpu")
+        yield
+
+
 def _pool(seed=21, V=150, C=160, K=3, vmax=None):
     rng = np.random.RandomState(seed)
     GT = rng.randint(0, 3, size=(V, K))

@@ -17,6 +17,15 @@ from vireo_tpu_torch.ops import counts as tcounts
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _ask_for_the_cpu():
+    """The port's entry points run on the card unless asked for the CPU
+    (utils/device.py); these tests ask for it."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("VIREO_PLATFORM", "cpu")
+        yield
+
 V, C = 100, 131
 N_ELEMS = V * C
 

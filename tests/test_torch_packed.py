@@ -31,6 +31,15 @@ from vireo_tpu_torch.ops.counts import (DenseCounts, HybridCounts,
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _ask_for_the_cpu():
+    """The port's entry points run on the card unless asked for the CPU
+    (utils/device.py); these tests ask for it."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("VIREO_PLATFORM", "cpu")
+        yield
+
 RTOL64 = 1e-12
 RTOL32 = 1e-5
 
@@ -272,17 +281,20 @@ def test_launch_checks_refuse_what_the_kernels_do_not_take(nibble):
     _, _, _, tp = nibble
     w32 = torch.zeros((tp.n_cell, 3), dtype=torch.float32)
     ok = packed._check_launch("suff_stats", tp.ad_p, tp.dp_p, tp.n_cell,
-                              [w32])
+                              [w32], tp.n_cell)
     assert ok[0].is_contiguous() and ok[2][0].dtype == torch.float32
     with pytest.raises(TypeError, match="float32"):
         packed._check_launch("suff_stats", tp.ad_p, tp.dp_p, tp.n_cell,
-                             [w32.double()])
+                             [w32.double()], tp.n_cell)
     with pytest.raises(TypeError, match="uint8"):
         packed._check_launch("suff_stats", tp.ad_p.to(torch.int8),
-                             tp.dp_p, tp.n_cell, [w32])
+                             tp.dp_p, tp.n_cell, [w32], tp.n_cell)
     with pytest.raises(ValueError, match="do not hold"):
         packed._check_launch("cell_loglik", tp.ad_p, tp.dp_p,
-                             tp.n_cell + 2, [w32])
+                             tp.n_cell + 2, [w32], tp.n_cell)
+    with pytest.raises(ValueError, match="not \\(%d, N\\)" % tp.n_cell):
+        packed._check_launch("suff_stats", tp.ad_p, tp.dp_p, tp.n_cell,
+                             [w32[1:]], tp.n_cell)
 
 
 def test_build_command_targets_the_packed_source():
@@ -369,3 +381,80 @@ def test_smoke_split_weights_need_all_three_terms():
     for cut in chip_smoke._fewer_terms(torch, W).values():
         got = packed.suff_stats_reference(tp.ad_p, tp.dp_p, C, cut)
         assert not all(torch.equal(a, b) for a, b in zip(got, f32))
+
+
+@pytest.mark.parametrize("V", [37, 40])
+def test_loglik_weights_are_kmajor_and_zero_padded(V):
+    """K3's B operand: (6, N, ldv) bf16, the three terms of Wa then of
+    Wd, transposed (variants contiguous), each row padded with zeros to a
+    whole 16 bytes and no further; the planes of each matrix sum to it
+    exactly."""
+    rng = np.random.RandomState(V)
+    N = 5
+    Wa = torch.as_tensor(rng.uniform(-1.0, 4.0, (V, N)), dtype=torch.float32)
+    Wd = torch.as_tensor(-rng.uniform(0.01, 4.0, (V, N)),
+                         dtype=torch.float32)
+    b6 = packed.split_weights_kmajor(Wa, Wd)
+    ldv = -(-V // 8) * 8
+    assert b6.shape == (6, N, ldv) and b6.dtype == torch.bfloat16
+    assert b6.is_contiguous()
+    for i, W in enumerate((Wa, Wd)):
+        terms = packed.split_bf16x3(W)
+        for p in range(3):
+            assert torch.equal(b6[3 * i + p, :, :V], terms[p].t())
+        assert torch.equal(b6[3 * i:3 * i + 3].double().sum(0)[:, :V],
+                           W.double().t())
+    assert not b6[:, :, V:].any()
+
+
+@pytest.mark.parametrize("bad", ["float64", "meta", "rows", "width",
+                                 "vector"])
+def test_loglik_launch_checks_refuse_weights_the_kernel_does_not_take(
+        nibble, bad):
+    """K3's weights, which the wrapper splits into its B operand: float32,
+    on the counts' device, both (n_var, N); anything else raises before
+    the split."""
+    _, _, _, tp = nibble
+    Wa = torch.zeros((tp.n_var, 3), dtype=torch.float32)
+    Wd = Wa.clone()
+    assert packed._check_launch("cell_loglik", tp.ad_p, tp.dp_p, tp.n_cell,
+                                [Wa, Wd], tp.n_var)[2][1] is Wd
+    Wd, err = {"float64": (Wd.double(), TypeError),
+               "meta": (Wd.to("meta"), ValueError),
+               "rows": (Wd[1:], ValueError),
+               "width": (Wd[:, :2], ValueError),
+               "vector": (Wd[:, 0], ValueError)}[bad]
+    with pytest.raises(err):
+        packed._check_launch("cell_loglik", tp.ad_p, tp.dp_p, tp.n_cell,
+                             [Wa, Wd], tp.n_var)
+
+
+def test_smoke_loglik_split_weights_need_all_three_terms():
+    """chip_smoke's exact check of K3's three bf16 terms: SPLIT_NNZ
+    nonzeros a column across Wa and Wd together, which need mid (all)
+    and lo (some); the float32 plain version sums them exactly, as
+    float64 does, and the weights cut to one or two terms give other
+    sums."""
+    import chip_smoke
+    V, C, N = 60, 301, 21
+    g = torch.Generator().manual_seed(5)
+    w = chip_smoke._split_weights_of(torch, "cell_loglik", V, C, N, g,
+                                     torch.device("cpu"))
+    assert [x.shape for x in w] == [(V, N), (V, N)]
+    both = torch.cat(w)
+    nz = both != 0
+    assert 0 < int(nz.sum(0).max()) <= chip_smoke.SPLIT_NNZ
+    _, mid, lo = packed.split_bf16x3(both)
+    assert bool((mid[nz] != 0).all()) and bool((lo[nz] != 0).any())
+    rng = np.random.RandomState(6)
+    tp = packed.pack_dense(rng.randint(0, 16, (V, C)),
+                           rng.randint(0, 16, (V, C)))
+    exact = packed.cell_loglik_reference(tp.ad_p, tp.dp_p, C,
+                                         *(x.double() for x in w))
+    f32 = packed.cell_loglik_reference(tp.ad_p, tp.dp_p, C, *w)
+    assert float(exact.abs().max()) < 2 ** 24
+    assert torch.equal(f32.double(), exact)
+    for terms in (1, 2):
+        cut = chip_smoke._cut_terms(torch, w, terms)
+        got = packed.cell_loglik_reference(tp.ad_p, tp.dp_p, C, *cut)
+        assert not torch.equal(got, f32)

@@ -22,6 +22,15 @@ from vireo_tpu_torch.models import vireo as tv
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _ask_for_the_cpu():
+    """The port's entry points run on the card unless asked for the CPU
+    (utils/device.py); these tests ask for it."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("VIREO_PLATFORM", "cpu")
+        yield
+
 RTOL, ATOL = 1e-10, 1e-12
 FIELDS = ("beta_mu", "beta_sum", "gt_prob", "id_prob")
 

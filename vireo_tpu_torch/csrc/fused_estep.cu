@@ -32,8 +32,9 @@
 //     taken) and, for each, over V in k-blocks of 64 variants. AD^T is
 //     M-major in memory (cells contiguous), so A is built in registers
 //     from the (64 variants x 128 cells) count tile staged in shared
-//     memory: a warp's fragment rows g and g + 8 are its cells 2g and
-//     2g + 1, so each bf16 pair is two bytes of one cell column. B is
+//     memory (`hopper::mmajor_frag`, which K3 shares): a warp's fragment
+//     rows g and g + 8 are its cells 2g and 2g + 1, so each bf16 pair is
+//     two bytes of one cell column. B is
 //     W^T, which the wrapper writes K-major, (2, K, ldv) bf16. Each tile
 //     of loglik goes to ll_out; after the last
 //     tile the block reads its rows back and runs the softmax, one warp
@@ -182,10 +183,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) estep_kernel(
           const int r = 16 * s + 2 * c + (q & 1) + 8 * (q >> 1);
           p[q] = byte_row(base + r * S::A_PITCH, src, v0 + r, C, c0) + cb;
         }
-        frag[m][s][0] = bf16_pair(p[0][0], p[1][0]);
-        frag[m][s][1] = bf16_pair(p[0][1], p[1][1]);
-        frag[m][s][2] = bf16_pair(p[2][0], p[3][0]);
-        frag[m][s][3] = bf16_pair(p[2][1], p[3][1]);
+        mmajor_frag<Int8>(frag[m][s], p);
       }
     }
 

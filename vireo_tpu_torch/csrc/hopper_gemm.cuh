@@ -1,5 +1,5 @@
-// Building blocks shared by the tensor-core kernels K1 (fused_estep.cu)
-// and K2 (packed_counts.cu) on Hopper (sm_90a):
+// Building blocks shared by the tensor-core kernels K1 (fused_estep.cu),
+// K2 and K3 (packed_counts.cu) on Hopper (sm_90a):
 //
 // - a ring of shared-memory stages filled by bulk tensor copies (TMA)
 //   for B, with one mbarrier a stage, and by 16-byte cp.async copies for
@@ -7,6 +7,8 @@
 // - warpgroup MMA (`wgmma.mma_async`, m64nNk16, bf16 in, float32
 //   accumulators) with A in registers and B in shared memory, read
 //   through a matrix descriptor;
+// - A fragments built in registers from count bytes, K-major (`pair`:
+//   K2, K1's statistics) or M-major (`mmajor_frag`: K1's E-step, K3);
 // - `rows_kernel`, the contraction OUT_m = A_m . sum_p B_p for the two
 //   count matrices m = AD, DP held as byte rows (packed nibbles for K2,
 //   int8 for K1's statistics), which is both K2 and the second kernel
@@ -156,9 +158,14 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// Waits until at most N of the warpgroup's committed MMA groups are
+// still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
+
+__device__ __forceinline__ void wgmma_wait_all() { wgmma_wait<0>(); }
 
 // Keeps the compiler from moving accumulator reads or writes across the
 // asynchronous MMAs.
@@ -413,14 +420,25 @@ __device__ __forceinline__ uint32_t bf16_pair(uint32_t lo, uint32_t hi) {
   return y;
 }
 
-// Packed nibbles (K2): byte j of a row holds cells 2j (low nibble) and
-// 2j + 1 (high nibble), which is one A register's k pair.
+// Packed nibbles (K2, K3): byte j of a row holds cells 2j (low nibble)
+// and 2j + 1 (high nibble).
 struct Nibbles {
   static constexpr int kCellsPerByte = 2;
+  // K-major: one byte is one A register's k pair.
   __device__ static __forceinline__ uint32_t pair(const uint8_t* row,
                                                   int cell) {
     const uint32_t b = row[cell >> 1];
     return bf16_pair(b & 0xFu, b >> 4);
+  }
+  // M-major: the cells of byte a[0] of one k row and b[0] of the next
+  // as two k pairs, of the even cell and of the odd cell.
+  __device__ static __forceinline__ void cell_pairs(const uint8_t* a,
+                                                    const uint8_t* b,
+                                                    uint32_t& even,
+                                                    uint32_t& odd) {
+    const uint32_t u = (uint32_t)a[0] | ((uint32_t)b[0] << 16);
+    even = bf16_pair(u & 0xFu, (u >> 16) & 0xFu);
+    odd = bf16_pair((u >> 4) & 0xFu, u >> 20);
   }
 };
 
@@ -431,7 +449,29 @@ struct Int8 {
                                                   int cell) {
     return bf16_pair(row[cell], row[cell + 1]);
   }
+  // M-major: cells a[0], a[1] of one k row and b[0], b[1] of the next.
+  __device__ static __forceinline__ void cell_pairs(const uint8_t* a,
+                                                    const uint8_t* b,
+                                                    uint32_t& even,
+                                                    uint32_t& odd) {
+    even = bf16_pair(a[0], b[0]);
+    odd = bf16_pair(a[1], b[1]);
+  }
 };
+
+// The A fragment of one k16 step when A is M-major (K1's E-step, K3):
+// the counts are rows of k values (variants) with the M rows (cells)
+// contiguous, staged in shared memory. A warp's fragment rows g and
+// g + 8 are two adjacent cells, 2i and 2i + 1, held by one byte (packed)
+// or two (int8), so each register pairs the same cell of two k rows.
+// rows[q] points, in the staged row of k value 2c + (q & 1) + 8 (q >> 1)
+// of the step, at the byte that holds the thread's cells.
+template <class Codec>
+__device__ __forceinline__ void mmajor_frag(uint32_t (&a)[4],
+                                            const uint8_t* const (&rows)[4]) {
+  Codec::cell_pairs(rows[0], rows[1], a[0], a[1]);
+  Codec::cell_pairs(rows[2], rows[3], a[2], a[3]);
+}
 
 // Copies bytes [j0, j0 + NBYTES) of rows row0 .. row0 + ROWS - 1 of a
 // (n_rows, row_bytes) byte matrix into shared rows of pitch NBYTES + 16,
@@ -459,13 +499,16 @@ __device__ __forceinline__ void load_byte_rows(uint8_t* dst,
 }
 
 // The first needed byte of a row that load_byte_rows copied into the
-// shared row `slot`.
+// shared row `slot`: the low 4 bits of its address, which 32-bit
+// arithmetic gives as well as 64-bit.
 __device__ __forceinline__ const uint8_t* byte_row(const uint8_t* slot,
                                                    const uint8_t* src,
                                                    long long row,
                                                    long long row_bytes,
                                                    long long j0) {
-  return slot + ((uintptr_t)(src + row * row_bytes + j0) & 15);
+  const uint32_t low = (uint32_t)(uintptr_t)src +
+                       (uint32_t)row * (uint32_t)row_bytes + (uint32_t)j0;
+  return slot + (low & 15);
 }
 
 // The dynamic shared memory of a block, from its first 1024-byte

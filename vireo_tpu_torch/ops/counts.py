@@ -22,7 +22,8 @@ picks one by the pool's size and largest count (`ladder_rung`):
   <= 15, with the CUDA kernels K2 and K3.
 - ``HybridCounts``: an int8 or packed base clipped at its cap plus a COO
   residual of the few deltas above it.
-- ``SparseCounts``: COO triplets, gathered and summed with `index_add_`.
+- ``SparseCounts``: COO triplets, gathered and summed in a fixed order
+  (`index_put_(accumulate=True)`).
 """
 
 import dataclasses
@@ -31,6 +32,7 @@ import os
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from .math import log_binom_coeff
 from .packed import PACK_MAX, PackedCounts
 
@@ -126,11 +128,11 @@ def device_dense_budget(device=None):
     VIREO_DENSE_BUDGET_GB GiB when that is set (as in the JAX package),
     else 55% of the card's free memory (`torch.cuda.mem_get_info`),
     leaving room for posteriors and converted blocks; 16 GiB on the
-    CPU."""
+    CPU. `device` defaults to utils/device.py's."""
     env = os.environ.get("VIREO_DENSE_BUDGET_GB")
     if env:
         return float(env) * 2**30
-    device = torch.device("cpu" if device is None else device)
+    device = resolve_device(device)
     if device.type == "cuda":
         free, _ = torch.cuda.mem_get_info(device)
         return 0.55 * free
@@ -252,10 +254,11 @@ class SparseCounts:
     `cell_loglik` and `n_vars_per_cell`. Indices are int32, values
     float32 (exact up to 2^24). Each contraction gathers the weight rows
     of a block of `NNZ_BLOCK` nonzeros, scales them by the counts and
-    sums them into the output with `index_add_`: the segment sum of
-    vireo_tpu/ops/counts.py::SparseCounts. On the CPU the sums follow
-    the sort order; on a card `index_add_` adds with atomics, so float
-    sums change order from run to run (float32 round-off).
+    sums them into the output with `index_put_(accumulate=True)`: the
+    segment sum of vireo_tpu/ops/counts.py::SparseCounts. It adds the
+    terms of each output row in a fixed order (on the CPU, their sort
+    order), so the float sums do not change from run to run, where
+    `index_add_` adds with atomics on a card, in an order that does.
     """
 
     rows_r: torch.Tensor
@@ -298,8 +301,9 @@ class SparseCounts:
         SS = torch.zeros_like(S1)
         for b in self._blocks():
             x = W.index_select(0, self.cols_r[b])
-            S1.index_add_(0, self.rows_r[b], self.ad_r[b, None] * x)
-            SS.index_add_(0, self.rows_r[b], self.dp_r[b, None] * x)
+            rows = (self.rows_r[b],)
+            S1.index_put_(rows, self.ad_r[b, None] * x, accumulate=True)
+            SS.index_put_(rows, self.dp_r[b, None] * x, accumulate=True)
         return S1, SS
 
     def cell_loglik(self, Wa, Wd):
@@ -308,9 +312,10 @@ class SparseCounts:
                           device=Wa.device)
         for b in self._blocks():
             r = self.rows_c[b]
-            out.index_add_(0, self.cols_c[b],
+            out.index_put_((self.cols_c[b],),
                            self.ad_c[b, None] * Wa.index_select(0, r)
-                           + self.dp_c[b, None] * Wd.index_select(0, r))
+                           + self.dp_c[b, None] * Wd.index_select(0, r),
+                           accumulate=True)
         return out
 
     def binom_coeff_sum(self):
@@ -359,8 +364,9 @@ def _sparse_from_triplets(rows, cols, ad_vals, dp_vals, shape, device):
 
 
 def sparse_counts(AD, DP, device=None):
-    """SparseCounts over the union nonzero pattern of AD and DP."""
-    device = torch.device("cpu" if device is None else device)
+    """SparseCounts over the union nonzero pattern of AD and DP, on
+    `device` (default: utils/device.py's)."""
+    device = resolve_device(device)
     rows, cols, ad_v, dp_v = _host_union_triplets(AD, DP)
     return _sparse_from_triplets(rows, cols, ad_v, dp_v,
                                  (int(AD.shape[0]), int(AD.shape[1])), device)
@@ -509,9 +515,9 @@ def ladder_rung(shape, vmax, budget):
 
 
 def counts_from_scipy(AD, DP, device=None, dense_budget=None, verbose=False):
-    """Place a scipy/numpy AD-DP pair on `device` on the rung that
-    `ladder_rung` picks under `dense_budget` bytes (default
-    `device_dense_budget(device)`).
+    """Place a scipy/numpy AD-DP pair on `device` (default:
+    utils/device.py's) on the rung that `ladder_rung` picks under
+    `dense_budget` bytes (default `device_dense_budget(device)`).
 
     The dense rung holds the counts in `exact_count_dtype` of their
     largest value, at every size (the JAX package keeps pools of at most
@@ -519,7 +525,7 @@ def counts_from_scipy(AD, DP, device=None, dense_budget=None, verbose=False):
     float exactly, so the contractions give the same numbers, and the
     fused doublet E-step then sees int8 counts at every size).
     """
-    device = torch.device("cpu" if device is None else device)
+    device = resolve_device(device)
     rows, cols, ad_v, dp_v = _host_union_triplets(AD, DP)
     vmax = float(max(ad_v.max() if len(ad_v) else 0.0,
                      dp_v.max() if len(dp_v) else 0.0))

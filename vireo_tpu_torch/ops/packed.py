@@ -19,11 +19,12 @@ The two contractions are the port's K2 and K3:
 - `cell_loglik` (K3): AD.T @ Wa + DP.T @ Wd
 
 For tensors on a card each launches its CUDA kernel
-(csrc/packed_counts.cu, float32 weights only) or raises: K2 runs on the
-tensor cores on the three bf16 terms of W that `split_bf16x3` gives,
-which sum to W exactly, so it forms the same products as the plain
-version; K3 runs on the CUDA cores in float32. For tensors on
-the CPU each runs its plain version (`suff_stats_reference`,
+(csrc/packed_counts.cu, float32 weights only) or raises. Both run on
+the tensor cores on the three bf16 terms of each weight matrix that
+`split_bf16x3` gives, which sum to it exactly, so they form the same
+products as the plain versions; `split_weights_kmajor` writes those
+terms as the kernels' B operand. For tensors on the CPU each runs its
+plain version (`suff_stats_reference`,
 `cell_loglik_reference`), which unpacks a block of rows to the weights'
 type and calls `torch.matmul` on `lo @ W[0::2] + hi @ W[1::2]`; on the
 CPU that is float64, so the port's CPU runs stay exact. `LAUNCHES`
@@ -111,17 +112,20 @@ def split_bf16x3(W):
     return hi, mid, lo
 
 
-def split_weights_kmajor(W):
-    """K2's B operand: the three terms of W (n_cell, N) transposed to
-    (3, N, ldw) bf16, cells contiguous. ldw is n_cell rounded up to a
-    whole 16 bytes, the unit of TMA's row strides; the kernel reads no
-    cell past n_cell, and those columns are zero."""
-    C, N = W.shape
-    w3 = torch.zeros((3, N, -(-C // 8) * 8), dtype=torch.bfloat16,
-                     device=W.device)
-    for p, term in enumerate(split_bf16x3(W)):
-        w3[p, :, :C] = term.t()
-    return w3
+def split_weights_kmajor(*mats):
+    """The kernels' B operand: the three terms of each (K, N) matrix
+    (K2: W over the cells; K3: Wa, then Wd, over the variants),
+    transposed to (3 x len(mats), N, ld) bf16 with the contracted axis
+    contiguous. ld is K rounded up to a whole 16 bytes, the unit of
+    TMA's row strides; the kernels read nothing past K, and those
+    entries are zero."""
+    K, N = mats[0].shape
+    b = torch.zeros((3 * len(mats), N, -(-K // 8) * 8),
+                    dtype=torch.bfloat16, device=mats[0].device)
+    for i, W in enumerate(mats):
+        for p, term in enumerate(split_bf16x3(W)):
+            b[3 * i + p, :, :K] = term.t()
+    return b
 
 
 def _library():
@@ -133,8 +137,8 @@ def _library():
         lib.vireo_packed_suff_stats.argtypes = [ptr] * 5 + [
             ctypes.c_int] * 4 + [ptr]
         lib.vireo_packed_suff_stats.restype = ctypes.c_int
-        lib.vireo_packed_cell_loglik.argtypes = [ptr] * 5 + [
-            ctypes.c_int] * 3 + [ptr]
+        lib.vireo_packed_cell_loglik.argtypes = [ptr] * 4 + [
+            ctypes.c_int] * 4 + [ptr]
         lib.vireo_packed_cell_loglik.restype = ctypes.c_int
         lib.vireo_packed_error_string.argtypes = [ctypes.c_int]
         lib.vireo_packed_error_string.restype = ctypes.c_char_p
@@ -142,8 +146,10 @@ def _library():
     return _LIB
 
 
-def _check_launch(name, ad_p, dp_p, n_cell, weights):
-    """Validate what the kernels take; returns the contiguous operands."""
+def _check_launch(name, ad_p, dp_p, n_cell, weights, rows):
+    """Validate what the kernels take: uint8 packed counts of n_cell
+    cells and float32 weights of `rows` rows and one width, all on one
+    device; returns the contiguous operands."""
     V, Cb = ad_p.shape
     if ad_p.dtype != torch.uint8 or dp_p.dtype != torch.uint8:
         raise TypeError("%s reads uint8 packed counts, got %s/%s"
@@ -161,6 +167,9 @@ def _check_launch(name, ad_p, dp_p, n_cell, weights):
         if w.device != ad_p.device or dp_p.device != ad_p.device:
             raise ValueError("%s: operands on %s, %s and %s"
                              % (name, ad_p.device, dp_p.device, w.device))
+        if w.dim() != 2 or w.shape != (rows, weights[0].shape[-1]):
+            raise ValueError("%s: weights of shape %s, not (%d, N)"
+                             % (name, tuple(w.shape), rows))
     return (ad_p.contiguous(), dp_p.contiguous(),
             [w.contiguous() for w in weights])
 
@@ -190,10 +199,8 @@ def packed_suff_stats(ad_p, dp_p, n_cell, W):
     plain version; CUDA tensors launch the kernel or raise."""
     if _on_cpu("suff_stats", ad_p):
         return suff_stats_reference(ad_p, dp_p, n_cell, W)
-    ad_p, dp_p, (W,) = _check_launch("suff_stats", ad_p, dp_p, n_cell, [W])
-    if W.shape[0] != n_cell:
-        raise ValueError("suff_stats: W has %d rows for %d cells"
-                         % (W.shape[0], n_cell))
+    ad_p, dp_p, (W,) = _check_launch("suff_stats", ad_p, dp_p, n_cell, [W],
+                                     n_cell)
     V, N = ad_p.shape[0], W.shape[1]
     w3 = split_weights_kmajor(W)
     S1 = torch.empty((V, N), dtype=torch.float32, device=W.device)
@@ -211,15 +218,13 @@ def packed_cell_loglik(ad_p, dp_p, n_cell, Wa, Wd):
     if _on_cpu("cell_loglik", ad_p):
         return cell_loglik_reference(ad_p, dp_p, n_cell, Wa, Wd)
     ad_p, dp_p, (Wa, Wd) = _check_launch("cell_loglik", ad_p, dp_p, n_cell,
-                                         [Wa, Wd])
+                                         [Wa, Wd], ad_p.shape[0])
     V, N = ad_p.shape[0], Wa.shape[1]
-    if Wa.shape != (V, N) or Wd.shape != (V, N):
-        raise ValueError("cell_loglik: weights %s/%s for %d variants"
-                         % (tuple(Wa.shape), tuple(Wd.shape), V))
+    b6 = split_weights_kmajor(Wa, Wd)
     out = torch.empty((n_cell, N), dtype=torch.float32, device=Wa.device)
     _run("cell_loglik", _library().vireo_packed_cell_loglik,
-         (ad_p.data_ptr(), dp_p.data_ptr(), Wa.data_ptr(), Wd.data_ptr(),
-          out.data_ptr(), V, n_cell, N), Wa.device)
+         (ad_p.data_ptr(), dp_p.data_ptr(), b6.data_ptr(), out.data_ptr(),
+          V, n_cell, N, b6.shape[2]), Wa.device)
     return out
 
 

@@ -1,7 +1,10 @@
 """Device and dtype policy of the port.
 
-- The default device is the first CUDA card when there is one, else
-  the CPU.
+- The default device is the first CUDA card. `VIREO_PLATFORM=cpu`
+  asks for the CPU (the JAX package's variable for the same choice,
+  vireo_tpu/utils/platform.py); `cuda` or `gpu`, or no value, asks for
+  the card, and then a machine without one raises instead of running
+  on the CPU. A `device=` argument wins over both.
 - The working float type is float32 on CUDA and float64 on the CPU:
   the CPU runs are the parity runs against the JAX package, whose CPU
   suite runs with x64 enabled.
@@ -13,6 +16,8 @@
   (`engine.wrap.vireo_wrap`, the CLI) call it.
 """
 
+import os
+
 import numpy as np
 import torch
 
@@ -21,7 +26,16 @@ __all__ = ["default_device", "resolve_device", "default_dtype",
 
 
 def default_device():
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    platform = os.environ.get("VIREO_PLATFORM", "").lower()
+    if platform == "cpu":
+        return torch.device("cpu")
+    if platform not in ("", "cuda", "gpu"):
+        raise ValueError("VIREO_PLATFORM=%s: the port runs on cuda (or gpu) "
+                         "or cpu" % platform)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card is available; VIREO_PLATFORM=cpu "
+                           "asks for the CPU")
+    return torch.device("cuda")
 
 
 def resolve_device(device=None):
