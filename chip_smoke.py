@@ -12,7 +12,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    for each, started together;
 3. K1 against its plain PyTorch version on the card, at the slice's
    shapes (two edge shapes, one with K above 256 and an unaligned C;
-   the fit; the 16- and 24-donor doublet phases), with the tolerances
+   the fit over 8192 cells and the fused fit's iteration on the main
+   pool; the 16- and 24-donor doublet phases), with the tolerances
    below, both times, its bound (no single PyTorch call computes the
    fused E-step and statistics, so it has no library time), and the
    times of K1's two kernels (the E-step and the statistics) from
@@ -38,12 +39,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    phase times, peak memory, accuracy, and agreement with the dense
    run's calls; then both runs again under torch.profiler: each rung's
    device time by kernel and the device's idle share;
-7. small pools on the card against the CPU: the dense rung, then the
-   int8-hybrid, packed-hybrid and COO rungs of a heavy-tailed pool
-   (each rung's contractions also run twice and must give the same
-   sums bit for bit), then a 23-donor pool on the dense rung, whose
-   doublet space (K = 276 columns) goes through K1;
-8. the CLI on a small synthetic cellSNP folder.
+7. the fused EM fit on the main pool's dense int8 counts (K1 in every
+   iteration; its launches must equal the fit's iterations) against the
+   unfused float32 fit from the same seeded init: iterations, time per
+   iteration, ELBOs, accuracy and the agreement of their calls;
+8. the donor-genotype modes on the main pool through vireo_wrap on the
+   dense rung (K1 in the doublet phase): every donor known, a superset
+   (12 of 16 known, 20 restarts), a subset (the 16 among 4 decoys);
+   then every donor known on the packed rung (K2, K3): launch counts,
+   phase times, peak memory and singlet accuracy >= 0.99 (without label
+   matching where every donor is known);
+9. small pools on the card against the CPU: the dense rung, the
+   extra-donor and superset branches, then the int8-hybrid,
+   packed-hybrid and COO rungs of a heavy-tailed pool (each rung's
+   contractions also run twice and must give the same sums bit for
+   bit), then a 23-donor pool on the dense rung, whose doublet space
+   (K = 276 columns) goes through K1;
+10. checkpoints on the card: resumes after either phase give the
+   uninterrupted run's results bit for bit;
+11. the CLI on a small synthetic cellSNP folder: genotype-free (with its
+   learnt donors' VCF), then with a donor VCF (-d, -t GT).
 
 The line before the last is the kernel table as JSON; the last line is
 `{"ok": true, "device": {...}}`.
@@ -82,12 +97,14 @@ SCALAR_RTOL = 1e-4
 
 # label: V, C, K, Ks, timed. edge: K + C(K,2) for 20 donors; edge_wide:
 # 23 donors (K = 276, above one 256-column tile) over an odd C whose
-# rows are not 16-byte aligned; fit: the EM fit's N = 16; doublet and
-# doublet24: the doublet phases of 16 and 24 donors
+# rows are not 16-byte aligned; fit: the EM fit's N = 16 over 8192
+# cells; fit_full: one iteration of the fused fit on the main pool;
+# doublet and doublet24: the doublet phases of 16 and 24 donors
 K1_SHAPES = (
     ("edge", dict(V=1000, C=700, K=210, Ks=20), False),
     ("edge_wide", dict(V=1000, C=701, K=276, Ks=23), False),
     ("fit", dict(V=30000, C=8192, K=16, Ks=16), True),
+    ("fit_full", dict(V=30000, C=100000, K=16, Ks=16), True),
     ("doublet", dict(V=30000, C=100000, K=136, Ks=16), True),
     ("doublet24", dict(V=30000, C=100000, K=300, Ks=24), True),
 )
@@ -166,6 +183,39 @@ SMALL_RUNGS = dict(n_var=3000, n_cell=8000, n_donor=4)
 RUNG_ELBO_RTOL = 1e-4
 # the many-donor pool: 23 donors give K + C(K,2) = 276 doublet columns
 MANY_DONORS = dict(n_var=3000, n_cell=4000, n_donor=23)
+# the fused fit (K1 in every iteration, bf16 weights and assignments)
+# against the unfused float32 fit_vb from one seeded init on the main
+# pool. A random init does not do: over ~1000 cells a variant the
+# donors' weights differ by less than bf16 resolves, every assignment
+# comes out exactly uniform and the fit stays there, in the JAX
+# package's fused fit as in the port's
+# (tests/test_torch_fused.py::test_an_uninformative_init_loses_every_donor_as_in_jax).
+# So the init is seeded halfway (FUSED_MIX) between the main run's
+# answer and a random draw: the refit of a found optimum, the fused
+# fit's use. The fused fit's own ELBO reads low: its weights cluster at
+# a few values (one per genotype category), so their bf16 rounding errs
+# the same way at most entries, which the loglik sum does not average
+# out. So the gate is on the two final states, each scored by one more
+# unfused float32 iteration: their ELBOs to FUSED_ELBO_RTOL (where each
+# fit's 0.01 stop test falls moves them by far less), and the calls of
+# the true singlets after label matching (a doublet's singlet call is a
+# near tie between its two donors, which either fit may break).
+FUSED_SEED = 0
+FUSED_MIX = 0.5
+FUSED_ELBO_RTOL = 1e-4
+FUSED_AGREE = 0.999
+# the donor-genotype modes on the main pool: the simulation's genotypes
+# as one-hot probabilities smoothed by GT_EPS; the superset knows the
+# first SUPERSET_KNOWN donors; the subset adds SUBSET_DECOYS donors drawn
+# from the pool's own allele frequencies
+GT_EPS = 0.01
+SUPERSET_KNOWN = 12
+SUBSET_DECOYS = 4
+# a small pool's donor branches on the card (float32) against the CPU
+# (float64): the ELBO to BRANCH_ELBO_RTOL (float32 round-off moves the
+# point where a fit's 0.01 stop test falls)
+SMALL_BRANCHES = dict(n_var=600, n_cell=1500, n_donor=4)
+BRANCH_ELBO_RTOL = 1e-4
 
 
 def log(*args):
@@ -351,9 +401,11 @@ def phase_k1(torch):
     return results
 
 
-def _singlet_accuracy(d, ID_prob, doublet_prob):
+def _singlet_accuracy(d, ID_prob, doublet_prob, match=True):
     """As benchmarks/e2e_100k.py: optimal label matching over true
-    singlets, accuracy over confident calls, doublet recall and FPR."""
+    singlets (none when `match` is False: donor k of the calls must be
+    donor k of the truth), accuracy over confident calls, doublet recall
+    and FPR."""
     from scipy.optimize import linear_sum_assignment
     K = ID_prob.shape[1]
     pred = np.argmax(ID_prob, axis=1)
@@ -366,8 +418,9 @@ def _singlet_accuracy(d, ID_prob, doublet_prob):
         m = singlets & (d["donor"] == t)
         hits[t] = np.bincount(pred[m], minlength=K)
     ti, pi = linear_sum_assignment(-hits)
-    remap = np.empty(K, np.int64)
-    remap[pi] = ti
+    remap = np.arange(K)
+    if match:
+        remap[pi] = ti
     pred_t = remap[pred]
     conf = singlets & (prob_max >= 0.9) & ~called_doublet
     return dict(
@@ -676,25 +729,61 @@ def _main_pool():
     return d
 
 
+def _reset_launches():
+    from vireo_tpu_torch.ops import fused_em, packed
+    fused_em.LAUNCHES = 0
+    for key in packed.LAUNCHES:
+        packed.LAUNCHES[key] = 0
+
+
+def _launches():
+    from vireo_tpu_torch.ops import fused_em, packed
+    return dict(K1=fused_em.LAUNCHES, K2=packed.LAUNCHES["suff_stats"],
+                K3=packed.LAUNCHES["cell_loglik"])
+
+
+@contextlib.contextmanager
+def _fit_lengths(out):
+    """Append the iterations of every fit_vb call in the block to `out`:
+    one list per call (the warm restarts', one per restart; a refit's,
+    one number)."""
+    from vireo_tpu_torch.engine import wrap
+    from vireo_tpu_torch.models import vireo
+    real = vireo.fit_vb
+
+    def spy(*args, **kwargs):
+        res = real(*args, **kwargs)
+        out.append(np.atleast_1d(res.n_iter).tolist())
+        return res
+    wrap.fit_vb = vireo.fit_vb = spy
+    try:
+        yield
+    finally:
+        wrap.fit_vb = vireo.fit_vb = real
+
+
+def _log_fit_lengths(prefix, fits):
+    log("%s fit iterations: warm restarts %s; then %s"
+        % (prefix, fits[0], ", ".join(str(f[0]) for f in fits[1:])))
+
+
 def _run_main(torch, d, tag):
     """vireo_wrap on the main pool as a user calls it, with every kernel
     launch count set to 0 just before and read just after."""
-    from vireo_tpu_torch.ops import fused_em, packed
     from vireo_tpu_torch.engine.wrap import vireo_wrap
     V, C, K = MAIN["n_var"], MAIN["n_cell"], MAIN["n_donor"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    phases = {}
-    fused_em.LAUNCHES = 0
-    for key in packed.LAUNCHES:
-        packed.LAUNCHES[key] = 0
+    phases, fits = {}, []
+    _reset_launches()
     t0 = time.perf_counter()
-    res = vireo_wrap(d["AD"], d["DP"], n_donor=K, n_init=MAIN["n_init"],
-                     random_seed=0, check_doublet=True, verbose=False,
-                     timing=phases)
+    with _fit_lengths(fits):
+        res = vireo_wrap(d["AD"], d["DP"], n_donor=K,
+                         n_init=MAIN["n_init"], random_seed=0,
+                         check_doublet=True, verbose=False, timing=phases)
     wall = time.perf_counter() - t0
-    launches = dict(K1=fused_em.LAUNCHES, K2=packed.LAUNCHES["suff_stats"],
-                    K3=packed.LAUNCHES["cell_loglik"])
+    launches = _launches()
+    _log_fit_lengths("[%s]" % tag, fits)
     peak = torch.cuda.max_memory_allocated()
     for name, sec in phases.items():
         log("[%s] phase %-15s %.3f s" % (tag, name, sec))
@@ -963,6 +1052,275 @@ def phase_many_donors(torch):
         raise AssertionError("the 23-donor calls disagree with the CPU's")
 
 
+def phase_fused_fit(torch, counts, d, main_res):
+    """The fused EM fit on the main pool's int8 dense counts (K1 at V
+    30000, C 100000, K = Ks = 16 in every iteration) against the unfused
+    float32 fit_vb (K0), from the same seeded single init (FUSED_MIX of
+    the main run's answer); K1's launches over the fused fit must equal
+    its iterations. Returns them."""
+    from vireo_tpu_torch.models import vireo as tv
+    from vireo_tpu_torch.models.vireo_fused import prepare_fused, fused_fit_vb
+    dev = counts.ad.device
+    K = MAIN["n_donor"]
+    cfg = tv.VireoConfig(n_var=counts.n_var, n_cell=counts.n_cell,
+                         n_donor=K)
+    rng = np.random.RandomState(FUSED_SEED)
+    id_init = FUSED_MIX * main_res["ID_prob"] + (1 - FUSED_MIX) \
+        * rng.dirichlet(np.ones(K), counts.n_cell)
+    gt_init = FUSED_MIX * main_res["GT_prob"] + (1 - FUSED_MIX) \
+        * rng.dirichlet(np.ones(3), (counts.n_var, K))
+    state = tv.init_state(cfg, ID_prob_init=id_init, GT_prob_init=gt_init,
+                          dtype=torch.float32, device=dev)
+    priors = tv.default_priors(cfg, dtype=torch.float32, device=dev)
+    data = prepare_fused(counts)
+    singlets = d["donor2"] < 0
+    truth = np.eye(K)[d["donor"][singlets]]
+    out = {}
+    for name in ("fused", "unfused"):
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        if name == "fused":
+            st, _, elbo, n_iter = fused_fit_vb(data, state, priors, cfg)
+        else:
+            res = tv.fit_vb(counts, state, priors, cfg)
+            st, elbo, n_iter = res.state, res.elbo_final, res.n_iter
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = _launches()
+        idp = st.id_prob.cpu().numpy()
+        scored = float(tv.em_step(counts, st, priors, cfg, True)[2])
+        out[name] = dict(id=idp, elbo=float(elbo), n_iter=int(n_iter),
+                         scored=scored)
+        log("[fused] %-7s fit: %d iterations, %.3f s (%.2f ms an "
+            "iteration), final ELBO %.6e (%.6e by one unfused iteration "
+            "more), launches %s, singlet accuracy %.5f"
+            % (name, n_iter, sec, 1e3 * sec / n_iter, float(elbo), scored,
+               json.dumps(launches),
+               _matched_agreement(truth, idp[singlets])))
+        if name == "fused" and launches["K1"] != n_iter:
+            raise AssertionError("the fused fit ran %d iterations and "
+                                 "launched K1 %d times"
+                                 % (n_iter, launches["K1"]))
+    f, u = out["fused"], out["unfused"]
+    agree = _matched_agreement(f["id"][singlets], u["id"][singlets])
+    rel = abs(f["scored"] - u["scored"]) / abs(u["scored"])
+    log("[fused] fused against unfused: final ELBOs differ by %.3e of the "
+        "unfused one; scored by one unfused iteration, by %.3e (rtol "
+        "%.0e); calls of the true singlets agree %.5f after label matching "
+        "(all cells %.5f)" % (abs(f["elbo"] - u["elbo"]) / abs(u["elbo"]),
+                              rel, FUSED_ELBO_RTOL, agree,
+                              _matched_agreement(f["id"], u["id"])))
+    if rel > FUSED_ELBO_RTOL or agree < FUSED_AGREE:
+        raise AssertionError("the fused fit disagrees with the unfused fit")
+    return f["n_iter"]
+
+
+def _smoothed(GT):
+    """Genotypes (V, K) in {0, 1, 2} as (V, K, 3) probabilities: one-hot
+    smoothed by GT_EPS."""
+    return np.eye(3)[GT] * (1 - 3 * GT_EPS) + GT_EPS
+
+
+def _donor_priors(d):
+    """vireo_wrap's arguments for the known, superset and subset modes on
+    the main pool (V, 16 donors)."""
+    V, K = d["GT"].shape
+    known = _smoothed(d["GT"])
+    # the pool's allele frequencies: synth_pool_counts' first draw
+    af = np.random.RandomState(0).beta(0.8, 0.8, size=V)
+    decoys = np.random.RandomState(1).binomial(2, af[:, None],
+                                               (V, SUBSET_DECOYS))
+    decoys = _smoothed(decoys)
+    return {
+        "known": dict(GT_prior=known, n_donor=K, learn_GT=False),
+        "superset": dict(GT_prior=known[:, :SUPERSET_KNOWN], n_donor=K,
+                         n_init=MAIN["n_init"]),
+        "subset": dict(GT_prior=np.concatenate([known, decoys], 1),
+                       n_donor=K, learn_GT=False),
+    }
+
+
+def _run_mode(torch, counts, d, tag, kw):
+    """vireo_wrap on prebuilt counts in one donor-genotype mode, its
+    launch counts set to 0 just before and read just after; returns
+    (result, launches, singlet accuracy with and without label
+    matching)."""
+    from vireo_tpu_torch.engine.wrap import vireo_wrap
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    phases, fits = {}, []
+    _reset_launches()
+    t0 = time.perf_counter()
+    with _fit_lengths(fits):
+        res = vireo_wrap(counts, random_seed=0, verbose=False,
+                         timing=phases, **kw)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    _log_fit_lengths("[modes] %s:" % tag, fits)
+    C, K = counts.n_cell, MAIN["n_donor"]
+    assert res["ID_prob"].shape == (C, K)
+    for key in ("ID_prob", "doublet_prob", "doublet_LLR", "GT_prob"):
+        assert np.all(np.isfinite(res[key])), key
+    matched = _singlet_accuracy(d, res["ID_prob"], res["doublet_prob"])
+    own = _singlet_accuracy(d, res["ID_prob"], res["doublet_prob"],
+                            match=False)
+    log("[modes] %s: %s; wall %.3f s, peak device memory %.3f GiB, "
+        "launches %s; singlet accuracy %.5f after label matching, %.5f "
+        "without (assigned %.5f, doublet recall %.5f, FPR %.5f)"
+        % (tag, ", ".join("%s %.3f s" % kv for kv in phases.items()), wall,
+           torch.cuda.max_memory_allocated() / 2**30, json.dumps(launches),
+           matched["singlet_accuracy"], own["singlet_accuracy"],
+           matched["singlet_assigned_frac"], matched["doublet_recall"],
+           matched["doublet_fpr"]))
+    return res, launches, matched["singlet_accuracy"], own["singlet_accuracy"]
+
+
+def phase_donor_modes(torch, counts, d):
+    """The donor-genotype modes at full width through vireo_wrap on the
+    dense rung (K0, K1 in the doublet phase): all 16 donors known, 12 of
+    16 known (superset, 20 restarts), the 16 among 4 decoys (subset).
+    Singlet accuracy
+    >= 0.99; with every donor known, without label matching (donor k of
+    the prior is donor k of the calls), and in the superset the known
+    donors keep their slots."""
+    for mode, kw in _donor_priors(d).items():
+        res, launches, matched, own = _run_mode(torch, counts, d, mode, kw)
+        if launches["K1"] < 1:
+            raise AssertionError("the %s mode did not launch K1" % mode)
+        acc = own if mode == "known" else matched
+        if acc < 0.99:
+            raise AssertionError("%s mode: singlet accuracy %.5f < 0.99"
+                                 % (mode, acc))
+        if mode == "superset":
+            known = (d["donor2"] < 0) & (d["donor"] < SUPERSET_KNOWN)
+            slot = np.mean(np.argmax(res["ID_prob"], 1)[known]
+                           == d["donor"][known])
+            log("[modes] superset: %.5f of the known donors' singlets in "
+                "their own slots" % slot)
+            if slot < 0.99:
+                raise AssertionError("the superset moved known donors")
+
+
+def phase_known_packed(torch, d):
+    """The known mode on the packed rung (K2, K3; no K1), placed under
+    VIREO_DENSE_BUDGET_GB=PACKED_BUDGET_GB."""
+    from vireo_tpu_torch.ops.counts import counts_from_scipy
+    with _dense_budget(PACKED_BUDGET_GB):
+        packed = counts_from_scipy(d["AD"], d["DP"],
+                                   device=torch.device("cuda"))
+    if type(packed).__name__ != "PackedCounts":
+        raise AssertionError("VIREO_DENSE_BUDGET_GB=%s placed %s"
+                             % (PACKED_BUDGET_GB, type(packed).__name__))
+    _, launches, _, own = _run_mode(torch, packed, d, "known (packed)",
+                                    _donor_priors(d)["known"])
+    if launches["K2"] < 1 or launches["K3"] < 1 or launches["K1"] != 0:
+        raise AssertionError("the packed known mode launched %s"
+                             % json.dumps(launches))
+    if own < 0.99:
+        raise AssertionError("known mode on the packed rung: singlet "
+                             "accuracy %.5f < 0.99" % own)
+
+
+def _small_branch_pool():
+    from vireo_tpu_torch.sim.synth import synth_pool_counts
+    V, C, K = (SMALL_BRANCHES[k] for k in ("n_var", "n_cell", "n_donor"))
+    return synth_pool_counts(V, C, K, doublet_rate=0.08, density=0.1,
+                             seed=1)
+
+
+def phase_small_branches(torch):
+    """The extra-donor and superset branches of vireo_wrap on a seeded
+    small pool, on the card (float32, K1) and on the CPU (float64, K1's
+    plain version): the same calls up to the donors' labels (confident
+    singlets, max ID_prob >= 0.9 on the CPU, and doublet calls) and the
+    ELBO to BRANCH_ELBO_RTOL."""
+    from vireo_tpu_torch.engine.wrap import vireo_wrap
+    d = _small_branch_pool()
+    K = SMALL_BRANCHES["n_donor"]
+    known = _smoothed(d["GT"])
+    branches = {
+        "extra donors (distance)": dict(n_extra_donor=2),
+        "extra donors (size)": dict(n_extra_donor=2,
+                                    extra_donor_mode="size"),
+        "superset": dict(GT_prior=known[:, :K - 1]),
+    }
+    for name, kw in branches.items():
+        kw = dict(kw, n_donor=K, n_init=5, random_seed=2, verbose=False)
+        gpu = vireo_wrap(d["AD"], d["DP"], device="cuda", **kw)
+        cpu = vireo_wrap(d["AD"], d["DP"], device="cpu", **kw)
+        conf = cpu["ID_prob"].max(1) >= 0.9
+        agree = _matched_agreement(gpu["ID_prob"][conf], cpu["ID_prob"][conf])
+        dbl = float(np.mean((gpu["doublet_prob"].max(1) >= 0.9)
+                            == (cpu["doublet_prob"].max(1) >= 0.9)))
+        rel = abs(gpu["LB_doublet"] - cpu["LB_doublet"]) \
+            / abs(cpu["LB_doublet"])
+        log("[branches] %s: card float32 vs CPU float64: argmax agreement "
+            "%.5f over %d confident singlets after label matching, doublet "
+            "calls %.5f, LB_doublet %.6e vs %.6e (rel %.2e)"
+            % (name, agree, int(conf.sum()), dbl, gpu["LB_doublet"],
+               cpu["LB_doublet"], rel))
+        if agree < 0.99 or dbl < 0.99 or rel > BRANCH_ELBO_RTOL:
+            raise AssertionError("the %s branch differs on the card" % name)
+
+
+def phase_checkpoints(torch):
+    """Checkpoints on the card, genotype-free and subset runs of a small
+    pool: a checkpointed run, a resume after deleting its step 1 (the
+    refit and the subset's redraw run again from the saved RNG position)
+    and a resume from step 1 (only the doublet phase runs) both give the
+    checkpointed run's results bit for bit, which equal an uninterrupted
+    run's without checkpoints (no kernel on these paths uses atomics)."""
+    from vireo_tpu_torch.engine.wrap import vireo_wrap
+    d = _small_branch_pool()
+    K = SMALL_BRANCHES["n_donor"]
+    known = _smoothed(d["GT"])
+    decoy = _smoothed(np.random.RandomState(3).binomial(
+        2, 0.5, (known.shape[0], 1)))
+    runs = {"genotype-free": dict(n_init=5),
+            "subset": dict(GT_prior=np.concatenate([known, decoy], 1),
+                           learn_GT=False)}
+    keys = ("ID_prob", "GT_prob", "doublet_prob", "doublet_LLR",
+            "LB_doublet", "LB_list")
+    for name, kw in runs.items():
+        kw = dict(kw, n_donor=K, random_seed=4, verbose=False,
+                  device="cuda")
+        plain = vireo_wrap(d["AD"], d["DP"], **kw)
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = os.path.join(tmp, "ck")
+            full = vireo_wrap(d["AD"], d["DP"], checkpoint_dir=ck, **kw)
+            os.remove(os.path.join(ck, "vireo_ckpt_00000001.npz"))
+            after_warm = vireo_wrap(d["AD"], d["DP"], checkpoint_dir=ck, **kw)
+            after_refit = vireo_wrap(d["AD"], d["DP"], checkpoint_dir=ck,
+                                     **kw)
+        for label, other in (("uninterrupted", plain),
+                             ("resumed after the warm restarts", after_warm),
+                             ("resumed after the refit", after_refit)):
+            bad = [k for k in keys
+                   if not np.array_equal(np.asarray(full[k]),
+                                         np.asarray(other[k]))]
+            if bad:
+                raise AssertionError("checkpoints, %s run: %s differs from "
+                                     "the checkpointed run in %s"
+                                     % (name, label, bad))
+        log("[checkpoint] %s run: the uninterrupted run and both resumes "
+            "equal the checkpointed run bit for bit (%s)"
+            % (name, ", ".join(keys)))
+
+
+def _write_donor_vcf(path, GT, names):
+    """A donor VCF of genotypes GT (V, K) on the cellSNP folder's
+    variants, GT tags."""
+    import gzip
+    with gzip.open(path, "wt") as f:
+        f.write("##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\tQUAL\t"
+                "FILTER\tINFO\tFORMAT\t" + "\t".join(names) + "\n")
+        codes = np.array(["0/0", "0/1", "1/1"])[GT]
+        for v in range(GT.shape[0]):
+            f.write("1\t%d\t.\tA\tG\t.\tPASS\t.\tGT\t%s\n"
+                    % (100 + v, "\t".join(codes[v])))
+
+
 def phase_cli():
     import gzip
     import scipy.io as sio
@@ -995,6 +1353,42 @@ def phase_cli():
         if len(rows) - 1 != C:
             raise AssertionError("donor_ids.tsv has %d rows, expected %d"
                                  % (len(rows) - 1, C))
+        with gzip.open(os.path.join(out, "GT_donors.vireo.vcf.gz"),
+                       "rt") as f:
+            lines = f.read().splitlines()
+        head = [x for x in lines if x.startswith("#CHROM")][0].split("\t")
+        body = [x.split("\t") for x in lines if not x.startswith("#")]
+        log("[cli] GT_donors.vireo.vcf.gz: samples %s, %d variants, FORMAT "
+            "%s" % (head[9:], len(body), body[0][8]))
+        if head[9:] != ["donor%d" % k for k in range(4)] or len(body) != V \
+                or body[0][8] != "GT:AD:DP:PL":
+            raise AssertionError("GT_donors.vireo.vcf.gz is not the "
+                                 "learnt donors' VCF")
+
+        # the donors' genotypes given (-d): the calls name the VCF's
+        # samples, donor k of the file being donor k of the pool
+        names = ["S%d" % k for k in range(4)]
+        donors = os.path.join(tmp, "donors.vcf.gz")
+        _write_donor_vcf(donors, d["GT"], names)
+        out = os.path.join(tmp, "out_donors")
+        t0 = time.perf_counter()
+        vireo_cli.main(["-c", cell, "-d", donors, "-t", "GT", "-o", out,
+                        "--randSeed", "1", "--noPlot"])
+        with open(os.path.join(out, "donor_ids.tsv")) as f:
+            rows = [x.split("\t") for x in f.read().splitlines()[1:]]
+        singlet = d["donor2"] < 0
+        best = np.array([r[5] for r in rows])[singlet]
+        acc = float(np.mean(best == np.array(names)[d["donor"][singlet]]))
+        calls = sorted({r[1] for r in rows})
+        log("[cli] -d donors.vcf.gz -t GT: %d rows in %.2f s, calls %s, "
+            "singlet accuracy %.5f (best_singlet against the truth, no "
+            "label matching)" % (len(rows), time.perf_counter() - t0, calls,
+                                 acc))
+        if len(rows) != C or not set(calls) <= set(names) | {
+                "doublet", "unassigned"} or acc < 0.99:
+            raise AssertionError("the donor-file CLI run is wrong")
+        if os.path.exists(os.path.join(out, "GT_donors.vireo.vcf.gz")):
+            raise AssertionError("known genotypes: no learnt donor VCF")
 
 
 def main():
@@ -1015,18 +1409,30 @@ def main():
     dense_res, dense_launches = phase_main_path(torch, d)
     packed_launches = phase_packed_main_path(torch, d, dense_res)
     phase_profile(torch, d)
-    del d, dense_res
+    from vireo_tpu_torch.ops.counts import counts_from_scipy
+    counts = counts_from_scipy(d["AD"], d["DP"], device=torch.device("cuda"))
+    fused_launches = phase_fused_fit(torch, counts, d, dense_res)
+    del dense_res
+    phase_donor_modes(torch, counts, d)
+    del counts
+    phase_known_packed(torch, d)
+    del d
     phase_small_cross_check(torch)
+    phase_small_branches(torch)
     phase_small_rungs(torch)
     phase_many_donors(torch)
+    phase_checkpoints(torch)
     phase_cli()
 
-    # each kernel at its main-path shape: K1 at the doublet phase's, K2
-    # and K3 at the warm restarts' (N = 20 x 16)
+    # each kernel at its main-path shape: K1 at the doublet phase's, and
+    # at the fused fit's with that fit's launches; K2 and K3 at the warm
+    # restarts' (N = 20 x 16)
     table = [
         ("fused_estep_stats", "vireo_tpu_torch/csrc/fused_estep.cu",
          "vireo_tpu/ops/pallas_em.py:145", dense_launches["K1"],
          k1["doublet"]),
+        ("fused_estep_stats_fit", "vireo_tpu_torch/csrc/fused_estep.cu",
+         "vireo_tpu/ops/pallas_em.py:145", fused_launches, k1["fit_full"]),
         ("packed_suff_stats", "vireo_tpu_torch/csrc/packed_counts.cu",
          "vireo_tpu/ops/packed.py:161", packed_launches["K2"],
          k23[("warm", "suff_stats")]),

@@ -8,9 +8,11 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_cli import _write_cellsnp
+from test_torch_cli import _write_cellsnp, _write_donor_vcf
 from vireo_tpu_torch.cli import vireo_cli as tcli
 from vireo_tpu_torch.engine.wrap import vireo_wrap
+from vireo_tpu_torch.models import vireo as tvireo, vireo_fused
+from vireo_tpu_torch.ops.counts import counts_from_scipy
 from vireo_tpu_torch.sim.synth import synth_pool_counts
 from vireo_tpu_torch.utils import device as tdevice
 
@@ -45,8 +47,29 @@ def _cli(tmp_path):
     return (tmp_path / "out" / "donor_ids.tsv").read_text()
 
 
+def _cli_donor_file(tmp_path):
+    d = _write_cellsnp(tmp_path / "cellsnp", V=V, C=C, K=K)
+    donors = str(tmp_path / "donors.vcf.gz")
+    _write_donor_vcf(donors, d["GT"], [0, 1], ["A", "B"],
+                     np.random.RandomState(0), V=V)
+    tcli.main(["-c", str(tmp_path / "cellsnp"), "-d", donors, "-t", "GT",
+               "-o", str(tmp_path / "out"), "--randSeed", "1", "--noPlot"])
+    return (tmp_path / "out" / "donor_ids.tsv").read_text()
+
+
+def _fused_fit(tmp_path):
+    d = synth_pool_counts(V, C, K, doublet_rate=0.0, density=0.3, seed=1)
+    cfg = tvireo.VireoConfig(n_var=V, n_cell=C, n_donor=K)
+    state = tvireo.init_state(cfg, rng=np.random.RandomState(0),
+                              dtype=torch.float32)
+    priors = tvireo.default_priors(cfg, dtype=torch.float32)
+    data = vireo_fused.prepare_fused(counts_from_scipy(d["AD"], d["DP"]))
+    return vireo_fused.fused_fit_vb(data, state, priors, cfg, max_iter=30)
+
+
 ENTRY_POINTS = {"default_device": _default_device, "vireo_wrap": _wrap,
-                "cli": _cli}
+                "cli": _cli, "cli_donor_file": _cli_donor_file,
+                "fused_fit_vb": _fused_fit}
 
 
 @pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
@@ -67,6 +90,10 @@ def test_platform_cpu_runs_on_the_cpu(no_card, tmp_path, entry):
         # the CPU's working type is float64 (the card's float32)
         assert got["ID_prob"].shape == (C, K)
         assert got["GT_prob"].dtype == np.float64
+    elif entry == "fused_fit_vb":
+        state, _, elbo, n_iter = got
+        assert state.id_prob.device == torch.device("cpu")
+        assert np.isfinite(elbo) and 0 < n_iter <= 30
     else:
         assert len(got.splitlines()) == C + 1
 

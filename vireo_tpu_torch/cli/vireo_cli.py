@@ -1,11 +1,17 @@
-"""`vireo` command-line entry point of the PyTorch port: the
-genotype-free cellSNP path (counterpart of vireo_tpu/cli/vireo_cli.py).
+"""`vireo` command-line entry point of the PyTorch port (counterpart of
+vireo_tpu/cli/vireo_cli.py).
 
-Same flags and the same outputs (donor_ids.tsv, summary.tsv,
-prob_singlet.tsv.gz, prob_doublet.tsv.gz, _log.txt). The flags of the
-paths not ported yet exit with an error naming their ROADMAP.md item.
+Same flags, inputs (a cellSNP folder, a cell VCF, VarTrix files), donor
+genotype modes (none, all known, a superset or a subset of the pool's
+donors in `--donorFile`, extra donors) and outputs (donor_ids.tsv,
+summary.tsv, prob_singlet.tsv.gz, prob_doublet.tsv.gz, _log.txt,
+GT_donors.vireo.vcf.gz). Plots, ambient RNA and a device mesh are not
+ported yet: their flags exit with an error, or a note, naming their
+ROADMAP.md item.
 
     python -m vireo_tpu_torch.cli.vireo_cli -c CELLSNP_DIR -N K -o OUT
+    python -m vireo_tpu_torch.cli.vireo_cli -c CELLSNP_DIR -d donors.vcf.gz \
+        -t GT -o OUT
 """
 
 import os
@@ -19,15 +25,7 @@ from ..version import __version__
 
 # flag -> (is it set?, ROADMAP.md queue-1 item that ports it)
 _NOT_PORTED = (
-    ("--donorFile", lambda o: o.donor_file is not None,
-     "donor-prior branches"),
-    ("--vartrixData", lambda o: o.vartrix_data is not None,
-     "donor-prior branches"),
-    ("--extraDonor > 0", lambda o: bool(o.n_extra_donor),
-     "donor-prior branches"),
     ("--callAmbientRNAs", lambda o: o.check_ambient, "ambient"),
-    ("--checkpointDir", lambda o: o.checkpoint_dir is not None,
-     "checkpoints"),
     ("--mesh VxC", lambda o: "x" in (o.mesh or "").lower(), "multi-GPU"),
 )
 
@@ -37,20 +35,24 @@ def build_parser():
         prog="vireo", description="vireo-tpu-torch donor demultiplexing "
         "v%s" % __version__)
     parser.add_argument("--cellData", "-c", dest="cell_data", default=None,
-                        help="The cellSNP folder with sparse matrices "
-                             "(cell VCF input is not ported yet).")
+                        help="The cell genotype file in VCF format or "
+                             "cellSNP folder with sparse matrices.")
     parser.add_argument("--nDonor", "-N", type=int, dest="n_donor",
-                        default=None, help="Number of donors to demultiplex")
+                        default=None,
+                        help="Number of donors to demultiplex; can be "
+                             "larger than provided in donor_file")
     parser.add_argument("--outDir", "-o", dest="out_dir", default=None,
                         help="Directory for output files "
                              "[default: $cellFilePath/vireo]")
     parser.add_argument("--vartrixData", dest="vartrix_data", default=None,
-                        help="Not ported yet.")
+                        help="The cell genotype files in vartrix outputs "
+                             "(three/four files, comma separated): "
+                             "alt.mtx,ref.mtx,barcodes.tsv,SNPs.vcf.gz")
     parser.add_argument("--donorFile", "-d", dest="donor_file", default=None,
-                        help="Not ported yet.")
+                        help="The donor genotype file in VCF format.")
     parser.add_argument("--genoTag", "-t", dest="geno_tag", default='PL',
-                        help="The tag for donor genotype (used with "
-                             "--donorFile) [default: %(default)s]")
+                        help="The tag for donor genotype: GT, GP, PL "
+                             "[default: %(default)s]")
     parser.add_argument("--noDoublet", dest="no_doublet",
                         action="store_true", default=False,
                         help="If use, not checking doublets.")
@@ -58,11 +60,13 @@ def build_parser():
                         help="Number of random initializations "
                              "[default: %(default)s]")
     parser.add_argument("--extraDonor", type=int, dest="n_extra_donor",
-                        default=0, help="Not ported yet beyond 0.")
+                        default=0,
+                        help="Number of extra donors in pre-cluster "
+                             "[default: %(default)s]")
     parser.add_argument("--extraDonorMode", dest="extra_donor_mode",
                         default="distance",
-                        help="Method for searching from extra donors "
-                             "[default: %(default)s]")
+                        help="Method for searching from extra donors: "
+                             "size or distance [default: %(default)s]")
     parser.add_argument("--forceLearnGT", dest="force_learnGT",
                         default=False, action="store_true",
                         help="If use, treat donor GT as prior only.")
@@ -71,7 +75,8 @@ def build_parser():
                         help="If use, turn on SNP-specific allelic ratio.")
     parser.add_argument("--noPlot", dest="no_plot", default=False,
                         action="store_true",
-                        help="Accepted; the port writes no plots yet.")
+                        help="Accepted; the port writes no plots yet "
+                             "(ROADMAP.md, queue 1: plots).")
     parser.add_argument("--randSeed", type=int, dest="rand_seed",
                         default=None,
                         help="Seed for random initialization "
@@ -90,7 +95,11 @@ def build_parser():
                         help="Accepted for compatibility; restarts are "
                              "batched on device [default: %(default)s]")
     parser.add_argument("--checkpointDir", dest="checkpoint_dir",
-                        default=None, help="Not ported yet.")
+                        default=None,
+                        help="Directory for phase checkpoints; an "
+                             "interrupted run restarted with the same "
+                             "arguments resumes after the last completed "
+                             "phase [default: off]")
     parser.add_argument("--timing", dest="timing", default=False,
                         action="store_true",
                         help="Print the seconds of each phase")
@@ -98,6 +107,61 @@ def build_parser():
                         help="'auto' or 'off' (one device); a 'VxC' mesh "
                              "is not ported yet [default: %(default)s]")
     return parser
+
+
+def _load_cells(options):
+    """The cell data from a VarTrix triple or quadruple, a cellSNP folder
+    or a cell VCF."""
+    from ..io.matrices import read_cellSNP, read_vartrix
+    from ..io.vcf import load_VCF, read_sparse_GeneINFO
+    if options.vartrix_data is not None:
+        print("[vireo] Loading vartrix files ...")
+        vartrix_files = options.vartrix_data.split(",")
+        if len(vartrix_files) < 3 or len(vartrix_files) > 4:
+            print("Error: vartrixData requires 3 or 4 comma separated files")
+            sys.exit(1)
+        elif len(vartrix_files) == 3:
+            vartrix_files.append(None)
+        return read_vartrix(*vartrix_files)
+    if os.path.isdir(os.path.abspath(options.cell_data)):
+        print("[vireo] Loading cell folder ...")
+        return read_cellSNP(options.cell_data)
+    print("[vireo] Loading cell VCF file ...")
+    cell_vcf = load_VCF(options.cell_data, biallelic_only=True)
+    cell_dat = read_sparse_GeneINFO(cell_vcf['GenoINFO'], keys=['AD', 'DP'])
+    for _key in ['samples', 'variants', 'FixedINFO', 'contigs', 'comments']:
+        cell_dat[_key] = cell_vcf[_key]
+    return cell_dat
+
+
+def _load_donors(options, cell_dat):
+    """(cell_dat, donor_vcf, donor_GPb) matched on their shared variants;
+    the CLI's three error exits."""
+    from ..io.matrices import match_donor_VCF
+    from ..io.vcf import load_VCF, parse_donor_GPb
+    if "variants" not in cell_dat.keys():
+        print("Error: No variants information is loaded, please "
+              "provide base.vcf.gz")
+        sys.exit(1)
+
+    print("[vireo] Loading donor VCF file ...")
+    donor_vcf = load_VCF(options.donor_file, biallelic_only=True,
+                         sparse=False, format_list=[options.geno_tag])
+    if (donor_vcf['n_SNP_tagged'][0] <
+            (0.1 * len(donor_vcf['GenoINFO'][options.geno_tag]))):
+        print("Error: No " + options.geno_tag + " tag in donor "
+              "genotype; please try another tag for genotype, e.g., GT")
+        print("        %s" % options.donor_file)
+        sys.exit(1)
+
+    cell_dat, donor_vcf = match_donor_VCF(cell_dat, donor_vcf)
+    if len(donor_vcf['GenoINFO'][options.geno_tag]) == 0:
+        print("Error: No matching variants found between cell data "
+              "and donor VCF.")
+        sys.exit(1)
+    donor_GPb = parse_donor_GPb(donor_vcf['GenoINFO'][options.geno_tag],
+                                options.geno_tag)
+    return cell_dat, donor_vcf, donor_GPb
 
 
 def main(argv=None):
@@ -114,31 +178,29 @@ def main(argv=None):
         if is_set(options):
             sys.exit("Error: %s is not supported by the PyTorch port yet "
                      "(ROADMAP.md, queue 1: %s)." % (flag, item))
-    if options.cell_data is None:
-        print("Error: need cell data as a cellSNP output folder.")
-        sys.exit(1)
-    if not os.path.isdir(os.path.abspath(options.cell_data)):
-        sys.exit("Error: cell VCF input is not supported by the PyTorch "
-                 "port yet (ROADMAP.md, queue 1: donor-prior branches); "
-                 "pass a cellSNP folder.")
-    if options.n_donor is None:
-        sys.exit("Error: --nDonor is required without --donorFile.")
 
     from ..engine.wrap import vireo_wrap
-    from ..io.matrices import write_donor_id, read_cellSNP
+    from ..io.matrices import write_donor_id
+    from ..io.vcf import write_VCF, GenoINFO_maker
+    from ..ops.matching import optimal_match
 
     if options.out_dir is None:
         print("Warning: no outDir provided, we use $cellFilePath/vireo.")
-        out_dir = os.path.dirname(os.path.abspath(options.cell_data)) \
-            + "/vireo"
+        input_path = options.cell_data
+        if input_path is None and options.vartrix_data is not None:
+            input_path = options.vartrix_data.split(",")[0]
+        out_dir = os.path.dirname(os.path.abspath(input_path)) + "/vireo"
     elif os.path.dirname(options.out_dir) == "":
         out_dir = "./" + options.out_dir
     else:
         out_dir = options.out_dir
     os.makedirs(out_dir, exist_ok=True)
 
-    print("[vireo] Loading cell folder ...")
-    cell_dat = read_cellSNP(options.cell_data)
+    if options.cell_data is None and options.vartrix_data is None:
+        print("Error: need cell data in vcf file, or cellSNP output "
+              "folder, or vartrix's alt.mtx,ref.mtx,barcodes.tsv.")
+        sys.exit(1)
+    cell_dat = _load_cells(options)
 
     if options.cell_range is not None:
         lo, hi = (int(x) for x in options.cell_range.split("-"))
@@ -150,23 +212,72 @@ def main(argv=None):
         print("Error: cell data contains no variants.")
         sys.exit(1)
 
+    # donor genotypes: all known, a subset or a superset of the pool's
     n_donor = options.n_donor
-    donor_names = ['donor%d' % x for x in range(n_donor)]
+    donor_vcf = donor_GPb = None
+    if options.donor_file is not None:
+        cell_dat, donor_vcf, donor_GPb = _load_donors(options, cell_dat)
+        if n_donor is None or n_donor == donor_GPb.shape[1]:
+            n_donor = donor_GPb.shape[1]
+            donor_names = donor_vcf['samples']
+            learn_GT = False
+        elif n_donor < donor_GPb.shape[1]:
+            learn_GT = False
+            donor_names = ['donor%d' % x for x in range(n_donor)]
+        else:
+            learn_GT = True
+            donor_names = (donor_vcf['samples'] +
+                           ['donor%d' % x
+                            for x in range(donor_GPb.shape[1], n_donor)])
+    elif n_donor is None:
+        sys.exit("Error: --nDonor is required without --donorFile.")
+    else:
+        learn_GT = True
+        donor_names = ['donor%d' % x for x in range(n_donor)]
+
     n_vars = np.array((cell_dat['DP'] > 0).sum(axis=0)).reshape(-1)
+
+    if options.force_learnGT:
+        learn_GT = True
+
+    n_extra_donor = 0
+    if learn_GT:
+        if options.n_extra_donor is None or options.n_extra_donor == "None":
+            n_extra_donor = int(round(np.sqrt(n_donor)))
+        else:
+            n_extra_donor = options.n_extra_donor
+
+    n_init = options.n_init if learn_GT else 1
 
     print("[vireo] Demultiplex %d cells to %d donors with %d variants."
           % (cell_dat['AD'].shape[1], n_donor, cell_dat['AD'].shape[0]))
     res_vireo = vireo_wrap(
-        cell_dat['AD'], cell_dat['DP'], n_donor=n_donor, n_init=options.n_init,
+        cell_dat['AD'], cell_dat['DP'], n_donor=n_donor, GT_prior=donor_GPb,
+        learn_GT=learn_GT, n_init=n_init, n_extra_donor=n_extra_donor,
+        extra_donor_mode=options.extra_donor_mode,
         check_doublet=not options.no_doublet, random_seed=options.rand_seed,
         ASE_mode=options.ASE_mode, nproc=options.nproc,
+        checkpoint_dir=options.checkpoint_dir,
         timing=options.timing or None)
+
+    if donor_GPb is not None and n_donor < donor_GPb.shape[1]:
+        idx = optimal_match(res_vireo['GT_prob'], donor_GPb)[1]
+        donor_names = [donor_vcf['samples'][x] for x in idx]
 
     write_donor_id(out_dir, donor_names, cell_dat['samples'], n_vars,
                    res_vireo)
-    print("[vireo] plots and GT_donors.vireo.vcf.gz are not written by the "
-          "PyTorch port yet (ROADMAP.md, queue 1: plots and donor VCF "
-          "writer).")
+    if options.no_plot is False and options.vartrix_data is None:
+        print("[vireo] plots are not written by the PyTorch port yet "
+              "(ROADMAP.md, queue 1: plots).")
+
+    # the donors' learnt genotypes
+    if learn_GT and 'variants' in cell_dat.keys():
+        donor_vcf_out = cell_dat
+        donor_vcf_out['samples'] = donor_names
+        donor_vcf_out['GenoINFO'] = GenoINFO_maker(
+            res_vireo['GT_prob'], cell_dat['AD'] @ res_vireo['ID_prob'],
+            cell_dat['DP'] @ res_vireo['ID_prob'])
+        write_VCF(out_dir + "/GT_donors.vireo.vcf.gz", donor_vcf_out)
 
     run_time = time.time() - start_time
     print("[vireo] All done: %d min %.1f sec"

@@ -19,6 +19,8 @@ from ..ops.counts import counts_from_scipy
 from ..models.vireo import (Vireo, VireoConfig, VireoState, default_priors,
                             fit_vb)
 from ..models.doublet import predict_doublet
+from ..ops.matching import optimal_match, donor_select
+from ..utils import checkpoint as ckpt
 from ..utils.device import (resolve_device, default_dtype,
                             pin_matmul_precision, numpy_dtype, sync)
 
@@ -42,43 +44,57 @@ def _batched_beta(cfg, n_init, dtype, device):
     return beta_mu, beta_sum
 
 
-def _host_batched_init(cfg, n_init, rng, dtype, device):
+def _host_batched_init(cfg, n_init, GT_prior_use, rng, dtype, device):
     """The reference's per-restart np.random draws, in the order and
     with the per-restart normalisation of
     vireo_tpu/engine/wrap.py::_host_batched_init, assembled into one
-    batched array per field and placed once."""
+    batched array per field and placed once. With a genotype prior only
+    the (C, K) assignments are drawn; every restart's genotypes are the
+    prior normalised in float64."""
     K, C, G = cfg.n_donor, cfg.n_cell, cfg.n_GT
     np_dtype = numpy_dtype(dtype)
     id_b = np.empty((n_init, C, K), np_dtype)
     gt_b = np.empty((n_init, cfg.n_var, K, G), np_dtype)
+    if GT_prior_use is not None:
+        gp = np.asarray(GT_prior_use, np.float64)
+        gp = gp / gp.sum(-1, keepdims=True)
     for i in range(n_init):
         idp = rng.rand(C, K)
         id_b[i] = idp / idp.sum(1, keepdims=True)
-        gtp = rng.rand(cfg.n_var, K, G)
-        gt_b[i] = gtp / gtp.sum(-1, keepdims=True)
+        if GT_prior_use is None:
+            gtp = rng.rand(cfg.n_var, K, G)
+            gt_b[i] = gtp / gtp.sum(-1, keepdims=True)
+        else:
+            gt_b[i] = gp
     beta_mu, beta_sum = _batched_beta(cfg, n_init, dtype, device)
     return VireoState(beta_mu=beta_mu, beta_sum=beta_sum,
                       gt_prob=torch.from_numpy(gt_b).to(device),
                       id_prob=torch.from_numpy(id_b).to(device))
 
 
-def _device_batched_init(cfg, n_init, generator, dtype, device):
+def _device_batched_init(cfg, n_init, GT_prior_use, generator, dtype,
+                         device):
     """Unseeded inits drawn on the device: uniform draws normalised per
-    restart. They carry no parity contract with any other stream."""
+    restart, or with a genotype prior, the prior in every restart. They
+    carry no parity contract with any other stream."""
     shape_id = (n_init, cfg.n_cell, cfg.n_donor)
     shape_gt = (n_init, cfg.n_var, cfg.n_donor, cfg.n_GT)
     idp = torch.rand(shape_id, generator=generator, dtype=dtype,
                      device=device)
-    gtp = torch.rand(shape_gt, generator=generator, dtype=dtype,
-                     device=device)
+    if GT_prior_use is None:
+        gtp = torch.rand(shape_gt, generator=generator, dtype=dtype,
+                         device=device)
+    else:
+        gtp = torch.as_tensor(np.asarray(GT_prior_use), device=device).to(
+            dtype).expand(shape_gt)
     beta_mu, beta_sum = _batched_beta(cfg, n_init, dtype, device)
     return VireoState(beta_mu=beta_mu, beta_sum=beta_sum,
                       gt_prob=gtp / gtp.sum(-1, keepdim=True),
                       id_prob=idp / idp.sum(-1, keepdim=True))
 
 
-def _model_from_state(counts, cfg_kwargs, n_donor, learn_GT, state, dtype,
-                      device, device_state=False):
+def _model_from_state(counts, cfg_kwargs, n_donor, learn_GT, state,
+                      GT_prior_use, dtype, device, device_state=False):
     """A Vireo wrapper seeded with an existing state (no RNG draws).
 
     Seeded runs go through the host, renormalising in float64 as the
@@ -96,7 +112,7 @@ def _model_from_state(counts, cfg_kwargs, n_donor, learn_GT, state, dtype,
                   beta_sum_init=state.beta_sum.cpu().numpy(),
                   ID_prob_init=state.id_prob.cpu().numpy(),
                   GT_prob_init=state.gt_prob.cpu().numpy(), **cfg_kwargs)
-    m.set_prior()
+    m.set_prior(GT_prior=GT_prior_use)
     return m
 
 
@@ -130,21 +146,21 @@ def vireo_wrap(AD, DP=None, GT_prior=None, n_donor=None, learn_GT=True,
     from numpy's global stream). `timing`: True prints the seconds of
     each phase; a dict is filled with them.
 
-    Not ported yet: GT_prior, n_extra_donor > 0, check_ambient, a mesh
-    and checkpoint_dir raise NotImplementedError.
+    `GT_prior` (n_var, n_prior, 3) gives donor genotypes: all donors
+    when n_prior equals n_donor, a superset to pick n_donor of, or a
+    subset the fit completes; `n_extra_donor` over-clusters by that
+    many donors and keeps n_donor (`extra_donor_mode` "distance" or
+    "size"). `checkpoint_dir`: the best warm restart (step 0) and the
+    refit state (step 1) are saved there with numpy's RNG position, in
+    the JAX package's format; a rerun with the same arguments resumes
+    after the latest saved phase and gives the uninterrupted result.
+
+    Not ported yet: check_ambient and a mesh raise NotImplementedError.
     """
-    if GT_prior is not None:
-        raise _not_ported("GT_prior", "donor-prior branches")
-    if n_extra_donor:
-        raise _not_ported("n_extra_donor > 0", "donor-prior branches")
     if check_ambient:
         raise _not_ported("check_ambient", "ambient")
     if mesh is not None:
         raise _not_ported("a device mesh", "multi-GPU")
-    if checkpoint_dir is not None:
-        raise _not_ported("checkpoint_dir", "checkpoints")
-    if n_donor is None:
-        raise ValueError("[vireo] Error: requiring n_donor or GT_prior.")
 
     pin_matmul_precision()
     device = resolve_device(getattr(AD, "device", None)
@@ -156,11 +172,25 @@ def vireo_wrap(AD, DP=None, GT_prior=None, n_donor=None, learn_GT=True,
     def phase(name):
         return _timed(record, name, device)
 
+    resume = ckpt.latest_step(checkpoint_dir) if checkpoint_dir else None
+    if resume is not None and verbose:
+        print("[vireo] resuming from checkpoint step %d in %s"
+              % (resume, checkpoint_dir))
+
     n_cell_in = AD.n_cell if hasattr(AD, "suff_stats") \
         else int(AD.shape[1])
     with phase("data_placement"):
         counts = AD if hasattr(AD, "suff_stats") else counts_from_scipy(
             AD, DP, device=device, verbose=verbose)
+
+    if learn_GT is False and n_extra_donor > 0:
+        print("Searching from extra donors only works with learn_GT")
+        n_extra_donor = 0
+
+    if n_donor is None:
+        if GT_prior is None:
+            raise ValueError("[vireo] Error: requiring n_donor or GT_prior.")
+        n_donor = GT_prior.shape[1]
 
     if learn_GT is False and n_init > 1:
         print("GT is fixed, so use a single initialization")
@@ -169,46 +199,163 @@ def vireo_wrap(AD, DP=None, GT_prior=None, n_donor=None, learn_GT=True,
     if random_seed is not None:
         np.random.seed(random_seed)
     rng = np.random  # the reference draws from the global stream
+    device_init = random_seed is None
+
+    # the run's fingerprint, key for key the JAX package's, so that each
+    # package refuses the other's checkpoints of another run and resumes
+    # from those of the same run
+    run_fp = {
+        "n_var": int(counts.n_var), "n_cell": int(counts.n_cell),
+        "nnz": int(getattr(counts, "nnz", -1)),
+        "n_donor": int(n_donor), "n_init": int(n_init),
+        "random_seed": -1 if random_seed is None else int(random_seed),
+        "learn_GT": int(bool(learn_GT)),
+        "n_extra_donor": int(n_extra_donor),
+        "has_GT_prior": int(GT_prior is not None),
+        "device_init": int(device_init),
+    }
+    if resume is not None:
+        ckpt.check_fingerprint(checkpoint_dir, run_fp)
 
     n_donor = int(n_donor)
+    GT_prior_use = None
+    n_donor_use = int(n_donor + n_extra_donor)
+    if GT_prior is not None and n_donor_use == GT_prior.shape[1]:
+        GT_prior_use = GT_prior.copy()
+    elif GT_prior is not None and n_donor_use < GT_prior.shape[1]:
+        GT_prior_use = GT_prior.copy()
+        n_donor_use = GT_prior.shape[1]
+
     cfg_kwargs = {k: v for k, v in kwargs.items()
                   if k in ("n_GT", "learn_theta", "ASE_mode",
                            "fix_beta_sum")}
     cfg = VireoConfig(n_var=counts.n_var, n_cell=counts.n_cell,
-                      n_donor=n_donor, learn_GT=learn_GT, **cfg_kwargs)
-    priors = default_priors(cfg, dtype=dtype, device=device)
+                      n_donor=n_donor_use, learn_GT=learn_GT, **cfg_kwargs)
+    priors = default_priors(cfg, GT_prior=GT_prior_use, dtype=dtype,
+                            device=device)
+
+    def model(n_donor, learn_GT, **init):
+        return Vireo(n_cell=counts.n_cell, n_var=counts.n_var,
+                     n_donor=n_donor, learn_GT=learn_GT, dtype=dtype,
+                     device=device, **init, **cfg_kwargs)
 
     # ---- warm restarts: one batched fit (vireo_wrap.py:64-87)
-    with phase("warm_restarts"):
-        if random_seed is None:
-            if generator is None:
-                generator = torch.Generator(device=device)
-                generator.manual_seed(int(rng.randint(2 ** 31)))
-            batched = _device_batched_init(cfg, n_init, generator, dtype,
-                                           device)
-        else:
-            batched = _host_batched_init(cfg, n_init, rng, dtype, device)
-        warm = fit_vb(counts, batched, priors, cfg,
-                      max_iter=max_iter_init, min_iter=5,
-                      delay_fit_theta=delay_fit_theta)
-        # np.argmax takes the first maximum, as jnp.argmax does
-        best = int(np.argmax(warm.elbo_ref))
-        best_state = warm.state.take(best)
-        elbo_all = warm.elbo_ref + float(counts.binom_coeff_sum())
-        del warm, batched
+    if resume is not None:
+        # the saved RNG position keeps later draws (the refits' inits)
+        # on the uninterrupted run's stream
+        best_state, _, ex = ckpt.load_state(checkpoint_dir, 0, dtype=dtype,
+                                            device=device)
+        elbo_all = np.asarray(ex["elbo_all"])
+        ckpt.load_rng(checkpoint_dir, "rng_0")
+    else:
+        with phase("warm_restarts"):
+            if device_init:
+                if generator is None:
+                    generator = torch.Generator(device=device)
+                    generator.manual_seed(int(rng.randint(2 ** 31)))
+                batched = _device_batched_init(cfg, n_init, GT_prior_use,
+                                               generator, dtype, device)
+            else:
+                batched = _host_batched_init(cfg, n_init, GT_prior_use, rng,
+                                             dtype, device)
+            warm = fit_vb(counts, batched, priors, cfg,
+                          max_iter=max_iter_init, min_iter=5,
+                          delay_fit_theta=delay_fit_theta)
+            # np.argmax takes the first maximum, as jnp.argmax does
+            best = int(np.argmax(warm.elbo_ref))
+            best_state = warm.state.take(best)
+            elbo_all = warm.elbo_ref + float(counts.binom_coeff_sum())
+            del warm, batched
+        if checkpoint_dir:
+            ckpt.save_state(checkpoint_dir, 0, best_state,
+                            extra={"elbo_all": elbo_all},
+                            fingerprint=run_fp)
+            ckpt.save_rng(checkpoint_dir, "rng_0")
 
-    with phase("model_build"):
+    if resume is not None and resume >= 1:
+        state1, priors1, ex1 = ckpt.load_state(checkpoint_dir, 1,
+                                               dtype=dtype, device=device)
+        ckpt.load_rng(checkpoint_dir, "rng_1")
         modelCA = _model_from_state(
-            counts, cfg_kwargs, n_donor, learn_GT, best_state, dtype,
-            device, device_state=random_seed is None)
-    modelCA.ELBO_ = np.asarray([elbo_all[np.argmax(elbo_all)]])
+            counts, cfg_kwargs, int(ex1["n_donor"]), bool(ex1["learn_GT"]),
+            state1, None, dtype, device)
+        modelCA.state = state1        # as saved (init_state renormalises)
+        modelCA.priors = priors1      # the branch's genotype prior
+        modelCA.ELBO_ = np.asarray(ex1["ELBO_"])
+        if verbose:
+            print("[vireo] lower bound ranges [%.1f, %.1f, %.1f]"
+                  % (np.min(elbo_all), np.median(elbo_all),
+                     np.max(elbo_all)))
+    else:
+        with phase("model_build"):
+            modelCA = _model_from_state(
+                counts, cfg_kwargs, n_donor_use, learn_GT, best_state,
+                GT_prior_use, dtype, device, device_state=device_init)
+        modelCA.ELBO_ = np.asarray([elbo_all[np.argmax(elbo_all)]])
 
-    # ---- long refit of the winner (vireo_wrap.py:89-105)
-    with phase("refit"):
-        modelCA.fit(counts, min_iter=5, verbose=False)
+        # ---- long refit of the winner / extra-donor reduction
+        # (vireo_wrap.py:89-105); the branches' host steps take float64
+        with phase("refit"):
+            if n_extra_donor == 0:
+                modelCA.fit(counts, min_iter=5, verbose=False)
+            else:
+                _ID_prob = donor_select(
+                    modelCA.GT_prob.astype(np.float64),
+                    modelCA.ID_prob.astype(np.float64), n_donor,
+                    mode=extra_donor_mode, verbose=verbose)
+                modelCA = model(n_donor, learn_GT,
+                                GT_prob_init=GT_prior_use,
+                                ID_prob_init=_ID_prob,
+                                beta_mu_init=modelCA.beta_mu,
+                                beta_sum_init=modelCA.beta_sum)
+                modelCA.set_prior(GT_prior=GT_prior_use)
+                modelCA.fit(counts, min_iter=5,
+                            delay_fit_theta=delay_fit_theta, verbose=False)
+
+            if verbose:
+                print("[vireo] lower bound ranges [%.1f, %.1f, %.1f]"
+                      % (np.min(elbo_all), np.median(elbo_all),
+                         np.max(elbo_all)))
+
+            # ---- donor-subset prior: keep the largest donors, refit with
+            # the genotypes fixed (vireo_wrap.py:111-119)
+            if GT_prior is not None and n_donor < GT_prior.shape[1]:
+                _donor_cnt = modelCA.state.id_prob.sum(dim=0).cpu().numpy()
+                _donor_idx = np.argsort(_donor_cnt)[::-1]
+                GT_prior_use = GT_prior[:, _donor_idx[:n_donor], :]
+                # the reference keeps the default (uniform) genotype
+                # prior here; only the init is pinned
+                modelCA = model(n_donor, False, GT_prob_init=GT_prior_use)
+                modelCA.fit(counts, min_iter=20, verbose=False)
+
+            # ---- donor-superset prior: graft the known donors into
+            # their matched slots (vireo_wrap.py:121-136)
+            elif GT_prior is not None and n_donor > GT_prior.shape[1]:
+                GT_prior_use = modelCA.GT_prob.astype(np.float64)
+                idx = optimal_match(GT_prior, GT_prior_use)[1]
+                GT_prior_use[:, idx, :] = GT_prior
+                _idx_order = np.append(idx,
+                                       np.delete(np.arange(n_donor), idx))
+                GT_prior_use = GT_prior_use[:, _idx_order, :]
+                ID_prob_use = modelCA.ID_prob[:, _idx_order]
+                modelCA = model(n_donor, learn_GT, ID_prob_init=ID_prob_use,
+                                beta_mu_init=modelCA.beta_mu,
+                                beta_sum_init=modelCA.beta_sum,
+                                GT_prob_init=GT_prior_use)
+                modelCA.set_prior(GT_prior=GT_prior_use)
+                modelCA.fit(counts, min_iter=20, verbose=False)
+
+        if checkpoint_dir:
+            ckpt.save_state(checkpoint_dir, 1, modelCA.state,
+                            priors=modelCA.priors,
+                            extra={"elbo_all": elbo_all,
+                                   "ELBO_": modelCA.ELBO_,
+                                   "n_donor": modelCA.n_donor,
+                                   "learn_GT": modelCA.config.learn_GT},
+                            fingerprint=run_fp)
+            ckpt.save_rng(checkpoint_dir, "rng_1")
+
     if verbose:
-        print("[vireo] lower bound ranges [%.1f, %.1f, %.1f]"
-              % (np.min(elbo_all), np.median(elbo_all), np.max(elbo_all)))
         print("[vireo] allelic rate mean and concentrations:")
         print(np.round(modelCA.beta_mu, 3))
         print(np.round(modelCA.beta_sum, 1))

@@ -1,5 +1,5 @@
-"""cellSNP reader and result writer (counterpart of
-vireo_tpu/io/matrices.py, Python paths only).
+"""cellSNP and VarTrix readers, donor-VCF matching and the result
+writer (counterpart of vireo_tpu/io/matrices.py, Python paths only).
 
 `write_donor_id` keeps the reference's hard-call thresholds
 (prob_max < 0.9 -> unassigned, doublet >= 0.9 -> doublet,
@@ -11,9 +11,10 @@ from itertools import combinations
 
 import numpy as np
 
-from .vcf import load_VCF
+from .vcf import load_VCF, match_SNPs
 
-__all__ = ["read_mtx", "read_cellSNP", "write_donor_id"]
+__all__ = ["match_donor_VCF", "read_mtx", "read_cellSNP", "read_vartrix",
+           "write_donor_id"]
 
 
 def read_mtx(path):
@@ -42,6 +43,37 @@ def read_mtx(path):
     return sp.csc_matrix((body[:, 2], (rows, cols)), shape=(n_row, n_col))
 
 
+def match_donor_VCF(cell_dat, donor_vcf):
+    """Subset the cell data and the donor VCF, in place, to the variants
+    they share (`match_SNPs`, in the cell data's order)."""
+    mm_idx = match_SNPs(cell_dat['variants'], donor_vcf['variants'])
+    idx1 = np.where(mm_idx != None)[0]  # noqa: E711
+    if len(idx1) == 0:
+        print("[vireo] warning: no variants matched to donor VCF, "
+              "please check chr format!")
+    else:
+        print("[vireo] %d out %d variants matched to donor VCF"
+              % (len(idx1), len(cell_dat['variants'])))
+    idx2 = mm_idx[idx1].astype(int)
+
+    cell_dat['AD'] = cell_dat['AD'][idx1, :]
+    cell_dat['DP'] = cell_dat['DP'][idx1, :]
+    cell_dat["variants"] = [cell_dat["variants"][x] for x in idx1]
+    for _key in cell_dat["FixedINFO"].keys():
+        cell_dat["FixedINFO"][_key] = [
+            cell_dat["FixedINFO"][_key][x] for x in idx1]
+
+    donor_vcf["variants"] = [donor_vcf["variants"][x] for x in idx2]
+    for _key in donor_vcf["FixedINFO"].keys():
+        donor_vcf["FixedINFO"][_key] = [
+            donor_vcf["FixedINFO"][_key][x] for x in idx2]
+    for _key in donor_vcf["GenoINFO"].keys():
+        donor_vcf["GenoINFO"][_key] = [
+            donor_vcf["GenoINFO"][_key][x] for x in idx2]
+
+    return cell_dat, donor_vcf
+
+
 def read_cellSNP(dir_name, layers=("AD", "DP")):
     """Read a cellSNP output folder (io_utils.py:42-59)."""
     cell_dat = load_VCF(dir_name + "/cellSNP.base.vcf.gz",
@@ -51,6 +83,20 @@ def read_cellSNP(dir_name, layers=("AD", "DP")):
             dir_name + "/cellSNP.tag.%s.mtx" % _layer)
     cell_dat['samples'] = np.genfromtxt(
         dir_name + "/cellSNP.samples.tsv", dtype=str)
+    return cell_dat
+
+
+def read_vartrix(alt_mtx, ref_mtx, cell_file, vcf_file=None):
+    """Read VarTrix outputs (alt and ref count matrices, barcodes, and
+    optionally the variants' VCF); DP = REF + ALT."""
+    if vcf_file is not None:
+        cell_dat = load_VCF(vcf_file, load_sample=False, biallelic_only=False)
+        cell_dat['variants'] = np.array(cell_dat['variants'])
+    else:
+        cell_dat = {}
+    cell_dat['AD'] = read_mtx(alt_mtx)
+    cell_dat['DP'] = read_mtx(ref_mtx) + cell_dat['AD']
+    cell_dat['samples'] = np.genfromtxt(cell_file, dtype=str)
     return cell_dat
 
 
