@@ -44,28 +44,47 @@ Phases, in order; any failure raises and the script exits non-zero:
    unfused float32 fit from the same seeded init: iterations, time per
    iteration, ELBOs, accuracy and the agreement of their calls;
 8. the donor-genotype modes on the main pool through vireo_wrap on the
-   dense rung (K1 in the doublet phase): every donor known, a superset
-   (12 of 16 known, 20 restarts), a subset (the 16 among 4 decoys);
-   then every donor known on the packed rung (K2, K3): launch counts,
-   phase times, peak memory and singlet accuracy >= 0.99 (without label
-   matching where every donor is known);
-9. small pools on the card against the CPU: the dense rung, the
+   dense rung (K1 in the doublet phase): every donor known (with the
+   ambient-RNA phase), a superset (12 of 16 known, 20 restarts), a
+   subset (the 16 among 4 decoys); then every donor known, with the
+   ambient phase, on the packed rung (K2, K3; its SNP gate goes through
+   K2): launch counts, phase times, peak memory and singlet accuracy >=
+   0.99 (without label matching where every donor is known); the
+   ambient phase's selected SNPs, seconds and slowest chunk, and its
+   gates: argmax psi is the simulated donor for >= AMBIENT_ACC of the
+   true singlets on each rung, the two rungs agree on >= AMBIENT_AGREE
+   of cells, and on AMBIENT_CPU_CELLS cells the card's float32 EM
+   agrees with the CPU's float64 EM from the same psi0 and theta on >=
+   AMBIENT_AGREE;
+9. the binomial mixture model at full width on the packed counts
+   (BinomMixtureVB(n_donor=16), 10 restarts, the JAX defaults): K2's and
+   K3's launches equal the warm restarts' longest run plus the refit's
+   iterations; time, ms an iteration, peak memory, singlet accuracy
+   after label matching (reported);
+10. small pools on the card against the CPU: the dense rung, the
    extra-donor and superset branches, then the int8-hybrid,
-   packed-hybrid and COO rungs of a heavy-tailed pool (each rung's
-   contractions also run twice and must give the same sums bit for
-   bit), then a 23-donor pool on the dense rung, whose doublet space
-   (K = 276 columns) goes through K1;
-10. checkpoints on the card: resumes after either phase give the
+   packed-hybrid and COO rungs of a heavy-tailed pool, with the ambient
+   phase (each rung's contractions also run twice and must give the
+   same sums bit for bit), then a 23-donor pool on the dense rung,
+   whose doublet space (K = 276 columns) goes through K1; the BMM on
+   the dense and packed rungs, a seeded sweep_n_donor over K = 2..6 and
+   a sweep_n_clone, and VireoBulk with LikRatio_test;
+11. checkpoints on the card: resumes after either phase give the
    uninterrupted run's results bit for bit;
-11. the CLI on a small synthetic cellSNP folder: genotype-free (with its
-   learnt donors' VCF), then with a donor VCF (-d, -t GT).
+12. the CLI on a small synthetic cellSNP folder: genotype-free (with its
+   learnt donors' VCF), then with a donor VCF (-d, -t GT), then with
+   --callAmbientRNAs under VIREO_TIMING=1 (prop_ambient.tsv and the
+   per-phase summary); GTbarcode on the in-tree golden, byte for byte.
 
-The line before the last is the kernel table as JSON; the last line is
+Before the kernel table it prints the whole command's seconds. The line
+before the last is the kernel table as JSON; the last line is
 `{"ok": true, "device": {...}}`.
 """
 
 import contextlib
+import io
 import json
+import re
 import os
 import subprocess
 import sys
@@ -216,6 +235,23 @@ SUBSET_DECOYS = 4
 # point where a fit's 0.01 stop test falls)
 SMALL_BRANCHES = dict(n_var=600, n_cell=1500, n_donor=4)
 BRANCH_ELBO_RTOL = 1e-4
+# the ambient phase at full width: argmax psi of the true singlets is
+# their simulated donor (every donor known: donor k of the prior is donor
+# k of psi); the dense and packed runs, and the card's float32 EM and the
+# CPU's float64 EM on AMBIENT_CPU_CELLS cells from the same psi0 and
+# theta, agree on argmax psi
+AMBIENT_ACC = 0.99
+AMBIENT_AGREE = 0.999
+AMBIENT_CPU_CELLS = 2048
+# the small pools' ambient psi on the card and the CPU: argmax agreement
+# over the CPU's confident cells (max psi >= 0.9; a doublet's psi is a
+# near tie between its two donors)
+SMALL_AMBIENT_AGREE = 0.99
+# the binomial mixture model at full width: the JAX package's defaults
+BMM_FIT = dict(n_init=10, max_iter_pre=100, max_iter=200, random_seed=0)
+# the small pool's K sweep and bulk sample
+SWEEP_KS = (2, 3, 4, 5, 6)
+BULK_PSI_ATOL = 1e-4
 
 
 def log(*args):
@@ -964,7 +1000,7 @@ def phase_small_rungs(torch):
         (extra.astype(np.float64), (r, c)), shape=(V, C)))
     vmax = float(DP.max())
     cpu = vireo_wrap(AD, DP, n_donor=K, n_init=5, random_seed=2,
-                     verbose=False, device="cpu")
+                     verbose=False, device="cpu", check_ambient=True)
     for rung, units in (("int8-hybrid", 2), ("packed-hybrid", 1),
                         ("coo", 0)):
         budget = max(units * V * C, 1)
@@ -976,7 +1012,7 @@ def phase_small_rungs(torch):
                                      dense_budget=budget)
         _check_repeatable(torch, rung, c)
         gpu = vireo_wrap(c, n_donor=K, n_init=5, random_seed=2,
-                         verbose=False)
+                         verbose=False, check_ambient=True)
         # doublet cells split their small singlet mass between two
         # donors almost evenly, so their singlet argmax is a near tie
         # that float32 and float64 may break apart: the calls compared
@@ -1001,6 +1037,19 @@ def phase_small_rungs(torch):
                                  % rung)
         np.testing.assert_allclose(gpu["LB_doublet"], cpu["LB_doublet"],
                                    rtol=RUNG_ELBO_RTOL)
+        # the ambient phase (var_subset of the rung, then its densify):
+        # argmax psi over the CPU's confident cells, labels matched as
+        # for the calls
+        pc, pg = cpu["ambient_Psi"], gpu["ambient_Psi"]
+        sure = np.isfinite(pg).all(1) & np.isfinite(pc).all(1)
+        sure[sure] = pc[sure].max(1) >= 0.9
+        amb = _matched_agreement(pg[sure], pc[sure])
+        log("[rungs] %s ambient: argmax psi agreement %.5f over %d of %d "
+            "cells confident on the CPU after label matching (gate %.2f)"
+            % (rung, amb, int(sure.sum()), len(sure), SMALL_AMBIENT_AGREE))
+        if amb < SMALL_AMBIENT_AGREE:
+            raise AssertionError("%s ambient psi disagrees with the CPU's"
+                                 % rung)
 
 
 def _check_repeatable(torch, rung, c):
@@ -1141,18 +1190,42 @@ def _donor_priors(d):
     }
 
 
+@contextlib.contextmanager
+def _ambient_record(out):
+    """Record the ambient phase in the block: each cell chunk's
+    iterations (`out["iters"]`) and the arguments of the chunked EM
+    (`out["cols"]`: counts storage, selected rows, theta, psi0)."""
+    from vireo_tpu_torch.models import ambient
+    real_chunk, real_cols = ambient._em_chunk, ambient._ambient_em_cols
+    out["iters"] = []
+
+    def chunk(*args):
+        res = real_chunk(*args)
+        out["iters"].append(res[3])
+        return res
+
+    def cols(*args, **kwargs):
+        out["cols"] = args
+        return real_cols(*args, **kwargs)
+    ambient._em_chunk, ambient._ambient_em_cols = chunk, cols
+    try:
+        yield
+    finally:
+        ambient._em_chunk, ambient._ambient_em_cols = real_chunk, real_cols
+
+
 def _run_mode(torch, counts, d, tag, kw):
     """vireo_wrap on prebuilt counts in one donor-genotype mode, its
     launch counts set to 0 just before and read just after; returns
     (result, launches, singlet accuracy with and without label
-    matching)."""
+    matching, fit iterations, the ambient phase's record)."""
     from vireo_tpu_torch.engine.wrap import vireo_wrap
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    phases, fits = {}, []
+    phases, fits, amb = {}, [], {}
     _reset_launches()
     t0 = time.perf_counter()
-    with _fit_lengths(fits):
+    with _fit_lengths(fits), _ambient_record(amb):
         res = vireo_wrap(counts, random_seed=0, verbose=False,
                          timing=phases, **kw)
     wall = time.perf_counter() - t0
@@ -1173,38 +1246,103 @@ def _run_mode(torch, counts, d, tag, kw):
            matched["singlet_accuracy"], own["singlet_accuracy"],
            matched["singlet_assigned_frac"], matched["doublet_recall"],
            matched["doublet_fpr"]))
-    return res, launches, matched["singlet_accuracy"], own["singlet_accuracy"]
+    if kw.get("check_ambient"):
+        _check_ambient(d, res, amb, phases, tag)
+    return res, launches, matched["singlet_accuracy"], \
+        own["singlet_accuracy"], fits, amb
+
+
+def _check_ambient(d, res, amb, phases, tag):
+    """The ambient phase of a known-donor run: its record, and gate 1
+    (argmax psi of the true singlets is their donor)."""
+    psi = res["ambient_Psi"]
+    assert psi.shape == (len(d["donor"]), MAIN["n_donor"])
+    assert res["Psi_var"].shape == psi.shape
+    assert res["Psi_LLRatio"].shape == (psi.shape[0],)
+    finite = np.isfinite(psi).all(1)
+    singlet = (d["donor2"] < 0) & finite
+    acc = float(np.mean(np.argmax(psi[singlet], 1) == d["donor"][singlet]))
+    n_sel = len(amb["cols"][2])
+    log("[ambient] %s: %d of %d SNPs selected; ambient phase %.3f s; %d "
+        "cell chunks, the slowest %d iterations (all: %s); cells with "
+        "finite psi %d of %d; argmax psi is the true donor for %.5f of "
+        "the true singlets (gate %.2f)"
+        % (tag, n_sel, MAIN["n_var"], phases["ambient"], len(amb["iters"]),
+           max(amb["iters"]), amb["iters"], int(finite.sum()), len(finite),
+           acc, AMBIENT_ACC))
+    if acc < AMBIENT_ACC:
+        raise AssertionError("%s: ambient singlet accuracy %.5f < %.2f"
+                             % (tag, acc, AMBIENT_ACC))
+
+
+def _ambient_cpu_check(torch, res, amb):
+    """Gate 3: the card's float32 psi of the first AMBIENT_CPU_CELLS
+    cells against the port's CPU EM in float64 from the same psi0 and
+    theta (the card's float32 values) and counts."""
+    from vireo_tpu_torch.models import ambient
+    ad_vc, dp_vc, rows, theta, psi0 = amb["cols"]
+    n = AMBIENT_CPU_CELLS
+    t0 = time.perf_counter()
+    cpu = ambient._ambient_em_cols(
+        ad_vc[rows, :n].cpu(), dp_vc[rows, :n].cpu(),
+        torch.arange(len(rows)), theta.cpu().double(),
+        psi0[:n].cpu().double(), cell_chunk=n)[0].numpy()
+    sec = time.perf_counter() - t0
+    card = res["ambient_Psi"][:n]
+    ok = np.isfinite(card).all(1) & np.isfinite(cpu).all(1)
+    agree = float(np.mean(np.argmax(card[ok], 1) == np.argmax(cpu[ok], 1)))
+    log("[ambient] card float32 vs CPU float64 on %d cells (%d finite, "
+        "CPU %.2f s): argmax psi agreement %.5f (gate %.3f), max |dpsi| "
+        "%.3e" % (n, int(ok.sum()), sec, agree, AMBIENT_AGREE,
+                  float(np.abs(card[ok] - cpu[ok]).max())))
+    if agree < AMBIENT_AGREE:
+        raise AssertionError("the card's ambient psi disagrees with the "
+                             "CPU's")
 
 
 def phase_donor_modes(torch, counts, d):
     """The donor-genotype modes at full width through vireo_wrap on the
-    dense rung (K0, K1 in the doublet phase): all 16 donors known, 12 of
-    16 known (superset, 20 restarts), the 16 among 4 decoys (subset).
-    Singlet accuracy
+    dense rung (K0, K1 in the doublet phase): all 16 donors known, with
+    the ambient phase (its gates 1 and 3), 12 of 16 known (superset, 20
+    restarts), the 16 among 4 decoys (subset). Singlet accuracy
     >= 0.99; with every donor known, without label matching (donor k of
     the prior is donor k of the calls), and in the superset the known
-    donors keep their slots."""
+    donors keep their slots. Returns the known run's result."""
+    known = None
     for mode, kw in _donor_priors(d).items():
-        res, launches, matched, own = _run_mode(torch, counts, d, mode, kw)
+        if mode == "known":
+            kw = dict(kw, check_ambient=True)
+        res, launches, matched, own, _, amb = _run_mode(torch, counts, d,
+                                                        mode, kw)
         if launches["K1"] < 1:
             raise AssertionError("the %s mode did not launch K1" % mode)
         acc = own if mode == "known" else matched
         if acc < 0.99:
             raise AssertionError("%s mode: singlet accuracy %.5f < 0.99"
                                  % (mode, acc))
+        if mode == "known":
+            _ambient_cpu_check(torch, res, amb)
+            known = res
+        del amb
         if mode == "superset":
-            known = (d["donor2"] < 0) & (d["donor"] < SUPERSET_KNOWN)
-            slot = np.mean(np.argmax(res["ID_prob"], 1)[known]
-                           == d["donor"][known])
+            known_slots = (d["donor2"] < 0) & (d["donor"] < SUPERSET_KNOWN)
+            slot = np.mean(np.argmax(res["ID_prob"], 1)[known_slots]
+                           == d["donor"][known_slots])
             log("[modes] superset: %.5f of the known donors' singlets in "
                 "their own slots" % slot)
             if slot < 0.99:
                 raise AssertionError("the superset moved known donors")
+    return known
 
 
-def phase_known_packed(torch, d):
-    """The known mode on the packed rung (K2, K3; no K1), placed under
-    VIREO_DENSE_BUDGET_GB=PACKED_BUDGET_GB."""
+def phase_known_packed(torch, d, dense_known):
+    """The known mode with the ambient phase on the packed rung (K2, K3;
+    no K1), placed under VIREO_DENSE_BUDGET_GB=PACKED_BUDGET_GB. Each fit
+    iteration launches K2 and K3 once; the doublet phase K3 (its
+    log-likelihood) and K2 + K3 (the genotype refresh); the ambient
+    phase's SNP gate K2 once (PR 5, without the ambient phase: K2 15 =
+    14 + 1, K3 16 = 14 + 2). Gate 2: argmax psi agrees with the dense
+    run's. Returns the packed counts."""
     from vireo_tpu_torch.ops.counts import counts_from_scipy
     with _dense_budget(PACKED_BUDGET_GB):
         packed = counts_from_scipy(d["AD"], d["DP"],
@@ -1212,14 +1350,84 @@ def phase_known_packed(torch, d):
     if type(packed).__name__ != "PackedCounts":
         raise AssertionError("VIREO_DENSE_BUDGET_GB=%s placed %s"
                              % (PACKED_BUDGET_GB, type(packed).__name__))
-    _, launches, _, own = _run_mode(torch, packed, d, "known (packed)",
-                                    _donor_priors(d)["known"])
-    if launches["K2"] < 1 or launches["K3"] < 1 or launches["K1"] != 0:
-        raise AssertionError("the packed known mode launched %s"
-                             % json.dumps(launches))
+    kw = dict(_donor_priors(d)["known"], check_ambient=True)
+    res, launches, _, own, fits, _ = _run_mode(torch, packed, d,
+                                               "known (packed)", kw)
+    fit_iters = sum(max(f) for f in fits)
+    want = dict(K1=0, K2=fit_iters + 2, K3=fit_iters + 2)
+    log("[modes] known (packed): launches %s, expected %s (%d fit "
+        "iterations; doublet K2 1, K3 2; ambient gate K2 1)"
+        % (json.dumps(launches), json.dumps(want), fit_iters))
+    if launches != want:
+        raise AssertionError("the packed known mode launched %s, not %s"
+                             % (json.dumps(launches), json.dumps(want)))
     if own < 0.99:
         raise AssertionError("known mode on the packed rung: singlet "
                              "accuracy %.5f < 0.99" % own)
+    a, b = res["ambient_Psi"], dense_known["ambient_Psi"]
+    ok = np.isfinite(a).all(1) & np.isfinite(b).all(1)
+    agree = float(np.mean(np.argmax(a[ok], 1) == np.argmax(b[ok], 1)))
+    log("[ambient] packed vs dense: argmax psi agreement %.5f over %d "
+        "cells (gate %.3f), max |dpsi| %.3e"
+        % (agree, int(ok.sum()), AMBIENT_AGREE,
+           float(np.abs(a[ok] - b[ok]).max())))
+    if agree < AMBIENT_AGREE:
+        raise AssertionError("the packed and dense ambient calls disagree")
+    return packed
+
+
+def phase_bmm_full(torch, packed, d):
+    """BinomMixtureVB(n_donor=16).fit on the main pool's packed counts at
+    the JAX defaults (BMM_FIT): the restarts folded into K2's and K3's
+    columns (N = 160), then the best refit (N = 16). Each iteration
+    launches K2 and K3 once, so their launches must equal the warm
+    restarts' longest run plus the refit's iterations."""
+    from vireo_tpu_torch.models import bmm
+    C, K = packed.n_cell, MAIN["n_donor"]
+    calls = []
+    real = bmm.fit_bmm
+
+    def spy(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        calls.append((np.atleast_1d(out[3]), time.perf_counter() - t0))
+        return out
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    bmm.fit_bmm = spy
+    try:
+        t0 = time.perf_counter()
+        model = bmm.BinomMixtureVB(n_cell=C, n_var=packed.n_var, n_donor=K)
+        model.fit(packed, verbose=False, **BMM_FIT)
+        wall = time.perf_counter() - t0
+    finally:
+        bmm.fit_bmm = real
+    launches = _launches()
+    (warm_it, warm_s), (refit_it, refit_s) = calls
+    n_iter = int(warm_it.max()) + int(refit_it[0])
+    singlets = d["donor2"] < 0
+    acc = _matched_agreement(np.eye(K)[d["donor"][singlets]],
+                             model.ID_prob[singlets])
+    log("[bmm] BinomMixtureVB(16).fit on the packed counts %s: warm "
+        "restarts %s iterations in %.3f s (%.2f ms an iteration), refit %d "
+        "in %.3f s (%.2f ms an iteration); wall %.3f s, peak device memory "
+        "%.3f GiB, launches %s; final ELBO %.6e, best restart ELBO %.6e; "
+        "singlet accuracy after label matching %.5f (reported, no gate)"
+        % (json.dumps(BMM_FIT), warm_it.tolist(), warm_s,
+           1e3 * warm_s / max(warm_it.max(), 1), int(refit_it[0]), refit_s,
+           1e3 * refit_s / max(int(refit_it[0]), 1), wall,
+           torch.cuda.max_memory_allocated() / 2**30, json.dumps(launches),
+           float(model.ELBO_iters[-1]), float(np.max(model.ELBO_inits)),
+           acc))
+    if not (launches["K2"] == launches["K3"] == n_iter
+            and launches["K1"] == 0):
+        raise AssertionError("the BMM fit ran %d iterations and launched %s"
+                             % (n_iter, json.dumps(launches)))
+    if not np.all(np.isfinite(model.ID_prob)):
+        raise AssertionError("the BMM fit's assignments are not finite")
 
 
 def _small_branch_pool():
@@ -1262,6 +1470,84 @@ def phase_small_branches(torch):
                cpu["LB_doublet"], rel))
         if agree < 0.99 or dbl < 0.99 or rel > BRANCH_ELBO_RTOL:
             raise AssertionError("the %s branch differs on the card" % name)
+
+
+def phase_small_models(torch):
+    """The other model families on the small pool, on the card (float32)
+    against the CPU (float64): the BMM on the dense and packed rungs
+    (final ELBO to BRANCH_ELBO_RTOL), a seeded sweep_n_donor over
+    SWEEP_KS (the same best K) and a sweep_n_clone, and VireoBulk and
+    LikRatio_test on a bulk sample mixed from the pool's genotypes (psi
+    to BULK_PSI_ATOL)."""
+    from vireo_tpu_torch.engine.select import sweep_n_donor, sweep_n_clone
+    from vireo_tpu_torch.models.bmm import BinomMixtureVB
+    from vireo_tpu_torch.models.bulk import VireoBulk, LikRatio_test
+    from vireo_tpu_torch.ops.counts import counts_from_scipy
+    d = _small_branch_pool()
+    AD, DP = d["AD"], d["DP"]
+    V, C = AD.shape
+    K = SMALL_BRANCHES["n_donor"]
+    cuda = torch.device("cuda")
+
+    def bmm_fit(counts, device):
+        m = BinomMixtureVB(n_cell=C, n_var=V, n_donor=K, device=device)
+        m.fit(counts, n_init=5, max_iter_pre=50, random_seed=3,
+              verbose=False)
+        return m
+    cpu = bmm_fit(counts_from_scipy(AD, DP, device="cpu"), "cpu")
+    for rung, budget in (("dense", None), ("packed", V * C)):
+        counts = counts_from_scipy(AD, DP, device=cuda, dense_budget=budget)
+        gpu = bmm_fit(counts, cuda)
+        rel = abs(gpu.ELBO_iters[-1] - cpu.ELBO_iters[-1]) \
+            / abs(cpu.ELBO_iters[-1])
+        log("[models] BMM on the %s rung (%s): final ELBO %.6e vs CPU "
+            "%.6e (rel %.2e), assignment argmax agreement %.5f after label "
+            "matching" % (rung, type(counts).__name__, gpu.ELBO_iters[-1],
+                          cpu.ELBO_iters[-1], rel,
+                          _matched_agreement(gpu.ID_prob, cpu.ID_prob)))
+        if rel > BRANCH_ELBO_RTOL:
+            raise AssertionError("the BMM on the %s rung differs from the "
+                                 "CPU's" % rung)
+
+    sweeps = {}
+    for label, device in (("card", cuda), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        sweeps[label] = (
+            sweep_n_donor(AD, DP, n_donor_list=SWEEP_KS, n_init=5,
+                          random_seed=1, device=device, verbose=False),
+            sweep_n_clone(AD, DP, n_clone_list=(3, 4), n_init=4,
+                          random_seed=1, device=device, verbose=False),
+            time.perf_counter() - t0)
+    (gd, gc, gs), (cd, cc, cs) = sweeps["card"], sweeps["cpu"]
+    log("[models] sweep_n_donor K=%s: best K %d on the card (%.2f s with "
+        "sweep_n_clone), %d on the CPU (%.2f s); top ELBOs card %s, CPU %s; "
+        "sweep_n_clone best %d vs %d"
+        % (list(SWEEP_KS), gd["best"], gs, cd["best"], cs,
+           ["%.1f" % gd[k].max() for k in SWEEP_KS],
+           ["%.1f" % cd[k].max() for k in SWEEP_KS], gc["best"], cc["best"]))
+    if gd["best"] != cd["best"] or gc["best"] != cc["best"]:
+        raise AssertionError("the card's sweeps pick another K")
+
+    rng = np.random.RandomState(4)
+    gt = _smoothed(d["GT"])
+    psi = rng.dirichlet(np.ones(K) * 2)
+    depth = rng.poisson(60, V) + 1
+    alt = rng.binomial(depth, (gt @ np.array([0.01, 0.5, 0.99])) @ psi)
+    fits = {}
+    for label, device in (("card", cuda), ("cpu", "cpu")):
+        np.random.seed(5)
+        m = VireoBulk(K, device=device)
+        m.fit(alt, depth, gt)
+        lr = LikRatio_test(m.psi, np.ones(K) / K, alt, depth, gt, m.theta,
+                           device=device)
+        fits[label] = (m.psi, lr)
+    (gp, glr), (cp, clr) = fits["card"], fits["cpu"]
+    log("[models] VireoBulk: psi %s on the card, max |dpsi| %.3e from the "
+        "CPU's (true %s); LR %.4f vs %.4f, p %.3e vs %.3e"
+        % (np.round(gp, 4).tolist(), float(np.abs(gp - cp).max()),
+           np.round(psi, 4).tolist(), glr[0], clr[0], glr[1], clr[1]))
+    if np.abs(gp - cp).max() > BULK_PSI_ATOL:
+        raise AssertionError("the card's bulk psi differs from the CPU's")
 
 
 def phase_checkpoints(torch):
@@ -1390,8 +1676,79 @@ def phase_cli():
         if os.path.exists(os.path.join(out, "GT_donors.vireo.vcf.gz")):
             raise AssertionError("known genotypes: no learnt donor VCF")
 
+        # --callAmbientRNAs under VIREO_TIMING=1: prop_ambient.tsv, and
+        # the JAX package's per-phase summary (vireo_wrap's, then the
+        # writers')
+        out = os.path.join(tmp, "out_ambient")
+        text = io.StringIO()
+        os.environ["VIREO_TIMING"] = "1"
+        try:
+            with contextlib.redirect_stdout(text):
+                vireo_cli.main(["-c", cell, "-N", "4", "-o", out,
+                                "--randSeed", "1", "--nInit", "5",
+                                "--noPlot", "--callAmbientRNAs"])
+        finally:
+            os.environ.pop("VIREO_TIMING")
+        summaries = _timing_summaries(text.getvalue())
+        with open(os.path.join(out, "prop_ambient.tsv")) as f:
+            rows = [x.split("\t") for x in f.read().splitlines()]
+        log("[cli] --callAmbientRNAs with VIREO_TIMING=1: prop_ambient.tsv "
+            "header %s, %d rows; timing summaries %s"
+            % (rows[0], len(rows) - 1, summaries))
+        for line in text.getvalue().splitlines():
+            if "timing:" in line or re.match(r"^  \S+ +\d", line) \
+                    or "SNPs selected" in line:
+                log("[cli]   %s" % line)
+        if rows[0] != ["cell"] + ["donor%d" % k for k in range(4)] + [
+                "logLik_ratio"] or len(rows) - 1 != C:
+            raise AssertionError("prop_ambient.tsv is not the ambient table")
+        if summaries != [["data_placement", "warm_restarts", "model_build",
+                          "refit", "doublet", "ambient"],
+                         ["result_writers", "donor_vcf"]]:
+            raise AssertionError("VIREO_TIMING=1 did not print the phase "
+                                 "summaries")
+
+    # GTbarcode on the in-tree golden
+    from vireo_tpu_torch.cli import gtbarcode_cli
+    golden = os.path.join(REPO, "tests", "goldens")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "GT_barcodes.tsv")
+        gtbarcode_cli.main(["-i", os.path.join(golden,
+                                                "GT_donors.ref.vcf.gz"),
+                            "-o", out, "--randSeed", "1", "--noPlot"])
+        with open(out, "rb") as f, open(os.path.join(
+                golden, "GT_barcodes.tsv"), "rb") as g:
+            same = f.read() == g.read()
+    log("[cli] GTbarcode --randSeed 1 --noPlot on GT_donors.ref.vcf.gz: "
+        "%s tests/goldens/GT_barcodes.tsv byte for byte"
+        % ("equals" if same else "DIFFERS FROM"))
+    if not same:
+        raise AssertionError("GTbarcode does not reproduce the golden")
+
+
+def _timing_summaries(text):
+    """The phase names of each `[vireo] timing:` summary in `text`, its
+    lines checked against the JAX package's format."""
+    head = re.compile(r"^\[vireo\] timing: total \d+\.\d\ds$")
+    row = re.compile(r"^  (\S+) +\d+\.\d\ds +\d+\.\d%$")
+    lines = text.splitlines()
+    found = []
+    for i, line in enumerate(lines):
+        if line.startswith("[vireo] timing:"):
+            if not head.match(line):
+                raise AssertionError("timing summary head %r" % line)
+            names = []
+            for r in lines[i + 1:]:
+                m = row.match(r)
+                if not m:
+                    break
+                names.append(m.group(1))
+            found.append(names)
+    return found
+
 
 def main():
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: torch.cuda.is_available() is False; "
@@ -1413,14 +1770,17 @@ def main():
     counts = counts_from_scipy(d["AD"], d["DP"], device=torch.device("cuda"))
     fused_launches = phase_fused_fit(torch, counts, d, dense_res)
     del dense_res
-    phase_donor_modes(torch, counts, d)
+    dense_known = phase_donor_modes(torch, counts, d)
     del counts
-    phase_known_packed(torch, d)
-    del d
+    packed = phase_known_packed(torch, d, dense_known)
+    del dense_known
+    phase_bmm_full(torch, packed, d)
+    del packed, d
     phase_small_cross_check(torch)
     phase_small_branches(torch)
     phase_small_rungs(torch)
     phase_many_donors(torch)
+    phase_small_models(torch)
     phase_checkpoints(torch)
     phase_cli()
 
@@ -1440,6 +1800,8 @@ def main():
          "vireo_tpu/ops/packed.py:195", packed_launches["K3"],
          k23[("warm", "cell_loglik")]),
     ]
+    log("[time] the whole command took %.1f s"
+        % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,

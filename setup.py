@@ -19,6 +19,7 @@ setup(
             "vireo = vireo_tpu.cli.vireo_cli:main",
             "GTbarcode = vireo_tpu.cli.gtbarcode_cli:main",
             "vireo-torch = vireo_tpu_torch.cli.vireo_cli:main",
+            "GTbarcode-torch = vireo_tpu_torch.cli.gtbarcode_cli:main",
         ],
     },
 )

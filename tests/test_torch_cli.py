@@ -296,7 +296,6 @@ def _compare_gt_vcf(t_path, j_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--callAmbientRNAs"], "ambient"),
     (["--mesh", "2x4"], "multi-GPU"),
 ])
 def test_cli_unported_flags_exit_naming_roadmap(tmp_path, flags, item):
@@ -380,3 +379,43 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         for mod in _imported_modules(f):
             root = mod.split(".")[0]
             assert root not in ("jax", "jaxlib", "vireo_tpu"), (f, mod)
+
+
+def _prop_ambient(path):
+    head, rows = _read_table(path)
+    return head, [r[0] for r in rows], np.array(
+        [[float(x) for x in r[1:]] for r in rows])
+
+
+def test_cli_call_ambient_rnas_matches_jax_cli(tmp_path, monkeypatch):
+    """--callAmbientRNAs (and --ambientMinGain) against JAX's CLI run in
+    float64: the same header, cells and SNP gate; psi and the LLR as
+    printed (%.4e, %.2f) within the doublet phase's K1 rounding, which
+    moves GT_prob and ID_prob, and so theta and the gate's inputs, by
+    ~1e-5; psi follows within 1.2e-3 at most here (weakly determined
+    mixtures), 1.7e-4 at the 99th percentile: psi within 2e-3, 99% within
+    5e-4; the LLR atol 0.05 + rtol 1e-3."""
+    import functools
+    from vireo_tpu.cli import vireo_cli as jcli
+    monkeypatch.setenv("VIREO_COMPILE_CACHE", "")
+    monkeypatch.setattr(jcli, "vireo_wrap", functools.partial(
+        jcli.vireo_wrap, dtype=jnp.float64))
+    data = tmp_path / "cellsnp"
+    _write_cellsnp(data)
+    for gain in ([], ["--ambientMinGain", "3"]):
+        common = ["-c", str(data), "-N", "3", "--nInit", "5", "--randSeed",
+                  "3", "--noPlot", "--callAmbientRNAs"] + gain
+        tag = "gain" if gain else "default"
+        jcli.main(common + ["-o", str(tmp_path / ("jax_" + tag))])
+        tcli.main(common + ["-o", str(tmp_path / ("torch_" + tag))])
+        t_head, t_cells, t = _prop_ambient(
+            tmp_path / ("torch_" + tag) / "prop_ambient.tsv")
+        j_head, j_cells, j = _prop_ambient(
+            tmp_path / ("jax_" + tag) / "prop_ambient.tsv")
+        assert t_head == j_head == ["cell", "donor0", "donor1", "donor2",
+                                    "logLik_ratio"]
+        assert t_cells == j_cells and t.shape == (400, 4)
+        d = np.abs(t[:, :3] - j[:, :3])
+        assert d.max() <= 2e-3 and np.quantile(d, 0.99) <= 5e-4
+        np.testing.assert_allclose(t[:, 3], j[:, 3], rtol=1e-3, atol=0.05)
+        np.testing.assert_allclose(t[:, :3].sum(1), 1.0, atol=1e-3)

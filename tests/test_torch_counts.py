@@ -107,3 +107,96 @@ def test_chunked_conversion_is_chunk_independent(pool, row_chunk):
                                atol=1e-12)
     torch.testing.assert_close(chunked.binom_coeff_sum(),
                                ref.binom_coeff_sum(), rtol=RTOL, atol=0)
+
+
+def _heavy_pool(seed=3, V=61, C=77):
+    """A pool with ~5% of its covered sites deep (above both caps)."""
+    AD, DP = _pool(seed=seed, V=V, C=C)
+    rng = np.random.RandomState(seed)
+    DP = DP.toarray()
+    extra = ((DP > 0) & (rng.rand(V, C) < 0.05)) * rng.randint(150, 300,
+                                                                (V, C))
+    AD = AD.toarray() + rng.binomial(extra, 0.5)
+    return sp.csc_matrix(AD.astype(float)), sp.csc_matrix(DP + extra)
+
+
+@pytest.mark.parametrize("budget,cls,heavy", [
+    (None, "DenseCounts", False),
+    (1, "PackedCounts", False),
+    (2, "HybridCounts", True),
+    (1, "HybridCounts", True),
+    (0, "SparseCounts", True),
+])
+def test_var_subset_and_densify_on_every_rung(budget, cls, heavy):
+    """var_subset then densify gives the selected rows' exact counts on
+    every rung, and the subset's contractions and binomial sum equal
+    JAX's over its dense float64 subset (the hybrid rungs recompute
+    their correction from the kept residual)."""
+    AD, DP = _heavy_pool() if heavy else _pool(seed=3, V=61, C=77)
+    nbytes = None if budget is None else max(budget * AD.shape[0]
+                                             * AD.shape[1], 1)
+    tc = counts_from_scipy(AD, DP, dense_budget=nbytes)
+    assert type(tc).__name__ == cls
+    rng = np.random.RandomState(5)
+    sel = np.sort(rng.choice(AD.shape[0], 23, replace=False))
+    mask = np.zeros(AD.shape[0], bool)
+    mask[sel] = True
+    jsub = jax_dense_counts(AD[sel], DP[sel], dtype=jnp.float64)
+    W = rng.rand(AD.shape[1], 4)
+    for idx in (sel, mask, torch.as_tensor(sel)):
+        sub = tc.var_subset(idx)
+        assert (sub.n_var, sub.n_cell) == (23, AD.shape[1])
+        dense = sub.densify()
+        assert type(dense).__name__ == "DenseCounts"
+        np.testing.assert_array_equal(dense.ad.double().numpy(),
+                                      AD[sel].toarray())
+        np.testing.assert_array_equal(dense.dp.double().numpy(),
+                                      DP[sel].toarray())
+        np.testing.assert_allclose(float(sub.binom_coeff_sum()),
+                                   float(jsub.binom_coeff_sum()), rtol=RTOL)
+        for j, t in zip(jsub.suff_stats(jnp.asarray(W)),
+                        sub.suff_stats(torch.as_tensor(W))):
+            np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=RTOL)
+    # the whole pool densified
+    full = tc.densify()
+    np.testing.assert_array_equal(full.dp.double().numpy(), DP.toarray())
+
+
+def test_hybrid_densify_keeps_the_exact_smallest_type():
+    """JAX's HybridCounts.densify returns float32; the port's returns the
+    smallest exact type of the true counts (int8 when they fit), with
+    the same values, so the same sums."""
+    AD, DP = _pool(seed=6, V=40, C=50)
+    DP = DP.toarray()
+    DP[0, :3] = [40, 90, 127]          # above the nibble cap, int8-exact
+    AD = AD.toarray()
+    AD[0, :3] = [20, 45, 100]
+    AD, DP = sp.csc_matrix(AD), sp.csc_matrix(DP)
+    tc = counts_from_scipy(AD, DP, dense_budget=AD.shape[0] * AD.shape[1])
+    assert type(tc).__name__ == "HybridCounts" and tc.cap == 15
+    dense = tc.densify()
+    assert dense.ad.dtype == torch.int8
+    as_f32 = DenseCounts(dense.ad.float(), dense.dp.float())
+    W = torch.rand(AD.shape[1], 3, dtype=torch.float64)
+    for a, b in zip(dense.suff_stats(W), as_f32.suff_stats(W)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    torch.testing.assert_close(dense.binom_coeff_sum(),
+                               tc.binom_coeff_sum(), rtol=RTOL, atol=0)
+    # the base is not written through
+    np.testing.assert_array_equal(tc.base.densify().dp.numpy()[0, :3],
+                                  [15, 15, 15])
+    AD, DP = _heavy_pool()
+    heavy = counts_from_scipy(AD, DP, dense_budget=AD.shape[0] * AD.shape[1])
+    assert type(heavy).__name__ == "HybridCounts"
+    assert heavy.densify().dp.dtype == exact_count_dtype(DP.max()) \
+        == torch.float32
+
+
+def test_sparse_densify_promotes_a_narrow_dtype(capsys):
+    AD, DP = _heavy_pool()
+    coo = counts_from_scipy(AD, DP, dense_budget=1)
+    dense = coo.densify(dtype=torch.int8)
+    assert "exceed the exact range of int8" in capsys.readouterr().out
+    assert dense.dp.dtype == exact_count_dtype(DP.max())
+    np.testing.assert_array_equal(dense.dp.double().numpy(), DP.toarray())
+    assert coo.densify(dtype=torch.float64).dp.dtype == torch.float64

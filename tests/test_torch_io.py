@@ -309,3 +309,80 @@ def test_golden_donor_vcf(tag):
         gp, jvcf.parse_donor_GPb(want["GenoINFO"][tag], tag))
     assert gp.shape == (len(got["variants"]), 4, 3)
     assert int(got["n_SNP_tagged"][0]) == len(got["variants"])
+
+
+@pytest.mark.parametrize("tag1,tag2", [("GT", "GT"), ("PL", "GP")])
+def test_match_VCF_samples(tmp_path, capsys, tag1, tag2):
+    """Two donor VCFs, the second with its donors in another order on
+    'chr'-prefixed, partly shared variants: the same result dict and
+    prints as JAX's."""
+    codes = _codes(40, 4, seed=3)
+    _write_donor_vcf(tmp_path / "a.vcf.gz", codes)
+    perm = [2, 0, 3, 1]
+    codes2 = [[row[k] for k in perm] for row in codes[5:]]
+    _write_donor_vcf(tmp_path / "b.vcf.gz", codes2, chrom="chr1",
+                     positions=[100 + 7 * v for v in range(5, 40)])
+    args = (str(tmp_path / "a.vcf.gz"), str(tmp_path / "b.vcf.gz"), tag1,
+            tag2)
+    want = jvcf.match_VCF_samples(*args)
+    out_j = capsys.readouterr().out
+    got = tvcf.match_VCF_samples(*args)
+    assert capsys.readouterr().out == out_j
+    assert got["matched_n_var"] == 35
+    _same(got, want)
+
+
+def test_snp_gene_match():
+    """Overlaps, nearest genes at each distance tier and unmatched SNPs
+    against JAX's, on a pandas gene table (the port reads it through
+    the DataFrame interface, without importing pandas itself)."""
+    pd = pytest.importorskip("pandas")
+    genes = pd.DataFrame({
+        "chrom": ["1", "1", "1", "2", "2"],
+        "start": [100, 150, 5000, 10, 300000],
+        "stop": [200, 400, 6000, 50, 300500],
+        "gene": ["A", "B", "C", "D", "E"],
+        "gene_id": ["a", "b", "c", "d", "e"]})
+    info = {"CHROM": ["1", "1", "1", "1", "2", "2", "3", "1"],
+            "POS": [160, 100, 450, 20000, 90, 250000, 5, 6000]}
+    for kw in (dict(), dict(multi_gene=False), dict(gene_key="gene_id"),
+               dict(gaps=[0, 10, 500])):
+        jg, jf = jvcf.snp_gene_match(info, genes, **kw)
+        tg, tf = tvcf.snp_gene_match(info, genes, **kw)
+        assert tf == jf
+        assert [list(x) for x in tg] == [list(x) for x in jg]
+    assert list(tvcf.snp_gene_match(info, genes)[0][0]) == ["A", "B"]
+
+
+def test_write_VCF_to_hdf5(tmp_path):
+    h5py = pytest.importorskip("h5py")
+    _write_donor_vcf(tmp_path / "d.vcf.gz", _codes(20, 3, seed=1))
+    dat = tvcf.load_VCF(str(tmp_path / "d.vcf.gz"), sparse=False)
+    tvcf.write_VCF_to_hdf5(dat, str(tmp_path / "t.h5"))
+    jvcf.write_VCF_to_hdf5(dat, str(tmp_path / "j.h5"))
+    with h5py.File(tmp_path / "t.h5") as t, h5py.File(tmp_path / "j.h5") as j:
+        keys = []
+        t.visit(keys.append)
+        jkeys = []
+        j.visit(jkeys.append)
+        assert keys == jkeys and "GenoINFO/GT" in keys
+        for k in keys:
+            if isinstance(t[k], h5py.Dataset):
+                np.testing.assert_array_equal(t[k][()], j[k][()])
+        assert [x.decode() for x in t["samples"][()]] == dat["samples"]
+
+
+def test_make_whitelists(tmp_path):
+    table = ("cell\tdonor_id\tprob_max\n"
+             "AAA-1\tdonor0\t1\nCCC-1\tdoublet\t1\nGGG-1\tdonor1\t1\n"
+             "TTT-1\tdonor0\t1\nACG-1\tunassigned\t1\n")
+    (tmp_path / "donor_ids.tsv").write_text(table)
+    for mod, name in ((jmat, "j"), (tmat, "t")):
+        mod.make_whitelists(str(tmp_path / "donor_ids.tsv"),
+                            str(tmp_path / name))
+    for donor in ("donor0", "donor1"):
+        assert (tmp_path / ("t_%s.txt" % donor)).read_text() == \
+            (tmp_path / ("j_%s.txt" % donor)).read_text()
+    assert (tmp_path / "t_donor0.txt").read_text() == "AAA\nTTT\n"
+    assert sorted(p.name for p in tmp_path.glob("t_*")) == \
+        ["t_donor0.txt", "t_donor1.txt"]

@@ -83,3 +83,27 @@ def test_log_binom_coeff_clip_and_zero(rng):
     t = tm.log_binom_coeff(td, ta)
     _close(jm.log_binom_coeff(jd, ja), t)
     assert t[0] == 0.0 and t[1] == 700.0
+
+
+def test_base_aliases_match_jax():
+    """vireo_tpu_torch.base: tensor_normalize (tensors and numpy) and
+    logbincoeff (dense and sparse) as vireo_tpu.base gives them."""
+    import scipy.sparse as sp
+    from vireo_tpu import base as jbase
+    from vireo_tpu_torch import base as tbase
+    rng = np.random.RandomState(0)
+    X = rng.rand(5, 4) + 0.1
+    want = np.asarray(jbase.tensor_normalize(X, axis=1))
+    np.testing.assert_allclose(tbase.tensor_normalize(X, axis=1), want,
+                               rtol=1e-15)
+    np.testing.assert_allclose(
+        tbase.tensor_normalize(torch.as_tensor(X), axis=1).numpy(), want,
+        rtol=1e-15)
+    n = rng.randint(0, 20, (6, 7)).astype(float)
+    k = np.floor(n * rng.rand(6, 7))
+    np.testing.assert_array_equal(tbase.logbincoeff(n, k),
+                                  jbase.logbincoeff(n, k))
+    ns, ks = sp.csr_matrix(n), sp.csr_matrix(k)
+    got, ref = tbase.logbincoeff(ns, ks, True), jbase.logbincoeff(ns, ks,
+                                                                  True)
+    np.testing.assert_array_equal(got.toarray(), ref.toarray())

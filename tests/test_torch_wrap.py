@@ -405,7 +405,6 @@ def test_host_batched_init_stream_matches_jax():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(check_ambient=True), "ambient"),
     (dict(mesh="2x2"), "multi-GPU"),
 ])
 def test_unported_arguments_raise(pool, kwargs, match):

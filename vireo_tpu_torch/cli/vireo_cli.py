@@ -5,9 +5,10 @@ Same flags, inputs (a cellSNP folder, a cell VCF, VarTrix files), donor
 genotype modes (none, all known, a superset or a subset of the pool's
 donors in `--donorFile`, extra donors) and outputs (donor_ids.tsv,
 summary.tsv, prob_singlet.tsv.gz, prob_doublet.tsv.gz, _log.txt,
-GT_donors.vireo.vcf.gz). Plots, ambient RNA and a device mesh are not
-ported yet: their flags exit with an error, or a note, naming their
-ROADMAP.md item.
+GT_donors.vireo.vcf.gz; prop_ambient.tsv with --callAmbientRNAs). Plots
+and a device mesh are not ported yet: their flags exit with an error,
+or a note, naming their ROADMAP.md item. --timing or VIREO_TIMING=1
+prints the per-phase summary of vireo_wrap and of the writers.
 
     python -m vireo_tpu_torch.cli.vireo_cli -c CELLSNP_DIR -N K -o OUT
     python -m vireo_tpu_torch.cli.vireo_cli -c CELLSNP_DIR -d donors.vcf.gz \
@@ -22,10 +23,10 @@ import argparse
 import numpy as np
 
 from ..version import __version__
+from ..utils.timing import PhaseTimer, timing_env
 
 # flag -> (is it set?, ROADMAP.md queue-1 item that ports it)
 _NOT_PORTED = (
-    ("--callAmbientRNAs", lambda o: o.check_ambient, "ambient"),
     ("--mesh VxC", lambda o: "x" in (o.mesh or "").lower(), "multi-GPU"),
 )
 
@@ -87,10 +88,11 @@ def build_parser():
                              "[default: all]")
     parser.add_argument("--callAmbientRNAs", dest="check_ambient",
                         default=False, action="store_true",
-                        help="Not ported yet.")
+                        help="If use, detect ambient RNAs in each cell")
     parser.add_argument("--ambientMinGain", type=float,
                         dest="ambient_min_gain", default=None,
-                        help="Used with --callAmbientRNAs.")
+                        help="Min per-SNP ELBO gain for the ambient-RNA "
+                             "EM [default: sqrt(n_cell)/3]")
     parser.add_argument("--nproc", "-p", type=int, dest="nproc", default=1,
                         help="Accepted for compatibility; restarts are "
                              "batched on device [default: %(default)s]")
@@ -102,7 +104,8 @@ def build_parser():
                              "phase [default: off]")
     parser.add_argument("--timing", dest="timing", default=False,
                         action="store_true",
-                        help="Print the seconds of each phase")
+                        help="Print a per-phase timing summary "
+                             "(also VIREO_TIMING=1)")
     parser.add_argument("--mesh", dest="mesh", default="auto",
                         help="'auto' or 'off' (one device); a 'VxC' mesh "
                              "is not ported yet [default: %(default)s]")
@@ -256,28 +259,35 @@ def main(argv=None):
         learn_GT=learn_GT, n_init=n_init, n_extra_donor=n_extra_donor,
         extra_donor_mode=options.extra_donor_mode,
         check_doublet=not options.no_doublet, random_seed=options.rand_seed,
-        ASE_mode=options.ASE_mode, nproc=options.nproc,
+        ASE_mode=options.ASE_mode, check_ambient=options.check_ambient,
+        ambient_min_gain=options.ambient_min_gain, nproc=options.nproc,
         checkpoint_dir=options.checkpoint_dir,
         timing=options.timing or None)
 
+    # the writers' phases, printed under the same knob as vireo_wrap's
+    tail_timer = PhaseTimer()
     if donor_GPb is not None and n_donor < donor_GPb.shape[1]:
         idx = optimal_match(res_vireo['GT_prob'], donor_GPb)[1]
         donor_names = [donor_vcf['samples'][x] for x in idx]
 
-    write_donor_id(out_dir, donor_names, cell_dat['samples'], n_vars,
-                   res_vireo)
+    with tail_timer.phase("result_writers"):
+        write_donor_id(out_dir, donor_names, cell_dat['samples'], n_vars,
+                       res_vireo)
     if options.no_plot is False and options.vartrix_data is None:
         print("[vireo] plots are not written by the PyTorch port yet "
               "(ROADMAP.md, queue 1: plots).")
 
     # the donors' learnt genotypes
     if learn_GT and 'variants' in cell_dat.keys():
-        donor_vcf_out = cell_dat
-        donor_vcf_out['samples'] = donor_names
-        donor_vcf_out['GenoINFO'] = GenoINFO_maker(
-            res_vireo['GT_prob'], cell_dat['AD'] @ res_vireo['ID_prob'],
-            cell_dat['DP'] @ res_vireo['ID_prob'])
-        write_VCF(out_dir + "/GT_donors.vireo.vcf.gz", donor_vcf_out)
+        with tail_timer.phase("donor_vcf"):
+            donor_vcf_out = cell_dat
+            donor_vcf_out['samples'] = donor_names
+            donor_vcf_out['GenoINFO'] = GenoINFO_maker(
+                res_vireo['GT_prob'], cell_dat['AD'] @ res_vireo['ID_prob'],
+                cell_dat['DP'] @ res_vireo['ID_prob'])
+            write_VCF(out_dir + "/GT_donors.vireo.vcf.gz", donor_vcf_out)
+    if options.timing or timing_env():
+        print(tail_timer.summary())
 
     run_time = time.time() - start_time
     print("[vireo] All done: %d min %.1f sec"

@@ -9,8 +9,8 @@ inits from numpy's global stream in the reference's order; unseeded
 runs draw them on the device from a torch.Generator.
 """
 
-import contextlib
-import time
+import functools
+import os
 
 import numpy as np
 import torch
@@ -19,8 +19,10 @@ from ..ops.counts import counts_from_scipy
 from ..models.vireo import (Vireo, VireoConfig, VireoState, default_priors,
                             fit_vb)
 from ..models.doublet import predict_doublet
+from ..models.ambient import predict_ambient
 from ..ops.matching import optimal_match, donor_select
 from ..utils import checkpoint as ckpt
+from ..utils.timing import PhaseTimer, profile_trace, timing_env
 from ..utils.device import (resolve_device, default_dtype,
                             pin_matmul_precision, numpy_dtype, sync)
 
@@ -116,15 +118,18 @@ def _model_from_state(counts, cfg_kwargs, n_donor, learn_GT, state,
     return m
 
 
-@contextlib.contextmanager
-def _timed(record, name, device):
-    """Record the wall time of a phase that ends in a device sync."""
-    t0 = time.perf_counter()
-    yield
-    sync(device)
-    record[name] = time.perf_counter() - t0
+def _profiled(fn):
+    """VIREO_PROFILE=<dir> writes a torch.profiler Chrome trace of the
+    whole run there (vireo_tpu/engine/wrap.py:435-446); no-op
+    otherwise."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with profile_trace(os.environ.get("VIREO_PROFILE")):
+            return fn(*args, **kwargs)
+    return wrapper
 
 
+@_profiled
 def vireo_wrap(AD, DP=None, GT_prior=None, n_donor=None, learn_GT=True,
                n_init=20, random_seed=None, check_doublet=True,
                max_iter_init=20, delay_fit_theta=3, n_extra_donor=0,
@@ -143,8 +148,14 @@ def vireo_wrap(AD, DP=None, GT_prior=None, n_donor=None, learn_GT=True,
     is accepted for CLI parity and ignored. `kwargs` may carry model
     flags (ASE_mode, fix_beta_sum, learn_theta, n_GT). `generator`: the
     torch.Generator for unseeded inits (default: one on `device`, seeded
-    from numpy's global stream). `timing`: True prints the seconds of
-    each phase; a dict is filled with them.
+    from numpy's global stream). `timing`: True prints the phase summary
+    of the JAX package (`utils.timing.PhaseTimer`), None reads
+    VIREO_TIMING as it does, and a dict is filled with each phase's
+    seconds. Each phase ends in a device sync, so its time holds its own
+    device work; JAX leaves its phases unsynchronised
+    (vireo_tpu/engine/wrap.py:476-480), so there a phase's device work
+    may surface in a later phase. VIREO_PROFILE=<dir> writes a
+    torch.profiler trace of the run there.
 
     `GT_prior` (n_var, n_prior, 3) gives donor genotypes: all donors
     when n_prior equals n_donor, a superset to pick n_donor of, or a
@@ -154,11 +165,13 @@ def vireo_wrap(AD, DP=None, GT_prior=None, n_donor=None, learn_GT=True,
     refit state (step 1) are saved there with numpy's RNG position, in
     the JAX package's format; a rerun with the same arguments resumes
     after the latest saved phase and gives the uninterrupted result.
+    `check_ambient`: after the doublet phase, the ambient-RNA fractions
+    (`models.ambient.predict_ambient`, its SNP gate at
+    `ambient_min_gain`, default sqrt(n_cell) / 3) fill `ambient_Psi`,
+    `Psi_var` and `Psi_LLRatio`.
 
-    Not ported yet: check_ambient and a mesh raise NotImplementedError.
+    Not ported yet: a mesh raises NotImplementedError.
     """
-    if check_ambient:
-        raise _not_ported("check_ambient", "ambient")
     if mesh is not None:
         raise _not_ported("a device mesh", "multi-GPU")
 
@@ -167,10 +180,10 @@ def vireo_wrap(AD, DP=None, GT_prior=None, n_donor=None, learn_GT=True,
                             if device is None and hasattr(AD, "suff_stats")
                             else device)
     dtype = dtype or default_dtype(device)
-    record = timing if isinstance(timing, dict) else {}
-
-    def phase(name):
-        return _timed(record, name, device)
+    if timing is None:
+        timing = timing_env()
+    timer = PhaseTimer(sync=lambda: sync(device))
+    phase = timer.phase
 
     resume = ckpt.latest_step(checkpoint_dir) if checkpoint_dir else None
     if resume is not None and verbose:
@@ -381,9 +394,18 @@ def vireo_wrap(AD, DP=None, GT_prior=None, n_donor=None, learn_GT=True,
                              (1 - modelCA.beta_mu) * modelCA.beta_sum,
                              axis=0)
 
-    if timing is True:
-        print("[vireo] phase seconds: " + ", ".join(
-            "%s %.3f" % kv for kv in record.items()))
+    # ---- ambient RNA (vireo_tpu/engine/wrap.py:772-783)
+    if check_ambient:
+        with phase("ambient"):
+            ambient_Psi, Psi_var, Psi_logLik_ratio = predict_ambient(
+                modelCA, counts, None, min_ELBO_gain=ambient_min_gain)
+    else:
+        ambient_Psi, Psi_var, Psi_logLik_ratio = None, None, None
+
+    if isinstance(timing, dict):
+        timing.update(timer.phases)
+    elif timing:
+        print(timer.summary())
 
     RV = {}
     RV['ID_prob'] = ID_prob
@@ -393,9 +415,9 @@ def vireo_wrap(AD, DP=None, GT_prior=None, n_donor=None, learn_GT=True,
     RV['theta_shapes'] = theta_shapes
     RV['theta_mean'] = modelCA.beta_mu
     RV['theta_sum'] = modelCA.beta_sum
-    RV['ambient_Psi'] = None
-    RV['Psi_var'] = None
-    RV['Psi_LLRatio'] = None
+    RV['ambient_Psi'] = ambient_Psi
+    RV['Psi_var'] = Psi_var
+    RV['Psi_LLRatio'] = Psi_logLik_ratio
     RV['LB_list'] = elbo_all
     RV['LB_doublet'] = modelCA.ELBO_[-1]
     return RV

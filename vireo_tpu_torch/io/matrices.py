@@ -14,7 +14,7 @@ import numpy as np
 from .vcf import load_VCF, match_SNPs
 
 __all__ = ["match_donor_VCF", "read_mtx", "read_cellSNP", "read_vartrix",
-           "write_donor_id"]
+           "write_donor_id", "make_whitelists"]
 
 
 def read_mtx(path):
@@ -106,14 +106,19 @@ def _write_tsv(fh, columns, row_iter):
         fh.write("\t".join(cells) + "\n")
 
 
-def _matrix_rows(names, mat, fmt):
+def _matrix_rows(names, mat, fmt, tail=None):
+    """Rows of (name, formatted matrix entries[, tail(i)])."""
     for i, name in enumerate(names):
-        yield [name] + [fmt % v for v in mat[i, :]]
+        cells = [name] + [fmt % v for v in mat[i, :]]
+        if tail is not None:
+            cells += tail(i)
+        yield cells
 
 
 def write_donor_id(out_dir, donor_names, cell_names, n_vars, res_vireo):
     """Write donor_ids.tsv, summary.tsv, prob_singlet.tsv.gz,
-    prob_doublet.tsv.gz and _log.txt (io_utils.py:91-170)."""
+    prob_doublet.tsv.gz and _log.txt (io_utils.py:91-170), and
+    prop_ambient.tsv when the result holds ambient fractions."""
     singlet_p = res_vireo['ID_prob']
     pair_p = res_vireo['doublet_prob']
 
@@ -159,3 +164,26 @@ def write_donor_id(out_dir, donor_names, cell_names, n_vars, res_vireo):
                    compresslevel=4) as fh:
         _write_tsv(fh, ["cell"] + pair_names,
                    _matrix_rows(cell_names, pair_p, "%.2e"))
+
+    if res_vireo.get('ambient_Psi') is not None:
+        ratio = res_vireo['Psi_LLRatio']
+        with open(out_dir + "/prop_ambient.tsv", "w") as fh:
+            _write_tsv(fh, ["cell"] + list(donor_names) + ['logLik_ratio'],
+                       _matrix_rows(cell_names, res_vireo['ambient_Psi'],
+                                    "%.4e",
+                                    tail=lambda i: ['%.2f' % ratio[i]]))
+
+
+def make_whitelists(donor_id_file, out_prefix):
+    """Per-donor barcode whitelists for umi_tools (io_utils.py:172-185):
+    one file per called donor, barcodes without their '-N' suffix."""
+    table = np.genfromtxt(donor_id_file, dtype='str', delimiter='\t')[1:, :]
+    table = table[table[:, 1] != 'unassigned', :]
+    table = table[table[:, 1] != 'doublet', :]
+
+    for _donor in np.unique(table[:, 1]):
+        idx = table[:, 1] == _donor
+        barcodes = table[idx, 0]
+        with open(out_prefix + "_%s.txt" % _donor, "w") as fid:
+            for _line in barcodes:
+                fid.write(_line.split('-')[0] + '\n')

@@ -1,11 +1,12 @@
 """Host-side VCF engine: streaming parse, per-sample FORMAT data,
 genotype-probability decode, variant matching and VCF writing (pure
 Python counterpart of vireo_tpu/io/vcf.py, same dict layouts and edge
-cases).
+cases), with the reference's helpers `write_VCF_to_hdf5` (h5py,
+imported when called), `match_VCF_samples` and `snp_gene_match` (a
+DataFrame-like gene table; the port imports no pandas).
 
-Not ported yet (ROADMAP.md, queue 1): `write_VCF_to_hdf5`,
-`match_VCF_samples` and `snp_gene_match`, and the JAX package's native
-reader (`vireo_tpu/io/fast.py`).
+Not ported yet (ROADMAP.md, queue 1): the JAX package's native reader
+(`vireo_tpu/io/fast.py`).
 """
 
 import gzip
@@ -14,10 +15,11 @@ import subprocess
 
 import numpy as np
 
-from ..ops.matching import match
+from ..ops.matching import match, optimal_match
 
 __all__ = ["parse_sample_info", "load_VCF", "read_sparse_GeneINFO",
-           "GenoINFO_maker", "write_VCF", "parse_donor_GPb", "match_SNPs"]
+           "GenoINFO_maker", "write_VCF", "parse_donor_GPb", "match_SNPs",
+           "write_VCF_to_hdf5", "match_VCF_samples", "snp_gene_match"]
 
 
 def _parse_samples_sparse(sample_dat, formats, tags):
@@ -140,6 +142,25 @@ def load_VCF(vcf_file, biallelic_only=False, load_sample=True, sparse=True,
         RV["GenoINFO"], RV["n_SNP_tagged"] = parse_sample_info(
             [r[8:] for r in records], sparse, format_list)
     return RV
+
+
+def write_VCF_to_hdf5(VCF_dat, out_file):
+    """Dump a parsed VCF dict to HDF5 (vcf_utils.py:162-189)."""
+    import h5py
+    with h5py.File(out_file, 'w') as f:
+        for key in ["contigs", "samples", "variants", "comments"]:
+            f.create_dataset(key, data=np.bytes_(VCF_dat[key]),
+                             compression="gzip", compression_opts=9)
+        fixed = f.create_group("FixedINFO")
+        for _key in VCF_dat['FixedINFO']:
+            fixed.create_dataset(
+                _key, data=np.bytes_(VCF_dat['FixedINFO'][_key]),
+                compression="gzip", compression_opts=9)
+        geno = f.create_group("GenoINFO")
+        for _key in VCF_dat['GenoINFO']:
+            geno.create_dataset(
+                _key, data=np.bytes_(VCF_dat['GenoINFO'][_key]),
+                compression="gzip", compression_opts=9)
 
 
 def read_sparse_GeneINFO(GenoINFO, keys=('AD', 'DP'), axes=(-1, -1)):
@@ -278,3 +299,102 @@ def match_SNPs(SNP_ids1, SNPs_ids2):
         _SNP_ids2 = ["chr" + x for x in SNPs_ids2]
         mm_idx = match(SNP_ids1, _SNP_ids2)
     return mm_idx
+
+
+def _genoprob_from_vcf(path, tag):
+    """One VCF's (variant ids, sample ids, genotype-probability tensor)."""
+    dat = load_VCF(path, biallelic_only=True, sparse=False,
+                   format_list=[tag])
+    return (np.array(dat['variants']), np.array(dat['samples']),
+            parse_donor_GPb(dat['GenoINFO'][tag], tag))
+
+
+def match_VCF_samples(VCF_file1, VCF_file2, GT_tag1, GT_tag2):
+    """Align donors across two VCFs: intersect their variants
+    (chr-prefix tolerant), then Hungarian-match donor columns on mean
+    absolute genotype-probability distance.
+
+    Behavior contract (returned keys and progress prints) follows the
+    reference vcf_utils.py:353-420.
+    """
+    vars1, donors1, probs1 = _genoprob_from_vcf(VCF_file1, GT_tag1)
+    print('Shape for Geno Prob in VCF1:', probs1.shape)
+    vars2, donors2, probs2 = _genoprob_from_vcf(VCF_file2, GT_tag2)
+    print('Shape for Geno Prob in VCF2:', probs2.shape)
+
+    # variant j of VCF2 pairs with variant hit[j] of VCF1 (None = miss)
+    hit = match_SNPs(vars2, vars1)
+    in2 = np.flatnonzero(hit != None)  # noqa: E711
+    in1 = hit[in2].astype(int)
+    print("n_variants in VCF1, VCF2 and matched: %d, %d, %d"
+          % (len(vars1), len(vars2), len(in2)))
+
+    row, col, delta = optimal_match(probs1[in1], probs2[in2], axis=1,
+                                    return_delta=True)
+    print("aligned donors:")
+    print(donors1[row])
+    print(donors2[col])
+
+    return {
+        'matched_GPb_diff': delta[np.ix_(row, col)],
+        'matched_donors1': donors1[row],
+        'matched_donors2': donors2[col],
+        'full_GPb_diff': delta,
+        'full_donors1': donors1,
+        'full_donors2': donors2,
+        'matched_n_var': len(in2),
+    }
+
+
+def _signed_gene_distances(pos, starts, stops):
+    """Signed distance from one position to every [start, stop] gene
+    interval: negative inside the body, else the distance to the nearer
+    end (vcf_utils.py:447-455 semantics, including its sign-of-zero
+    behavior at exact boundaries)."""
+    d_start = starts - pos
+    d_stop = stops - pos
+    nearer = np.minimum(np.abs(d_start), np.abs(d_stop))
+    return np.sign(d_start) * np.sign(d_stop) * nearer
+
+
+def snp_gene_match(varFixedINFO, gene_df, gene_key='gene', multi_gene=True,
+                   gaps=[0, 1000, 10000, 100000], verbose=False):
+    """Annotate each SNP with its overlapping gene(s), or the nearest
+    gene within escalating distance tiers (vcf_utils.py:423-491).
+
+    Tier semantics: gap 0 keeps every overlapped gene when `multi_gene`,
+    otherwise (and for all non-zero tiers) only the nearest hit; a SNP
+    with no gene within the largest gap gets an empty list and flag
+    len(gaps). Gene tables are sliced once per chromosome and the
+    signed distances computed once per SNP (the tier scan reuses them).
+    """
+    chroms = varFixedINFO['CHROM']
+    gene_list = [None] * len(chroms)
+    flag_list = [len(gaps)] * len(chroms)
+
+    by_chrom = {}
+    for i, chrom in enumerate(chroms):
+        by_chrom.setdefault(chrom, []).append(i)
+
+    for chrom, snp_idx in by_chrom.items():
+        if verbose:
+            print('processing:', chrom)
+        sub = gene_df[gene_df['chrom'] == chrom]
+        starts = sub['start'].values
+        stops = sub['stop'].values
+        names = sub[gene_key].values
+
+        for i in snp_idx:
+            dist = _signed_gene_distances(int(varFixedINFO['POS'][i]),
+                                          starts, stops)
+            hits = np.array([], int)
+            for tier, gap in enumerate(gaps):
+                hits = np.flatnonzero(dist < gap)
+                if len(hits):
+                    if gap > 0 or not multi_gene:
+                        hits = hits[[np.argmin(dist[hits])]]
+                    flag_list[i] = tier
+                    break
+            gene_list[i] = names[hits]
+
+    return gene_list, flag_list

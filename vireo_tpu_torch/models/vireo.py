@@ -24,25 +24,33 @@ from ..ops.math import (softmax_from_loglik, kl_categorical, beta_entropy,
 from ..utils.device import resolve_device, default_dtype, numpy_dtype
 
 __all__ = ["VireoConfig", "VireoState", "VireoPriors", "FitResult",
-           "em_step", "fit_vb", "run_em_iters", "init_state",
+           "em_step", "fit_vb", "converge", "run_em_iters", "init_state",
            "default_priors", "random_init_arrays", "warn_from_trace",
            "updates_from_stats", "state_from_numpy", "state_to_numpy",
            "priors_from_numpy", "priors_to_numpy", "Vireo"]
 
 
-def warn_from_trace(trace, n_iter, max_iter, min_iter):
+def warn_from_trace(trace, n_iter, max_iter, min_iter, style="vireo"):
     """Replay the reference's runtime self-checks from a fit's ELBO
-    trace: warn on any ELBO decrease > 1e-6 past min_iter and on hitting
-    max_iter without convergence. Returns the number of decreases.
-    (The JAX package's `style` variants serve BMM and bulk, which are
-    not ported yet.)"""
+    trace: warn on any decrease past min_iter (by more than 1e-6; any
+    decrease for `style="bulk"`) and on hitting max_iter without
+    convergence, in the message of the model family (`style` "vireo",
+    "bmm" or "bulk"; vireo_tpu/models/vireo.py:37-62). Returns the
+    number of decreases."""
     trace = np.asarray(trace)
+    tol = 0.0 if style == "bulk" else 1e-6
     n_decrease = 0
     for it in range(int(n_iter)):
         if it > min_iter:
-            if trace[it] < trace[it - 1] - 1e-6:
+            if trace[it] < trace[it - 1] - tol:
                 n_decrease += 1
-                print("Warning: Lower bound decreases!\n")
+                if style == "bmm":
+                    print("Warning: ELBO decreases %.8f to %.8f!\n"
+                          % (trace[it - 1], trace[it]))
+                elif style == "bulk":
+                    print("Warning: logLikelihood decreases!\n")
+                else:
+                    print("Warning: Lower bound decreases!\n")
             elif it == max_iter - 1:
                 print("Warning: VB did not converge!\n")
     return n_decrease
@@ -91,6 +99,9 @@ class VireoState:
         """Write the restarts `other` into positions `idx`, in place."""
         for f in _STATE_FIELDS:
             getattr(self, f)[idx] = getattr(other, f)
+
+    def clone(self):
+        return VireoState(*(getattr(self, f).clone() for f in _STATE_FIELDS))
 
 
 @dataclasses.dataclass
@@ -345,9 +356,30 @@ def fit_vb(counts, state, priors, cfg, max_iter=200, min_iter=5,
     while the others go on: the semantics of the JAX package's vmap of
     a while_loop.
     """
+    def step(st, n):
+        st, _, elbo = em_step(counts, st, priors, cfg,
+                              update_theta=(n >= delay_fit_theta))
+        return st, elbo
+
+    return FitResult(*converge(step, state, max_iter, min_iter,
+                               epsilon_conv))
+
+
+def converge(step, state, max_iter, min_iter, epsilon_conv):
+    """The reference's coordinate-ascent loop with its convergence
+    predicate, shared by the Vireo and BMM fits: `step(st, n)` runs the
+    n-th iteration on the restarts of `st` and returns (st', elbo).
+
+    `state` has a `.n_batch` (None for a single state) and `take`,
+    `put_` and `clone`. Each restart stops at its own predicate, in the
+    state's float type, and is left as it was while the others run.
+    Returns (state, elbo_ref, elbo_final, n_iter, trace): per restart,
+    or scalars for a single state; elbo_ref is the ELBO of the
+    second-to-last executed iteration, the reference's ELBO_[-1]."""
     single = state.n_batch is None
-    st = VireoState(*(getattr(state, f).unsqueeze(0)
-                      for f in _STATE_FIELDS)) if single else state
+    st = type(state)(*(getattr(state, f.name).unsqueeze(0)
+                       for f in dataclasses.fields(state))) \
+        if single else state
     R = st.n_batch
     np_t = numpy_dtype(st.id_prob.dtype).type
     eps, tiny = np_t(epsilon_conv), np_t(1e-6)
@@ -369,16 +401,13 @@ def fit_vb(counts, state, priors, cfg, max_iter=200, min_iter=5,
     while active.any():
         idx = np.nonzero(active)[0]
         if active.all():
-            st, _, elbo = em_step(counts, st, priors, cfg,
-                                  update_theta=(n >= delay_fit_theta))
+            st, elbo = step(st, n)
             owned = False   # a field not updated is the input's tensor
         else:
             tidx = torch.as_tensor(idx, device=st.id_prob.device)
-            new, _, elbo = em_step(counts, st.take(tidx), priors, cfg,
-                                   update_theta=(n >= delay_fit_theta))
+            new, elbo = step(st.take(tidx), n)
             if not owned:
-                st = VireoState(*(getattr(st, f).clone()
-                                  for f in _STATE_FIELDS))
+                st = st.clone()
                 owned = True
             st.put_(tidx, new)
         elbo = elbo.detach().cpu().numpy().astype(np_t)
@@ -390,11 +419,8 @@ def fit_vb(counts, state, priors, cfg, max_iter=200, min_iter=5,
         active = running()
 
     if single:
-        return FitResult(state=st.take(0), elbo_ref=prev[0],
-                         elbo_final=curr[0], n_iter=int(it[0]),
-                         elbo_trace=trace[0])
-    return FitResult(state=st, elbo_ref=prev, elbo_final=curr, n_iter=it,
-                     elbo_trace=trace)
+        return st.take(0), prev[0], curr[0], int(it[0]), trace[0]
+    return st, prev, curr, it, trace
 
 
 def run_em_iters(counts, state, priors, cfg, n_iters):

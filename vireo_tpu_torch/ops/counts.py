@@ -67,14 +67,19 @@ class DenseCounts:
     def device(self):
         return self.ad.device
 
-    def _chunks(self, dtype):
+    def _rows(self, itemsize):
+        """(r0, r1) blocks of variant rows, `row_chunk` rows or about
+        512 MB of `itemsize`-byte values each."""
         rows = self.row_chunk
         if rows is None:
-            itemsize = torch.empty((), dtype=dtype).element_size()
             rows = _CHUNK_BYTES // max(self.n_cell * itemsize, 1)
         rows = max(int(rows), 1)
         for r0 in range(0, self.n_var, rows):
-            r1 = min(r0 + rows, self.n_var)
+            yield r0, min(r0 + rows, self.n_var)
+
+    def _chunks(self, dtype):
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        for r0, r1 in self._rows(itemsize):
             yield r0, r1, self.ad[r0:r1].to(dtype), self.dp[r0:r1].to(dtype)
 
     def suff_stats(self, W):
@@ -105,12 +110,38 @@ class DenseCounts:
         return total
 
     def row_sums(self):
-        """(AD.sum(axis=1), DP.sum(axis=1)) -> two (n_var,)."""
-        return self.ad.sum(dim=1), self.dp.sum(dim=1)
+        """(AD.sum(axis=1), DP.sum(axis=1)) -> two (n_var,), int64 for
+        integer counts. Summed one block of rows at a time: an integer
+        sum converts its whole input to int64 first, 24 GB at 30k
+        variants x 100k cells."""
+        blocks = [(self.ad[r0:r1].sum(dim=1), self.dp[r0:r1].sum(dim=1))
+                  for r0, r1 in self._rows(8)]
+        return tuple(torch.cat(x) for x in zip(*blocks))
 
     def n_vars_per_cell(self):
-        """Number of variants with DP > 0 per cell."""
-        return (self.dp > 0).sum(dim=0)
+        """Number of variants with DP > 0 per cell (in blocks of rows, as
+        `row_sums`)."""
+        n = torch.zeros(self.n_cell, dtype=torch.int64, device=self.device)
+        for r0, r1 in self._rows(8):
+            n += (self.dp[r0:r1] > 0).sum(dim=0)
+        return n
+
+    def var_subset(self, idx):
+        """The variant rows `idx` (indices or a boolean mask)."""
+        idx = _row_index(idx, self.device)
+        return DenseCounts(self.ad[idx], self.dp[idx])
+
+    def densify(self):
+        return self
+
+
+def _row_index(idx, device):
+    """Variant indices (or a boolean mask) as an int64 tensor on
+    `device`."""
+    idx = np.asarray(idx.cpu() if torch.is_tensor(idx) else idx)
+    if idx.dtype == bool:
+        idx = np.flatnonzero(idx)
+    return torch.as_tensor(idx.astype(np.int64), device=device)
 
 
 def exact_count_dtype(vmax):
@@ -342,6 +373,49 @@ class SparseCounts:
             return 0.0
         return float(torch.maximum(self.ad_r.max(), self.dp_r.max()))
 
+    def densify(self, dtype=None, check_overflow=True):
+        """Dense (n_var, n_cell) DenseCounts scattered on the device.
+
+        `dtype` defaults to the smallest type that holds every count
+        exactly (`exact_count_dtype`). With `check_overflow`, an int8 or
+        bfloat16 `dtype` too narrow for the largest count is promoted,
+        with the JAX package's note, instead of truncating."""
+        vmax = self.max_count()
+        if dtype is None:
+            dtype = exact_count_dtype(vmax)
+        elif check_overflow and dtype in (torch.int8, torch.bfloat16):
+            promoted = exact_count_dtype(vmax)
+            if (dtype == torch.int8 and vmax > 127) or \
+                    (dtype == torch.bfloat16 and vmax > 256):
+                print("[vireo] counts up to %.0f exceed the exact range "
+                      "of %s; using %s" % (vmax, str(dtype)[6:],
+                                           str(promoted)[6:]))
+                dtype = promoted
+        flat = self.rows_r.long() * self.n_cell + self.cols_r.long()
+
+        def scatter(vals):
+            out = torch.zeros(self.shape, dtype=dtype, device=self.device)
+            out.view(-1)[flat] = vals.to(dtype)
+            return out
+
+        return DenseCounts(scatter(self.ad_r), scatter(self.dp_r))
+
+    def var_subset(self, idx):
+        """The variant rows `idx` as a SparseCounts, filtered on the host.
+        The JAX package densifies the whole COO pool before it subsets
+        (vireo_tpu/models/ambient.py:203-205); the port subsets first,
+        since this rung holds pools whose dense layout does not fit the
+        card. The kept triplets, and so every sum, are the same."""
+        idx = _row_index(idx, "cpu").numpy()
+        pos = np.full(self.n_var, -1, np.int64)
+        pos[idx] = np.arange(len(idx))
+        rows = pos[self.rows_r.cpu().numpy()]
+        keep = rows >= 0
+        return _sparse_from_triplets(
+            rows[keep], self.cols_r.cpu().numpy()[keep],
+            self.ad_r.cpu().numpy()[keep], self.dp_r.cpu().numpy()[keep],
+            (len(idx), self.n_cell), self.device)
+
 
 def _sparse_from_triplets(rows, cols, ad_vals, dp_vals, shape, device):
     """SparseCounts on `device` from host COO triplets with unique
@@ -425,6 +499,58 @@ class HybridCounts:
     def n_vars_per_cell(self):
         # clipping keeps the DP > 0 pattern (cap >= 1)
         return self.base.n_vars_per_cell()
+
+    def densify(self):
+        """The exact dense counts, base plus residual.
+
+        JAX's `densify` returns float32 (vireo_tpu/ops/counts.py:384).
+        The port returns the smallest type that holds the true counts
+        exactly (int8 up to 127; `exact_count_dtype`): its one caller,
+        the ambient phase, reads the selected variants' block in cell
+        chunks and converts each to float, so a float32 copy would only
+        quadruple the block's memory. The sums are the same
+        (tests/test_torch_counts.py)."""
+        r = self.resid
+        vmax = self.cap + r.max_count() if r.nnz else self.cap
+        dtype = exact_count_dtype(vmax)
+        b = self.base.densify()
+        flat = r.rows_r.long() * self.n_cell + r.cols_r.long()
+
+        def add_resid(x, vals):
+            out = x.to(dtype, copy=True)     # never the base's storage
+            out.view(-1)[flat] += vals.to(dtype)
+            return out
+
+        return DenseCounts(add_resid(b.ad, r.ad_r), add_resid(b.dp, r.dp_r))
+
+    def var_subset(self, idx):
+        """The variant rows `idx` without densifying the whole pool: the
+        base subsets on the device, the residual is filtered on the host,
+        and `binom_corr` is recomputed from the kept entries (true value =
+        base value + delta), as vireo_tpu/ops/counts.py:399-438 does."""
+        idx = _row_index(idx, "cpu").numpy()
+        base = self.base.var_subset(idx)
+        r = self.resid
+        pos = np.full(self.n_var, -1, np.int64)
+        pos[idx] = np.arange(len(idx))
+        rows = pos[r.rows_r.cpu().numpy()]
+        keep = rows >= 0
+        new_rows, new_cols = rows[keep], r.cols_r.cpu().numpy()[keep]
+        da = r.ad_r.cpu().numpy()[keep].astype(np.float64)
+        dd = r.dp_r.cpu().numpy()[keep].astype(np.float64)
+
+        bd = base.densify()
+        at = (torch.as_tensor(new_rows, device=self.device),
+              torch.as_tensor(new_cols, device=self.device))
+        ba = bd.ad[at].cpu().numpy().astype(np.float64)
+        bb = bd.dp[at].cpu().numpy().astype(np.float64)
+        corr = float(np.sum(_np_log_binom_coeff(bb + dd, ba + da))
+                     - np.sum(_np_log_binom_coeff(bb, ba)))
+        resid = _sparse_from_triplets(new_rows, new_cols, da, dd,
+                                      (len(idx), self.n_cell), self.device)
+        return HybridCounts(base, resid,
+                            torch.tensor(corr, dtype=torch.float64,
+                                         device=self.device), self.cap)
 
 
 def _np_log_binom_coeff(dp, ad, max_val=700.0):

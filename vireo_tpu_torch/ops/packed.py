@@ -30,7 +30,8 @@ type and calls `torch.matmul` on `lo @ W[0::2] + hi @ W[1::2]`; on the
 CPU that is float64, so the port's CPU runs stay exact. `LAUNCHES`
 counts each kernel's launches.
 
-The reductions and `densify` are plain PyTorch over blocks of rows.
+The reductions, `densify` and `var_subset` are plain PyTorch (the
+reductions over blocks of rows).
 """
 
 import ctypes
@@ -301,6 +302,14 @@ class PackedCounts:
                 self.n_var, -1)[:, :self.n_cell].contiguous()
 
         return DenseCounts(full(self.ad_p), full(self.dp_p))
+
+    def var_subset(self, idx):
+        """The variant rows `idx` (indices or a boolean mask), still
+        packed."""
+        from .counts import _row_index
+        idx = _row_index(idx, self.device)
+        return PackedCounts(self.ad_p[idx], self.dp_p[idx],
+                            (int(idx.shape[0]), self.n_cell))
 
 
 def _pack_pair(x):
