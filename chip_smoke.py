@@ -29,21 +29,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    as close as one); both times, each kernel's bound and achieved
    TFLOP/s, and as the library call one cuBLAS float32 torch.matmul on
    the counts unpacked ahead of the timing, where they fit the card;
-5. the full-size main path on the dense rung: a seeded synthetic pool
+5. `[mt]`: the main call's seeded inits (20 restarts, 60.8M doubles of
+   numpy's stream) drawn on the host and regenerated on the card
+   (ops/mt19937.py): equal bit for bit, numpy's position equal after,
+   both timed, the card's peak memory;
+6. `[synth]`: synth_pool_dense_device at the main pool's size on the
+   card: time, peak memory, and density, mean depth, doublet share and
+   allele fractions against the numpy pool within the stated tolerances;
+7. the full-size main path on the dense rung: a seeded synthetic pool
    of 30000 variants x 100000 cells x 16 donors with 8% doublets
-   through `vireo_wrap(n_init=20, random_seed=0)`, with K1's launch
+   through `vireo_wrap(n_init=20, random_seed=0)` (its seeded inits
+   regenerated on the card, as in phase 5), with K1's launch
    count over that run, phase times, peak memory and accuracy against
    the simulation's truth;
-6. the same pool and call on the packed rung, chosen by the ladder under
+8. the same pool and call on the packed rung, chosen by the ladder under
    VIREO_DENSE_BUDGET_GB=4: K2's and K3's launch counts (and no K1),
    phase times, peak memory, accuracy, and agreement with the dense
    run's calls; then both runs again under torch.profiler: each rung's
    device time by kernel and the device's idle share;
-7. the fused EM fit on the main pool's dense int8 counts (K1 in every
+9. the fused EM fit on the main pool's dense int8 counts (K1 in every
    iteration; its launches must equal the fit's iterations) against the
    unfused float32 fit from the same seeded init: iterations, time per
    iteration, ELBOs, accuracy and the agreement of their calls;
-8. the donor-genotype modes on the main pool through vireo_wrap on the
+10. the donor-genotype modes on the main pool through vireo_wrap on the
    dense rung (K1 in the doublet phase): every donor known (with the
    ambient-RNA phase), a superset (12 of 16 known, 20 restarts), a
    subset (the 16 among 4 decoys); then every donor known, with the
@@ -56,12 +64,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    of cells, and on AMBIENT_CPU_CELLS cells the card's float32 EM
    agrees with the CPU's float64 EM from the same psi0 and theta on >=
    AMBIENT_AGREE;
-9. the binomial mixture model at full width on the packed counts
+11. the binomial mixture model at full width on the packed counts
    (BinomMixtureVB(n_donor=16), 10 restarts, the JAX defaults): K2's and
    K3's launches equal the warm restarts' longest run plus the refit's
    iterations; time, ms an iteration, peak memory, singlet accuracy
    after label matching (reported);
-10. small pools on the card against the CPU: the dense rung, the
+12. the CLI at full width from disk (`[cli_full]`): the main pool
+   written as a cellSNP folder (timed apart), then `vireo -c DIR -N 16
+   --randSeed 0 --noPlot` at the default --nInit 50 (152M init doubles
+   through the device stream; K1 in the doublet phase): the native reader
+   built and loaded, the matrices it read equal the pool, singlet
+   accuracy >= 0.99 from donor_ids.tsv after label matching; each phase,
+   the disk-to-answer wall time and the peak memory;
+13. small pools on the card against the CPU: the dense rung, the
    extra-donor and superset branches, then the int8-hybrid,
    packed-hybrid and COO rungs of a heavy-tailed pool, with the ambient
    phase (each rung's contractions also run twice and must give the
@@ -69,11 +84,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    whose doublet space (K = 276 columns) goes through K1; the BMM on
    the dense and packed rungs, a seeded sweep_n_donor over K = 2..6 and
    a sweep_n_clone, and VireoBulk with LikRatio_test;
-11. checkpoints on the card: resumes after either phase give the
+14. checkpoints on the card: resumes after either phase give the
    uninterrupted run's results bit for bit;
-12. the CLI on a small synthetic cellSNP folder: genotype-free (with its
-   learnt donors' VCF), then with a donor VCF (-d, -t GT), then with
-   --callAmbientRNAs under VIREO_TIMING=1 (prop_ambient.tsv and the
+15. the CLI on a small synthetic cellSNP folder: genotype-free (with its
+   learnt donors' VCF; then the native .tsv.gz writer against the Python
+   writer's bytes on this machine), with a donor VCF (-d, -t GT), then
+   with --callAmbientRNAs under VIREO_TIMING=1 (prop_ambient.tsv and the
    per-phase summary); GTbarcode on the in-tree golden, byte for byte.
 
 Before the kernel table it prints the whole command's seconds. The line
@@ -252,6 +268,19 @@ BMM_FIT = dict(n_init=10, max_iter_pre=100, max_iter=200, random_seed=0)
 # the small pool's K sweep and bulk sample
 SWEEP_KS = (2, 3, 4, 5, 6)
 BULK_PSI_ATOL = 1e-4
+# the device pool generator at the main pool's size against the numpy
+# pool: density relative 3% (numpy draws coverage with replacement by a
+# Gamma popularity and drops repeats, ~1% fewer at density 0.01; the
+# device draws a Bernoulli per entry), mean depth of covered entries
+# relative 1% (1 + Poisson(0.6) over ~3e7 entries: sd ~2e-4), doublet
+# share absolute 0.005 (a Bernoulli share of 1e5 cells at 0.08: sd
+# 8.6e-4), and the singlets' allele fraction at each genotype within
+# SYNTH_THETA_ATOL of theta over the first 2000 variants (~1.8e6 reads)
+SYNTH_DENSITY_RTOL, SYNTH_DEPTH_RTOL, SYNTH_DOUBLET_ATOL = 0.03, 0.01, 0.005
+SYNTH_THETA_ATOL = 0.005
+# the CLI from disk at full width: the CLI's default --nInit, 152M init
+# doubles through the device stream
+CLI_FULL_N_INIT = 50
 
 
 def log(*args):
@@ -763,6 +792,220 @@ def _main_pool():
                                              int(d["DP"].max()),
                                              time.perf_counter() - t0))
     return d
+
+
+def phase_mt(torch):
+    """The main call's seeded inits (20 restarts, 60.8M doubles), drawn
+    on the host and regenerated on the card: equal bit for bit in
+    float32, with numpy's generator at the same position after; both
+    timed in turns (host, card, card, host), each ending in a sync."""
+    from vireo_tpu_torch.engine import wrap
+    from vireo_tpu_torch.models.vireo import VireoConfig
+    V, C, K, R = (MAIN["n_var"], MAIN["n_cell"], MAIN["n_donor"],
+                  MAIN["n_init"])
+    cfg = VireoConfig(n_var=V, n_cell=C, n_donor=K)
+    dev = torch.device("cuda")
+    n_doubles = R * (C * K + V * K * 3)
+    times = {"host": [], "card": []}
+    out, peak = {}, 0
+    for which in ("host", "card", "card", "host"):
+        fn = wrap._host_batched_init if which == "host" \
+            else wrap._mt_batched_init
+        out.pop(which, None)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        np.random.seed(0)
+        t0 = time.perf_counter()
+        st = fn(cfg, R, None, np.random, torch.float32, dev)
+        torch.cuda.synchronize()
+        times[which].append(time.perf_counter() - t0)
+        if which == "card":
+            peak = max(peak, torch.cuda.max_memory_allocated() - base)
+        out[which] = (st, np.random.get_state())
+    (h, pos_h), (c, pos_c) = out["host"], out["card"]
+    same = {k: bool(torch.equal(getattr(h, k), getattr(c, k)))
+            for k in ("id_prob", "gt_prob", "beta_mu", "beta_sum")}
+    same_pos = pos_h[2] == pos_c[2] and np.array_equal(pos_h[1], pos_c[1])
+    log("[mt] %d restarts, %d doubles: host %s s, card %s s (CUDA "
+        "device stream, float64 transform), card peak %.3f GiB above the "
+        "resident; equal bit for bit %s, numpy position equal %s"
+        % (R, n_doubles, ["%.3f" % t for t in times["host"]],
+           ["%.3f" % t for t in times["card"]], peak / 2**30,
+           json.dumps(same), same_pos))
+    if not all(same.values()) or not same_pos:
+        raise AssertionError("the card's inits differ from the host's")
+    del out, h, c, st
+    torch.cuda.empty_cache()
+
+
+def phase_synth(torch, d):
+    """synth_pool_dense_device at the main pool's size on the card: time,
+    peak memory, and its statistics against the numpy pool `d`."""
+    from vireo_tpu_torch.sim.synth import synth_pool_dense_device
+    V, C, K = MAIN["n_var"], MAIN["n_cell"], MAIN["n_donor"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = synth_pool_dense_device(V, C, K, doublet_rate=0.08, density=0.01,
+                                seed=0, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ad, dp = g["counts"].ad, g["counts"].dp
+    assert ad.shape == dp.shape == (V, C) and ad.dtype == torch.int8
+    nnz = reads = bad = 0
+    for r0 in range(0, V, 2000):          # blocks bound the temporaries
+        a, r = ad[r0:r0 + 2000], dp[r0:r0 + 2000]
+        nnz += int((r > 0).sum())
+        reads += float(r.sum(dtype=torch.float64))
+        bad += int((a > r).sum())
+    got = dict(density=nnz / (V * C), mean_depth=reads / nnz,
+               doublet_share=float(np.mean(g["donor2"] >= 0)))
+    want = dict(density=d["DP"].nnz / (V * C),
+                mean_depth=float(d["DP"].data.mean()),
+                doublet_share=float(np.mean(d["donor2"] >= 0)))
+    # allele fraction of the singlets' reads at each genotype
+    single = torch.as_tensor(g["donor2"] < 0, device="cuda")
+    gt = torch.as_tensor(g["GT"][:2000], device="cuda")[
+        :, torch.as_tensor(g["donor"], device="cuda")][:, single]
+    a, r = ad[:2000][:, single].double(), dp[:2000][:, single].double()
+    frac = [float(a[gt == k].sum() / r[gt == k].sum()) for k in range(3)]
+    log("[synth] synth_pool_dense_device %d x %d x %d, 8%% doublets: "
+        "%.3f s on the card, peak %.3f GiB; %s against the numpy pool %s; "
+        "singlet allele fraction by genotype %s (theta 0.01, 0.5, 0.99); "
+        "%d entries with AD > DP"
+        % (V, C, K, wall, peak / 2**30, json.dumps(got), json.dumps(want),
+           ["%.5f" % f for f in frac], bad))
+    ok = (abs(got["density"] / want["density"] - 1) <= SYNTH_DENSITY_RTOL
+          and abs(got["mean_depth"] / want["mean_depth"] - 1)
+          <= SYNTH_DEPTH_RTOL
+          and abs(got["doublet_share"] - want["doublet_share"])
+          <= SYNTH_DOUBLET_ATOL
+          and all(abs(f - t) <= SYNTH_THETA_ATOL
+                  for f, t in zip(frac, (0.01, 0.5, 0.99)))
+          and bad == 0)
+    del g, ad, dp, a, r, gt
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("the device pool's statistics are off")
+
+
+def _write_mtx(path, M):
+    """A sparse integer matrix as a MatrixMarket coordinate file (every
+    line "row col value\\n"), formatted by numpy in bulk: each line's
+    digits go into a fixed-width row of bytes, with 0 in place of a
+    leading zero, and dropping the 0 bytes leaves the lines."""
+    M = M.tocoo()
+    fields = [M.row.astype(np.uint32) + 1, M.col.astype(np.uint32) + 1,
+              np.rint(M.data).astype(np.uint32)]
+    widths = [len(str(int(f.max()))) if len(f) else 1 for f in fields]
+    lines = np.zeros((M.nnz, sum(widths) + 3), np.uint8)
+    col = 0
+    for f, w, sep in zip(fields, widths, b"  \n"):
+        for k in range(w):
+            digit = (f // np.uint32(10 ** k) % np.uint32(10)).astype(
+                np.uint8) + np.uint8(48)
+            lines[:, col + w - 1 - k] = digit if k == 0 \
+                else np.where(f >= 10 ** k, digit, 0)
+        lines[:, col + w] = sep
+        col += w + 1
+    with open(path, "wb") as f:
+        f.write(b"%%MatrixMarket matrix coordinate integer general\n")
+        f.write(b"%d %d %d\n" % (M.shape[0], M.shape[1], M.nnz))
+        f.write(lines[lines != 0].tobytes())
+
+
+def _write_cellsnp(folder, d):
+    """The pool `d` as a cellSNP folder: the two MatrixMarket files, the
+    variants' VCF (one line per variant) and the barcodes."""
+    import gzip
+    os.makedirs(folder)
+    for tag in ("AD", "DP"):
+        _write_mtx(os.path.join(folder, "cellSNP.tag.%s.mtx" % tag), d[tag])
+    with gzip.open(os.path.join(folder, "cellSNP.base.vcf.gz"), "wt",
+                   compresslevel=1) as f:
+        f.write("##fileformat=VCFv4.2\n")
+        f.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n")
+        f.write("".join("1\t%d\t.\tA\tG\t.\tPASS\t.\n" % (100 + v)
+                        for v in range(d["AD"].shape[0])))
+    with open(os.path.join(folder, "cellSNP.samples.tsv"), "w") as f:
+        f.write("".join("c%06d\n" % c for c in range(d["AD"].shape[1])))
+
+
+def phase_cli_full(torch, d):
+    """`vireo -c DIR -N 16 --randSeed 0 --noPlot` (the default --nInit 50)
+    on the main pool written to local disk, in this process: the native
+    library loaded, the matrices it read equal the pool, the singlet
+    accuracy of donor_ids.tsv after label matching, K1's launches, the
+    phases of its --timing summaries, the disk-to-answer wall time (the
+    CLI's whole call) and the peak device memory."""
+    from scipy.optimize import linear_sum_assignment
+    from vireo_tpu_torch.cli import vireo_cli
+    from vireo_tpu_torch.io import _native, matrices
+    V, C, K = MAIN["n_var"], MAIN["n_cell"], MAIN["n_donor"]
+    if not _native.available():
+        raise AssertionError("the native reader did not build:\n%s"
+                             % _native.build_error())
+    read = {}
+    real_read = matrices.read_cellSNP
+
+    def timed_read(*args, **kwargs):
+        t0 = time.perf_counter()
+        read["dat"] = real_read(*args, **kwargs)
+        read["s"] = time.perf_counter() - t0
+        return read["dat"]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cell = os.path.join(tmp, "cellsnp")
+        t0 = time.perf_counter()
+        _write_cellsnp(cell, d)
+        size = sum(os.path.getsize(os.path.join(cell, f))
+                   for f in os.listdir(cell))
+        log("[cli_full] cellSNP folder of the main pool written in %.3f s "
+            "(%.1f MB)" % (time.perf_counter() - t0, size / 1e6))
+        out = os.path.join(tmp, "out")
+        text = io.StringIO()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        matrices.read_cellSNP = timed_read
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(text):
+                vireo_cli.main(["-c", cell, "-N", str(K), "-o", out,
+                                "--randSeed", "0", "--nInit",
+                                str(CLI_FULL_N_INIT), "--noPlot",
+                                "--timing"])
+            wall = time.perf_counter() - t0
+        finally:
+            matrices.read_cellSNP = real_read
+        launches = _launches()
+        peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join(out, "donor_ids.tsv")) as f:
+            rows = [x.split("\t") for x in f.read().splitlines()[1:]]
+    phases = {"read": read["s"]}
+    for summary in _timing_summaries(text.getvalue(), seconds=True):
+        phases.update(summary)
+    for name, sec in phases.items():
+        log("[cli_full] phase %-15s %.2f s" % (name, sec))
+    same = all((read["dat"][k] != d[k]).nnz == 0 for k in ("AD", "DP"))
+    best = np.array([int(r[5][len("donor"):]) for r in rows])
+    singlet = d["donor2"] < 0
+    hits = np.zeros((K, K))
+    np.add.at(hits, (d["donor"][singlet], best[singlet]), 1)
+    ti, pi = linear_sum_assignment(-hits)
+    acc = hits[ti, pi].sum() / singlet.sum()
+    calls = dict(zip(*np.unique([r[1] for r in rows], return_counts=True)))
+    log("[cli_full] disk-to-answer wall %.3f s (--nInit %d), peak device "
+        "memory %.3f GiB, launches %s; the matrices read equal the pool: "
+        "%s; %d rows, singlet accuracy %.5f after label matching; calls: "
+        "doublet %d, unassigned %d"
+        % (wall, CLI_FULL_N_INIT, peak / 2**30, json.dumps(launches), same,
+           len(rows), acc, calls.get("doublet", 0),
+           calls.get("unassigned", 0)))
+    if not same or len(rows) != C or acc < 0.99 or launches["K1"] < 1:
+        raise AssertionError("the full-width CLI run is wrong")
 
 
 def _reset_launches():
@@ -1607,6 +1850,33 @@ def _write_donor_vcf(path, GT, names):
                     % (100 + v, "\t".join(codes[v])))
 
 
+def _check_native_writer(tmp):
+    """The native .tsv.gz writer (glibc's %.2e, zlib) against the Python
+    writer's bytes on this machine, on probabilities and on values across
+    magnitudes and signs."""
+    import gzip
+    from vireo_tpu_torch.io import fast, matrices
+    rng = np.random.RandomState(1)
+    mats = [rng.dirichlet(np.ones(4), 5000),
+            np.concatenate([rng.rand(40, 5), rng.rand(40, 5) * 1e-30,
+                            rng.randn(40, 5) * 1e3, np.zeros((1, 5))])]
+    for i, mat in enumerate(mats):
+        cols = ["cell"] + ["d%d" % k for k in range(mat.shape[1])]
+        names = ["c%05d-1" % r for r in range(mat.shape[0])]
+        path = os.path.join(tmp, "native_%d.tsv.gz" % i)
+        if not fast.write_matrix_tsv_fast(path, cols, names, mat, "%.2e",
+                                          gzip_level=4):
+            raise AssertionError("the native writer failed")
+        text = io.StringIO()
+        matrices._write_tsv(text, cols,
+                            matrices._matrix_rows(names, mat, "%.2e"))
+        with gzip.open(path, "rb") as f:
+            if f.read() != text.getvalue().encode():
+                raise AssertionError("the native writer's bytes differ")
+    log("[cli] the native .tsv.gz writer gives the Python writer's bytes "
+        "(%s rows)" % [m.shape[0] for m in mats])
+
+
 def phase_cli():
     import gzip
     import scipy.io as sio
@@ -1650,6 +1920,7 @@ def phase_cli():
                 or body[0][8] != "GT:AD:DP:PL":
             raise AssertionError("GT_donors.vireo.vcf.gz is not the "
                                  "learnt donors' VCF")
+        _check_native_writer(tmp)
 
         # the donors' genotypes given (-d): the calls name the VCF's
         # samples, donor k of the file being donor k of the pool
@@ -1726,24 +1997,25 @@ def phase_cli():
         raise AssertionError("GTbarcode does not reproduce the golden")
 
 
-def _timing_summaries(text):
-    """The phase names of each `[vireo] timing:` summary in `text`, its
-    lines checked against the JAX package's format."""
+def _timing_summaries(text, seconds=False):
+    """The phase names of each `[vireo] timing:` summary in `text` (with
+    `seconds`, a dict of each phase's seconds), its lines checked against
+    the JAX package's format."""
     head = re.compile(r"^\[vireo\] timing: total \d+\.\d\ds$")
-    row = re.compile(r"^  (\S+) +\d+\.\d\ds +\d+\.\d%$")
+    row = re.compile(r"^  (\S+) +(\d+\.\d\d)s +\d+\.\d%$")
     lines = text.splitlines()
     found = []
     for i, line in enumerate(lines):
         if line.startswith("[vireo] timing:"):
             if not head.match(line):
                 raise AssertionError("timing summary head %r" % line)
-            names = []
+            names = {}
             for r in lines[i + 1:]:
                 m = row.match(r)
                 if not m:
                     break
-                names.append(m.group(1))
-            found.append(names)
+                names[m.group(1)] = float(m.group(2))
+            found.append(names if seconds else list(names))
     return found
 
 
@@ -1762,7 +2034,9 @@ def main():
     phase_build()
     k1 = phase_k1(torch)
     k23 = phase_k23(torch)
+    phase_mt(torch)
     d = _main_pool()
+    phase_synth(torch, d)
     dense_res, dense_launches = phase_main_path(torch, d)
     packed_launches = phase_packed_main_path(torch, d, dense_res)
     phase_profile(torch, d)
@@ -1775,7 +2049,9 @@ def main():
     packed = phase_known_packed(torch, d, dense_known)
     del dense_known
     phase_bmm_full(torch, packed, d)
-    del packed, d
+    del packed
+    phase_cli_full(torch, d)
+    del d
     phase_small_cross_check(torch)
     phase_small_branches(torch)
     phase_small_rungs(torch)

@@ -11,7 +11,8 @@ setup(
                 "single-cell RNA-seq (JAX/XLA)",
     packages=find_packages(exclude=("tests",)),
     package_data={"vireo_tpu.io._native": ["*.cpp"],
-                  "vireo_tpu_torch": ["csrc/*.cu"]},
+                  "vireo_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                      "io/_native/*.cpp"]},
     python_requires=">=3.10",
     install_requires=["numpy", "scipy", "jax", "matplotlib"],
     entry_points={

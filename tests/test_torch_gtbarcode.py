@@ -35,17 +35,31 @@ def test_gtbarcode_flags_match_jax_cli(tmp_path, flags):
         (tmp_path / "j.tsv").read_bytes()
 
 
-def test_gtbarcode_default_out_file_and_plot_note(tmp_path, capsys):
-    """Without -o the TSV goes beside the VCF; without --noPlot the port
-    writes the TSV and names the plots' ROADMAP item."""
+def test_gtbarcode_default_out_file_and_plot_note(tmp_path, capsys,
+                                                  monkeypatch):
+    """Without -o the TSV goes beside the VCF; without --noPlot the
+    mini-code figure goes beside the TSV, as the JAX CLI names it; where
+    matplotlib cannot be imported the port writes the TSV and a one-line
+    note naming matplotlib instead of the figure."""
     vcf = tmp_path / "donors.vcf.gz"
     vcf.write_bytes((GOLDEN / "GT_donors.ref.vcf.gz").read_bytes())
     tcli.main(["-i", str(vcf), "--randSeed", "1"])
     out = capsys.readouterr().out
     assert "no outFile provided" in out
-    assert "ROADMAP.md, queue 1: plots" in out
+    assert "matplotlib" not in out
     assert (tmp_path / "GTbarcode.tsv").read_bytes() == \
         (GOLDEN / "GT_barcodes.tsv").read_bytes()
+    assert (tmp_path / "GTbarcode.png").stat().st_size > 0
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)   # not installed
+    out_file = tmp_path / "no_mpl" / "GTbarcode.tsv"
+    tcli.main(["-i", str(vcf), "-o", str(out_file), "--randSeed", "1",
+               "--figFormat", "pdf"])
+    notes = [x for x in capsys.readouterr().out.splitlines()
+             if "matplotlib" in x]
+    assert len(notes) == 1 and "not installed" in notes[0]
+    assert out_file.read_bytes() == (GOLDEN / "GT_barcodes.tsv").read_bytes()
+    assert not (tmp_path / "no_mpl" / "GTbarcode.pdf").exists()
 
 
 def test_gtbarcode_usage_exits():

@@ -1,0 +1,245 @@
+"""The device MT19937 stream (ops/mt19937.py) and the seeded-init routing
+of engine/wrap.py against numpy and the JAX package, on the CPU in
+float64: the stream equals `np.random.rand` bit for bit and leaves the
+host generator where a plain draw does; `_mt_batched_init` equals JAX's
+`_host_batched_init` and `_mt_batched_init` bit for bit; seeded
+`vireo_wrap` and `sweep_n_donor` give the same results under
+VIREO_DEVICE_MT=1 and =0, and JAX's (LB_list and ELBOs rtol 1e-9, calls
+and iterations identical)."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from vireo_tpu.engine import wrap as jwrap
+from vireo_tpu.engine import select as jsel
+from vireo_tpu.models.vireo import VireoConfig as JConfig
+from vireo_tpu.ops import mt19937 as jmt
+from vireo_tpu_torch.engine import wrap as twrap
+from vireo_tpu_torch.engine import select as tsel
+from vireo_tpu_torch.models import vireo as tvireo
+from vireo_tpu_torch.ops.mt19937 import (plan_stream, device_stream,
+                                         np_pairwise_sum_last)
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _ask_for_the_cpu(monkeypatch):
+    monkeypatch.setenv("VIREO_PLATFORM", "cpu")
+    monkeypatch.delenv("VIREO_DEVICE_MT", raising=False)
+
+
+@pytest.mark.parametrize("seed,n,pre_words", [
+    (2, 1000, 0),        # several lanes, fresh seed (pool offset 624)
+    (7, 312 * 5, 0),     # a whole number of chunks
+    (3, 987654, 0),      # large, uneven last lane
+    (3, 12345, 1),       # odd in-pool offset
+    (11, 624 * 3 + 7, 3),
+])
+def test_stream_bit_parity_and_host_position(seed, n, pre_words):
+    np.random.seed(seed)
+    if pre_words:
+        np.random.bytes(4 * pre_words)
+    saved = np.random.get_state()
+    want = np.random.rand(n)
+    pos_want = np.random.get_state()
+
+    np.random.set_state(saved)
+    plan = plan_stream(n, max_lanes=7)
+    got = device_stream(plan)
+    pos_got = np.random.get_state()
+
+    assert got.dtype == torch.float64 and got.shape == (n,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert pos_want[2] == pos_got[2]
+    np.testing.assert_array_equal(pos_want[1], pos_got[1])
+
+    # the JAX package's plan and stream, from the same state
+    np.random.set_state(saved)
+    np.testing.assert_array_equal(
+        np.asarray(jmt.device_stream(jmt.plan_stream(n, max_lanes=7))), want)
+
+
+@pytest.mark.parametrize("K", [2, 3, 4, 7, 8, 12, 16, 24, 100, 128])
+def test_pairwise_sum_matches_numpy_bitwise(K):
+    x = np.random.RandomState(0).rand(50, K)
+    np.testing.assert_array_equal(
+        np_pairwise_sum_last(torch.from_numpy(x)).numpy(), np.sum(x, -1))
+    np.testing.assert_array_equal(np_pairwise_sum_last(x), np.sum(x, -1))
+
+
+def test_float32_stream_is_jax_float32_stream():
+    """dtype=float32: JAX's transform without x64, deterministic and
+    within 2e-7 of the float64 stream."""
+    np.random.seed(9)
+    saved = np.random.get_state()
+    f64 = device_stream(plan_stream(5000, max_lanes=4)).numpy()
+    np.random.set_state(saved)
+    f32 = device_stream(plan_stream(5000, max_lanes=4),
+                        dtype=torch.float32).numpy()
+    np.random.set_state(saved)
+    j32 = np.asarray(jmt.device_stream(jmt.plan_stream(5000, max_lanes=4),
+                                       dtype=jnp.float32))
+    assert f32.dtype == np.float32
+    np.testing.assert_array_equal(f32, j32)
+    np.testing.assert_allclose(f32, f64, rtol=2e-7, atol=2e-7)
+
+
+def test_plan_stream_with_randomstate_object():
+    rng = np.random.RandomState(42)
+    rng.rand(7)
+    ref = np.random.RandomState(42)
+    ref.rand(7)
+    want = ref.rand(5000)
+    got = device_stream(plan_stream(5000, rng=rng, max_lanes=5)).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(rng.rand(10), ref.rand(10))
+
+
+def _state(st):
+    return {k: np.asarray(getattr(st, k)) for k in
+            ("beta_mu", "beta_sum", "gt_prob", "id_prob")}
+
+
+@pytest.mark.parametrize("with_prior,n_cell_draw", [
+    (False, None), (False, 30), (True, None)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_mt_batched_init_bitmatches_jax(with_prior, n_cell_draw, dtype):
+    """The port's _mt_batched_init against JAX's _host_batched_init and
+    _mt_batched_init (x64), and its own host path: the same state bit for
+    bit and the same numpy position after. In float32 (normalised in
+    float64, then cast) it equals both host paths cast the same way."""
+    cfg_t = tvireo.VireoConfig(n_var=60, n_cell=40, n_donor=3)
+    cfg_j = JConfig(n_var=60, n_cell=40, n_donor=3)
+    gp = np.random.RandomState(0).rand(60, 3, 3) if with_prior else None
+    jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
+
+    runs = {}
+    for name, fn in (
+            ("t_mt", lambda: twrap._mt_batched_init(
+                cfg_t, 4, gp, np.random, dtype, "cpu",
+                n_cell_draw=n_cell_draw)),
+            ("t_host", lambda: twrap._host_batched_init(
+                cfg_t, 4, gp, np.random, dtype, "cpu",
+                n_cell_draw=n_cell_draw)),
+            ("j_host", lambda: jwrap._host_batched_init(
+                cfg_j, 4, gp, np.random, jdt, n_cell_draw=n_cell_draw)),
+            ("j_mt", lambda: jwrap._mt_batched_init(
+                cfg_j, 4, gp, np.random, jnp.float64,
+                n_cell_draw=n_cell_draw))):
+        np.random.seed(5)
+        runs[name] = (_state(fn()), np.random.get_state())
+
+    got, pos = runs["t_mt"]
+    assert got["id_prob"].dtype == np.dtype(str(dtype)[6:])
+    for other in ("t_host", "j_host", "j_mt"):
+        want, pos_w = runs[other]
+        for key in got:
+            w = want[key]
+            if other == "j_mt":          # JAX's is float64 only
+                w = w.astype(got[key].dtype)
+            np.testing.assert_array_equal(got[key], w,
+                                          err_msg="%s %s" % (other, key))
+        assert pos[2] == pos_w[2]
+        np.testing.assert_array_equal(pos[1], pos_w[1])
+
+
+def _spy(monkeypatch, calls):
+    for name in ("_mt_batched_init", "_host_batched_init"):
+        real = getattr(twrap, name)
+
+        def spy(*a, _real=real, _name=name, **k):
+            calls.append(_name)
+            return _real(*a, **k)
+        monkeypatch.setattr(twrap, name, spy)
+
+
+def test_seeded_inits_route_by_stream_size(small_data, monkeypatch):
+    """Seeded runs take the device stream from _MT_STREAM_MIN_DOUBLES
+    doubles on (lowered here), the host below it; VIREO_DEVICE_MT=1/0
+    overrides either way; unseeded runs take neither."""
+    AD, DP, _ = small_data
+    kw = dict(n_donor=3, n_init=2, random_seed=1, check_doublet=False,
+              verbose=False, device="cpu")
+    n_total = 2 * (40 * 3 + 60 * 3 * 3)
+    cases = [(n_total + 1, None, "_host_batched_init"),
+             (n_total, None, "_mt_batched_init"),
+             (n_total, "0", "_host_batched_init"),
+             (n_total + 1, "1", "_mt_batched_init")]
+    for threshold, knob, want in cases:
+        calls = []
+        with monkeypatch.context() as mp:
+            _spy(mp, calls)
+            mp.setattr(twrap, "_MT_STREAM_MIN_DOUBLES", threshold)
+            if knob is not None:
+                mp.setenv("VIREO_DEVICE_MT", knob)
+            twrap.vireo_wrap(AD, DP, **kw)
+        assert calls == [want], (threshold, knob, calls)
+    calls = []
+    with monkeypatch.context() as mp:
+        _spy(mp, calls)
+        mp.setenv("VIREO_DEVICE_MT", "1")
+        twrap.vireo_wrap(AD, DP, **dict(kw, random_seed=None))
+    assert calls == []
+
+
+def _record_fits(monkeypatch, modules, calls):
+    real = tvireo.fit_vb
+
+    def spy(*args, **kwargs):
+        res = real(*args, **kwargs)
+        calls.append(np.atleast_1d(np.asarray(res.n_iter)).tolist())
+        return res
+    for m in modules:
+        monkeypatch.setattr(m, "fit_vb", spy)
+
+
+def test_wrap_device_mt_equals_host_path_and_jax(small_data, monkeypatch):
+    """vireo_wrap under VIREO_DEVICE_MT=1 and =0: identical fits and
+    results (the later host draws of the doublet-free run included), and
+    JAX's vireo_wrap on the same seed."""
+    AD, DP, _ = small_data
+    kw = dict(n_donor=3, n_init=3, random_seed=6, check_doublet=False,
+              verbose=False)
+    res, fits = {}, {}
+    for knob in ("0", "1"):
+        calls = []
+        with monkeypatch.context() as mp:
+            mp.setenv("VIREO_DEVICE_MT", knob)
+            _record_fits(mp, (twrap, tvireo), calls)
+            res[knob] = twrap.vireo_wrap(AD, DP, device="cpu", **kw)
+            res[knob]["next_draw"] = np.random.rand(3)
+        fits[knob] = calls
+    assert fits["0"] == fits["1"] and len(fits["1"]) == 2
+    for key in ("ID_prob", "GT_prob", "doublet_prob", "LB_list",
+                "theta_shapes", "next_draw"):
+        np.testing.assert_array_equal(res["0"][key], res["1"][key],
+                                      err_msg=key)
+
+    monkeypatch.setenv("VIREO_DEVICE_MT", "1")
+    rj = jwrap.vireo_wrap(AD, DP, dtype=jnp.float64, mesh=None, **kw)
+    rt = res["1"]
+    np.testing.assert_allclose(rt["LB_list"], rj["LB_list"], rtol=1e-9)
+    np.testing.assert_allclose(rt["LB_doublet"], rj["LB_doublet"],
+                               rtol=1e-9)
+    np.testing.assert_array_equal(np.argmax(rt["ID_prob"], 1),
+                                  np.argmax(np.asarray(rj["ID_prob"]), 1))
+    np.testing.assert_allclose(rt["ID_prob"], np.asarray(rj["ID_prob"]),
+                               rtol=1e-9, atol=1e-12)
+
+
+def test_seeded_sweep_under_device_mt_matches_jax(small_data, monkeypatch):
+    AD, DP, _ = small_data
+    monkeypatch.setenv("VIREO_DEVICE_MT", "1")
+    calls = []
+    _spy(monkeypatch, calls)
+    kw = dict(n_donor_list=(2, 3), n_init=3, max_iter_init=15,
+              random_seed=4, verbose=False)
+    want = jsel.sweep_n_donor(AD, DP, dtype=jnp.float64, **kw)
+    got = tsel.sweep_n_donor(AD, DP, device="cpu", **kw)
+    assert calls == ["_mt_batched_init"] * 2
+    assert got["best"] == want["best"]
+    for K in (2, 3):
+        np.testing.assert_allclose(got[K], want[K], rtol=1e-9)

@@ -4,9 +4,10 @@ of vireo_tpu/cli/gtbarcode_cli.py).
 Loads a donor VCF, keeps the variants whose INFO coverage passes
 (DP > 20 and OTH/DP < 0.05; --noHomoAlt also drops homozygous-ALT
 variants), greedily selects discriminatory variants
-(`models.variant_select.variant_select`) and writes GTbarcode.tsv. The
-mini-code figure is not ported yet: without --noPlot the TSV is written
-and a note names its ROADMAP.md item.
+(`models.variant_select.variant_select`) and writes GTbarcode.tsv, and
+unless --noPlot the mini-code figure beside it (`--figFormat`, png by
+default). Where matplotlib is not installed the figure is skipped with a
+one-line note.
 
     python -m vireo_tpu_torch.cli.gtbarcode_cli -i donors.vcf.gz \
         -o GTbarcode.tsv --randSeed 1 --noPlot
@@ -40,9 +41,7 @@ def build_parser():
                         help="Filter out variants with homozygous ALT.")
     parser.add_argument("--noPlot", dest="no_plot", default=False,
                         action="store_true",
-                        help="Turn off the plot for the barcode (the port "
-                             "writes no plot yet; ROADMAP.md, queue 1: "
-                             "plots).")
+                        help="Turn off the plot for the barcode.")
     parser.add_argument("--figSize", dest="fig_size", default="4,2",
                         help="Size for the output figure, comma separated "
                              "[default: %(default)s].")
@@ -118,9 +117,26 @@ def main(argv=None):
             line_list = [var_ids[i]] + ["%d" % x for x in GT_vals[i, :]]
             fid.write("\t".join(line_list) + "\n")
 
+    # the mini-code figure beside the TSV
+    # (vireo_tpu/cli/gtbarcode_cli.py:114-125)
     if options.no_plot is False:
-        print("[GTbarcode] the barcode plot is not written by the PyTorch "
-              "port yet (ROADMAP.md, queue 1: plots).")
+        try:
+            import matplotlib
+        except ImportError:
+            print("[GTbarcode] matplotlib is not installed: the barcode "
+                  "plot is not written (--noPlot skips it).")
+            return
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        from ..plot.base_plot import minicode_plot
+        fig_size = np.array(options.fig_size.split(","), float)
+        fig = plt.figure(figsize=(fig_size[0], fig_size[1]), dpi=300)
+        minicode_plot(res_barcodes[1], var_ids[res_barcodes[2]],
+                      donor_vcf['samples'])
+        plt.tight_layout()
+        fig.savefig(".".join(out_file.split(".")[:-1]) + "."
+                    + options.fig_format)
+        plt.close(fig)
 
 
 if __name__ == "__main__":

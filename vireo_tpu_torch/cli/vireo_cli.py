@@ -5,10 +5,12 @@ Same flags, inputs (a cellSNP folder, a cell VCF, VarTrix files), donor
 genotype modes (none, all known, a superset or a subset of the pool's
 donors in `--donorFile`, extra donors) and outputs (donor_ids.tsv,
 summary.tsv, prob_singlet.tsv.gz, prob_doublet.tsv.gz, _log.txt,
-GT_donors.vireo.vcf.gz; prop_ambient.tsv with --callAmbientRNAs). Plots
-and a device mesh are not ported yet: their flags exit with an error,
-or a note, naming their ROADMAP.md item. --timing or VIREO_TIMING=1
-prints the per-phase summary of vireo_wrap and of the writers.
+GT_donors.vireo.vcf.gz; prop_ambient.tsv with --callAmbientRNAs; the
+genotype-distance figures unless --noPlot). Where matplotlib is not
+installed the figures are skipped with a one-line note and the run ends
+as usual. A device mesh is not ported yet: `--mesh VxC` exits with an
+error naming its ROADMAP.md item. --timing or VIREO_TIMING=1 prints the
+per-phase summary of vireo_wrap and of the writers.
 
     python -m vireo_tpu_torch.cli.vireo_cli -c CELLSNP_DIR -N K -o OUT
     python -m vireo_tpu_torch.cli.vireo_cli -c CELLSNP_DIR -d donors.vcf.gz \
@@ -76,8 +78,7 @@ def build_parser():
                         help="If use, turn on SNP-specific allelic ratio.")
     parser.add_argument("--noPlot", dest="no_plot", default=False,
                         action="store_true",
-                        help="Accepted; the port writes no plots yet "
-                             "(ROADMAP.md, queue 1: plots).")
+                        help="If use, turn off plotting GT distance.")
     parser.add_argument("--randSeed", type=int, dest="rand_seed",
                         default=None,
                         help="Seed for random initialization "
@@ -130,6 +131,11 @@ def _load_cells(options):
         print("[vireo] Loading cell folder ...")
         return read_cellSNP(options.cell_data)
     print("[vireo] Loading cell VCF file ...")
+    from ..io.fast import load_cell_vcf_fast
+    cell_dat = load_cell_vcf_fast(options.cell_data, tags=("AD", "DP"),
+                                  biallelic_only=True)
+    if cell_dat is not None:
+        return cell_dat
     cell_vcf = load_VCF(options.cell_data, biallelic_only=True)
     cell_dat = read_sparse_GeneINFO(cell_vcf['GenoINFO'], keys=['AD', 'DP'])
     for _key in ['samples', 'variants', 'FixedINFO', 'contigs', 'comments']:
@@ -273,9 +279,26 @@ def main(argv=None):
     with tail_timer.phase("result_writers"):
         write_donor_id(out_dir, donor_names, cell_dat['samples'], n_vars,
                        res_vireo)
+    # the GT distance figures, over the variants with more than 3 reads a
+    # donor (vireo_tpu/cli/vireo_cli.py:300-312)
     if options.no_plot is False and options.vartrix_data is None:
-        print("[vireo] plots are not written by the PyTorch port yet "
-              "(ROADMAP.md, queue 1: plots).")
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            print("[vireo] matplotlib is not installed: the GT distance "
+                  "plots are not written (--noPlot skips them).")
+        else:
+            from ..plot.base_plot import plot_GT
+            with tail_timer.phase("plots"):
+                dp_sum = np.asarray(cell_dat['DP'].sum(axis=1)).reshape(-1)
+                idx = dp_sum > (3 * n_donor)
+                if learn_GT and donor_GPb is not None:
+                    plot_GT(out_dir, res_vireo['GT_prob'][idx, :, :],
+                            donor_names, donor_GPb[idx, :, :],
+                            donor_vcf['samples'])
+                else:
+                    plot_GT(out_dir, res_vireo['GT_prob'][idx, :, :],
+                            donor_names)
 
     # the donors' learnt genotypes
     if learn_GT and 'variants' in cell_dat.keys():

@@ -3,11 +3,11 @@
 
 Each K's restarts run as one batched fit on counts placed once for the
 whole sweep. Seeded sweeps draw every K's inits from numpy's global
-stream in the reference's order, one batched host array per field
-(`wrap._host_batched_init`); unseeded sweeps seed a device generator
-per K from that stream (`rng.randint(2**31)`). JAX's forced
-device-init path (VIREO_DEVICE_INIT=1), which reuses one seed for every
-K, is not ported.
+stream in the reference's order (`wrap._seeded_batched_init`: on the
+host, or regenerated on the device for large streams); unseeded sweeps
+seed a device generator per K from that stream (`rng.randint(2**31)`).
+JAX's forced device-init path (VIREO_DEVICE_INIT=1), which reuses one
+seed for every K, is not ported.
 """
 
 import numpy as np
@@ -41,7 +41,7 @@ def sweep_n_donor(AD, DP=None, n_donor_list=(2, 3, 4, 5, 6, 7, 8),
     added)} plus "best", the K of the largest ELBO: the notebook recipe
     of comparing `ELBO_inits` across K. AD may be a counts object, whose
     device is then the sweep's."""
-    from .wrap import _host_batched_init, _device_batched_init
+    from .wrap import _seeded_batched_init, _device_batched_init
 
     counts = _as_counts(AD, DP, device)
     device = counts.device
@@ -62,8 +62,8 @@ def sweep_n_donor(AD, DP=None, n_donor_list=(2, 3, 4, 5, 6, 7, 8),
             batched = _device_batched_init(cfg, n_init, None, gen, dtype,
                                            device)
         else:
-            batched = _host_batched_init(cfg, n_init, None, rng, dtype,
-                                         device)
+            batched = _seeded_batched_init(cfg, n_init, None, rng, dtype,
+                                           device)
         res = fit_vb(counts, batched, priors, cfg, max_iter=max_iter_init,
                      min_iter=5, delay_fit_theta=delay_fit_theta)
         out[int(K)] = res.elbo_ref + binom

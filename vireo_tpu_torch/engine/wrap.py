@@ -5,8 +5,10 @@ The n_init random restarts run as one batched fit: the restart axis is
 folded into the matmul's column dimension (R*K columns), each restart
 stops at its own convergence, and the best ELBO is refit to
 convergence, followed by the doublet E-step. Seeded runs draw their
-inits from numpy's global stream in the reference's order; unseeded
-runs draw them on the device from a torch.Generator.
+inits from numpy's global stream in the reference's order, on the host
+or, for streams of 2^23 doubles or more, regenerated on the device
+(ops/mt19937.py; VIREO_DEVICE_MT=1/0 forces a path); unseeded runs draw
+them on the device from a torch.Generator.
 """
 
 import functools
@@ -46,23 +48,27 @@ def _batched_beta(cfg, n_init, dtype, device):
     return beta_mu, beta_sum
 
 
-def _host_batched_init(cfg, n_init, GT_prior_use, rng, dtype, device):
+def _host_batched_init(cfg, n_init, GT_prior_use, rng, dtype, device,
+                       n_cell_draw=None):
     """The reference's per-restart np.random draws, in the order and
     with the per-restart normalisation of
     vireo_tpu/engine/wrap.py::_host_batched_init, assembled into one
     batched array per field and placed once. With a genotype prior only
     the (C, K) assignments are drawn; every restart's genotypes are the
-    prior normalised in float64."""
+    prior normalised in float64. `n_cell_draw` < cfg.n_cell draws the
+    first `n_cell_draw` cells and gives the rest the uniform prior."""
     K, C, G = cfg.n_donor, cfg.n_cell, cfg.n_GT
+    c_draw = C if n_cell_draw is None else int(n_cell_draw)
     np_dtype = numpy_dtype(dtype)
     id_b = np.empty((n_init, C, K), np_dtype)
     gt_b = np.empty((n_init, cfg.n_var, K, G), np_dtype)
+    id_b[:, c_draw:, :] = 1.0 / K
     if GT_prior_use is not None:
         gp = np.asarray(GT_prior_use, np.float64)
         gp = gp / gp.sum(-1, keepdims=True)
     for i in range(n_init):
-        idp = rng.rand(C, K)
-        id_b[i] = idp / idp.sum(1, keepdims=True)
+        idp = rng.rand(c_draw, K)
+        id_b[i, :c_draw] = idp / idp.sum(1, keepdims=True)
         if GT_prior_use is None:
             gtp = rng.rand(cfg.n_var, K, G)
             gt_b[i] = gtp / gtp.sum(-1, keepdims=True)
@@ -72,6 +78,75 @@ def _host_batched_init(cfg, n_init, GT_prior_use, rng, dtype, device):
     return VireoState(beta_mu=beta_mu, beta_sum=beta_sum,
                       gt_prob=torch.from_numpy(gt_b).to(device),
                       id_prob=torch.from_numpy(id_b).to(device))
+
+
+def _mt_batched_init(cfg, n_init, GT_prior_use, rng, dtype, device,
+                     n_cell_draw=None):
+    """`_host_batched_init`'s draws regenerated on `device` from the
+    generator's states (ops/mt19937.py) instead of uploaded: the host
+    generator advances exactly as if it had drawn them, and each restart
+    is normalised in float64 in numpy's summation order before the cast
+    to `dtype`, so the state equals `_host_batched_init`'s bit for bit,
+    in float32 as in float64 (the JAX package's rounds its stream to
+    float32 without x64; the card has float64)."""
+    from ..ops.mt19937 import (plan_stream, device_stream,
+                               np_pairwise_sum_last)
+    K, C, V, G = cfg.n_donor, cfg.n_cell, cfg.n_var, cfg.n_GT
+    c_draw = C if n_cell_draw is None else int(n_cell_draw)
+    gt_draw = 0 if GT_prior_use is not None else V * K * G
+    per = c_draw * K + gt_draw
+    flat = device_stream(plan_stream(n_init * per, rng=rng, device=device))
+    flat = flat.reshape(n_init, per)
+
+    idp = flat[:, :c_draw * K].reshape(n_init, c_draw, K)
+    idn = torch.full((n_init, C, K), 1.0 / K, dtype=dtype, device=device)
+    idn[:, :c_draw] = idp / np_pairwise_sum_last(idp)[..., None]
+    del idp
+    if gt_draw:
+        gtp = flat[:, c_draw * K:].reshape(n_init, V, K, G)
+        gtn = (gtp / np_pairwise_sum_last(gtp)[..., None]).to(dtype)
+        del gtp
+    else:
+        gp = np.asarray(GT_prior_use, np.float64)
+        gp = torch.from_numpy(gp / gp.sum(-1, keepdims=True))
+        gtn = gp.to(device=device, dtype=dtype).expand(n_init, V, K, G)
+    beta_mu, beta_sum = _batched_beta(cfg, n_init, dtype, device)
+    return VireoState(beta_mu=beta_mu, beta_sum=beta_sum, gt_prob=gtn,
+                      id_prob=idn)
+
+
+def _env_tristate(name, on_default):
+    """Three-way environment knob: "1/on/yes" -> True, "0/off/no" ->
+    False, anything else -> `on_default` (vireo_tpu/engine/wrap.py:225)."""
+    knob = os.environ.get(name, "").lower()
+    if knob in ("1", "on", "yes"):
+        return True
+    if knob in ("0", "off", "no"):
+        return False
+    return on_default
+
+
+# seeded init streams of at least this many doubles are regenerated on
+# the device; smaller ones are drawn on the host. VIREO_DEVICE_MT=1/0
+# forces either path.
+_MT_STREAM_MIN_DOUBLES = 1 << 23
+
+
+def _seeded_batched_init(cfg, n_init, GT_prior_use, rng, dtype, device,
+                         n_cell_draw=None):
+    """The seeded runs' inits, numpy's stream in the reference's order,
+    drawn on the host (`_host_batched_init`) or regenerated on the
+    device (`_mt_batched_init`); both give the same state. A failure of
+    the device path raises: it never falls back to the host."""
+    c_draw = cfg.n_cell if n_cell_draw is None else int(n_cell_draw)
+    n_total = n_init * (c_draw * cfg.n_donor
+                        + (0 if GT_prior_use is not None
+                           else cfg.n_var * cfg.n_donor * cfg.n_GT))
+    use_mt = _env_tristate("VIREO_DEVICE_MT",
+                           n_total >= _MT_STREAM_MIN_DOUBLES)
+    init = _mt_batched_init if use_mt else _host_batched_init
+    return init(cfg, n_init, GT_prior_use, rng, dtype, device,
+                n_cell_draw=n_cell_draw)
 
 
 def _device_batched_init(cfg, n_init, GT_prior_use, generator, dtype,
@@ -269,8 +344,9 @@ def vireo_wrap(AD, DP=None, GT_prior=None, n_donor=None, learn_GT=True,
                 batched = _device_batched_init(cfg, n_init, GT_prior_use,
                                                generator, dtype, device)
             else:
-                batched = _host_batched_init(cfg, n_init, GT_prior_use, rng,
-                                             dtype, device)
+                batched = _seeded_batched_init(cfg, n_init, GT_prior_use,
+                                               rng, dtype, device,
+                                               n_cell_draw=n_cell_in)
             warm = fit_vb(counts, batched, priors, cfg,
                           max_iter=max_iter_init, min_iter=5,
                           delay_fit_theta=delay_fit_theta)

@@ -1,12 +1,16 @@
 """cellSNP and VarTrix readers, donor-VCF matching and the result
-writer (counterpart of vireo_tpu/io/matrices.py, Python paths only).
+writer (counterpart of vireo_tpu/io/matrices.py).
 
-`write_donor_id` keeps the reference's hard-call thresholds
-(prob_max < 0.9 -> unassigned, doublet >= 0.9 -> doublet,
-n_vars < 10 -> unassigned) and every format string.
+The MatrixMarket files, the variants' VCF and the two probability
+tables go through the native library (io/fast.py) when it loads, and
+through the pure-Python paths below otherwise; both give the same
+matrices, metadata and bytes. `write_donor_id` keeps the reference's
+hard-call thresholds (prob_max < 0.9 -> unassigned, doublet >= 0.9 ->
+doublet, n_vars < 10 -> unassigned) and every format string.
 """
 
 import gzip
+from concurrent.futures import ThreadPoolExecutor
 from itertools import combinations
 
 import numpy as np
@@ -18,9 +22,14 @@ __all__ = ["match_donor_VCF", "read_mtx", "read_cellSNP", "read_vartrix",
 
 
 def read_mtx(path):
-    """MatrixMarket reader -> scipy CSC (np.loadtxt over a coordinate
-    body; scipy's reader for every other layout)."""
+    """MatrixMarket reader -> scipy CSC: the native parser when it loads,
+    else np.loadtxt over a coordinate body; scipy's reader for every
+    other layout (which the native parser refuses too)."""
     import scipy.sparse as sp
+    from .fast import read_mtx_fast
+    fast = read_mtx_fast(path)
+    if fast is not None:
+        return fast
     opener = gzip.open if str(path).endswith(".gz") else open
     with opener(path, "rt") as f:
         header = f.readline()
@@ -74,10 +83,18 @@ def match_donor_VCF(cell_dat, donor_vcf):
     return cell_dat, donor_vcf
 
 
+def _load_variants(vcf_file):
+    """A VCF's variant ids and fixed columns, natively when possible."""
+    from .fast import load_variants_fast
+    dat = load_variants_fast(vcf_file)
+    if dat is None:
+        dat = load_VCF(vcf_file, load_sample=False, biallelic_only=False)
+    return dat
+
+
 def read_cellSNP(dir_name, layers=("AD", "DP")):
     """Read a cellSNP output folder (io_utils.py:42-59)."""
-    cell_dat = load_VCF(dir_name + "/cellSNP.base.vcf.gz",
-                        load_sample=False, biallelic_only=False)
+    cell_dat = _load_variants(dir_name + "/cellSNP.base.vcf.gz")
     for _layer in layers:
         cell_dat[_layer] = read_mtx(
             dir_name + "/cellSNP.tag.%s.mtx" % _layer)
@@ -90,7 +107,7 @@ def read_vartrix(alt_mtx, ref_mtx, cell_file, vcf_file=None):
     """Read VarTrix outputs (alt and ref count matrices, barcodes, and
     optionally the variants' VCF); DP = REF + ALT."""
     if vcf_file is not None:
-        cell_dat = load_VCF(vcf_file, load_sample=False, biallelic_only=False)
+        cell_dat = _load_variants(vcf_file)
         cell_dat['variants'] = np.array(cell_dat['variants'])
     else:
         cell_dat = {}
@@ -115,10 +132,23 @@ def _matrix_rows(names, mat, fmt, tail=None):
         yield cells
 
 
+def _write_matrix_gz(path, columns, names, mat, fmt="%.2e"):
+    """A names + formatted-matrix table as gzip (level 4): the native
+    writer's one pass when it loads, else the Python row loop; the
+    decompressed bytes are the same."""
+    from .fast import write_matrix_tsv_fast
+    if write_matrix_tsv_fast(path, columns, names, mat, fmt, gzip_level=4):
+        return
+    with gzip.open(path, "wt", compresslevel=4) as fh:
+        _write_tsv(fh, columns, _matrix_rows(names, mat, fmt))
+
+
 def write_donor_id(out_dir, donor_names, cell_names, n_vars, res_vireo):
     """Write donor_ids.tsv, summary.tsv, prob_singlet.tsv.gz,
     prob_doublet.tsv.gz and _log.txt (io_utils.py:91-170), and
-    prop_ambient.tsv when the result holds ambient fractions."""
+    prop_ambient.tsv when the result holds ambient fractions. The two
+    probability tables are written in threads, beside each other and
+    the other files (the native writer's ctypes call releases the GIL)."""
     singlet_p = res_vireo['ID_prob']
     pair_p = res_vireo['doublet_prob']
 
@@ -136,6 +166,13 @@ def write_donor_id(out_dir, donor_names, cell_names, n_vars, res_vireo):
     with open(out_dir + "/_log.txt", "w") as fh:
         fh.write("logLik: %.3e\n" % (res_vireo['LB_doublet']))
         fh.write("thetas: \n%s\n" % (res_vireo['theta_shapes']))
+
+    pool = ThreadPoolExecutor(2)
+    tables = [pool.submit(_write_matrix_gz, out_dir + "/" + name,
+                          ["cell"] + list(cols), cell_names, mat)
+              for name, cols, mat in (
+                  ("prob_singlet.tsv.gz", donor_names, singlet_p),
+                  ("prob_doublet.tsv.gz", pair_names, pair_p))]
 
     call_levels, call_freq = np.unique(hard_call, return_counts=True)
     with open(out_dir + "/summary.tsv", "w") as fh:
@@ -156,14 +193,9 @@ def write_donor_id(out_dir, donor_names, cell_names, n_vars, res_vireo):
               best_pair[i], "%.3f" % llr[i]]
              for i in range(len(cell_names))))
 
-    with gzip.open(out_dir + "/prob_singlet.tsv.gz", "wt",
-                   compresslevel=4) as fh:
-        _write_tsv(fh, ["cell"] + list(donor_names),
-                   _matrix_rows(cell_names, singlet_p, "%.2e"))
-    with gzip.open(out_dir + "/prob_doublet.tsv.gz", "wt",
-                   compresslevel=4) as fh:
-        _write_tsv(fh, ["cell"] + pair_names,
-                   _matrix_rows(cell_names, pair_p, "%.2e"))
+    for t in tables:
+        t.result()
+    pool.shutdown()
 
     if res_vireo.get('ambient_Psi') is not None:
         ratio = res_vireo['Psi_LLRatio']

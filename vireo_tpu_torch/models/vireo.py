@@ -24,7 +24,8 @@ from ..ops.math import (softmax_from_loglik, kl_categorical, beta_entropy,
 from ..utils.device import resolve_device, default_dtype, numpy_dtype
 
 __all__ = ["VireoConfig", "VireoState", "VireoPriors", "FitResult",
-           "em_step", "fit_vb", "converge", "run_em_iters", "init_state",
+           "em_step", "fit_vb", "converge", "run_em_iters",
+           "run_em_iters_n", "init_state",
            "default_priors", "random_init_arrays", "warn_from_trace",
            "updates_from_stats", "state_from_numpy", "state_to_numpy",
            "priors_from_numpy", "priors_to_numpy", "Vireo"]
@@ -431,6 +432,10 @@ def run_em_iters(counts, state, priors, cfg, n_iters):
         state, _, elbo = em_step(counts, state, priors, cfg,
                                  update_theta=True)
     return state, elbo
+
+
+# the JAX package's other name of the same entry point
+run_em_iters_n = run_em_iters
 
 
 class Vireo:

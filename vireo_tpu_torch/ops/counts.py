@@ -36,9 +36,10 @@ from ..utils.device import resolve_device
 from .math import log_binom_coeff
 from .packed import PACK_MAX, PackedCounts
 
-__all__ = ["DenseCounts", "SparseCounts", "HybridCounts",
-           "counts_from_scipy", "sparse_counts", "hybrid_from_coo",
-           "ladder_rung", "exact_count_dtype", "device_dense_budget"]
+__all__ = ["Counts", "DenseCounts", "SparseCounts", "HybridCounts",
+           "counts_from_scipy", "dense_counts", "sparse_counts",
+           "hybrid_from_coo", "ladder_rung", "exact_count_dtype",
+           "device_dense_budget"]
 
 # bytes of one converted block of count rows
 _CHUNK_BYTES = 1 << 29
@@ -373,6 +374,16 @@ class SparseCounts:
             return 0.0
         return float(torch.maximum(self.ad_r.max(), self.dp_r.max()))
 
+    def pack(self, clip=False):
+        """The triplets scattered straight into PackedCounts (two cells a
+        byte) on this device. Every count must be <= PACK_MAX unless
+        `clip` saturates it there (vireo_tpu/ops/counts.py:280-288)."""
+        return _pack_triplets(self.rows_r.cpu().numpy(),
+                              self.cols_r.cpu().numpy(),
+                              self.ad_r.cpu().numpy(),
+                              self.dp_r.cpu().numpy(), self.shape,
+                              self.device, clip=clip)
+
     def densify(self, dtype=None, check_overflow=True):
         """Dense (n_var, n_cell) DenseCounts scattered on the device.
 
@@ -553,6 +564,9 @@ class HybridCounts:
                                          device=self.device), self.cap)
 
 
+Counts = (DenseCounts, SparseCounts, HybridCounts)
+
+
 def _np_log_binom_coeff(dp, ad, max_val=700.0):
     """Host float64 log C(dp, ad), with ops.math.log_binom_coeff's 700
     clip and 0 where dp == 0."""
@@ -603,6 +617,18 @@ def hybrid_from_coo(coo, cap, kind):
         coo.rows_r.cpu().numpy(), coo.cols_r.cpu().numpy(),
         coo.ad_r.cpu().numpy(), coo.dp_r.cpu().numpy(), coo.shape, cap,
         kind, coo.device)
+
+
+def dense_counts(AD, DP, dtype=torch.float32, device=None):
+    """DenseCounts of numpy or scipy AD/DP in `dtype`, on `device`
+    (default: utils/device.py's)."""
+    device = resolve_device(device)
+
+    def put(X):
+        X = X.toarray() if hasattr(X, "toarray") else np.asarray(X)
+        return torch.as_tensor(X).to(device=device, dtype=dtype)
+
+    return DenseCounts(put(AD), put(DP))
 
 
 def _dense_bytes(shape, vmax):

@@ -11,7 +11,7 @@ import torch
 
 __all__ = ["betaln", "normalize", "loglik_amplify", "softmax_from_loglik",
            "kl_categorical", "beta_entropy", "log_binom_coeff",
-           "digamma_triplet"]
+           "get_binom_coeff", "digamma_triplet"]
 
 
 def _sum_trailing(x, batch_ndim):
@@ -78,6 +78,21 @@ def log_binom_coeff(dp, ad, max_val=700.0):
            - torch.lgamma(dp - ad + 1.0))
     val = torch.clamp(val, max=max_val)
     return torch.where(dp > 0, val, torch.zeros_like(val))
+
+
+def get_binom_coeff(AD, DP, max_val=700, is_log=True):
+    """The reference's `get_binom_coeff` (vireo_base.py:7-22) over dense
+    arrays: the flat float32 array of log C(DP, AD) over the entries with
+    DP > 0, computed in float64 by `log_binom_coeff` on the CPU (as
+    vireo_tpu/ops/math.py:102-115 does; `is_log` is accepted, as there,
+    and the values are always logs)."""
+    import numpy as np
+    AD = np.asarray(AD, dtype=np.float64)
+    DP = np.asarray(DP, dtype=np.float64)
+    idx = DP > 0
+    out = log_binom_coeff(torch.from_numpy(DP[idx]),
+                          torch.from_numpy(AD[idx]), max_val=float(max_val))
+    return out.numpy().astype(np.float32)
 
 
 def digamma_triplet(s1, s2):

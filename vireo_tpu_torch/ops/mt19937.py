@@ -1,0 +1,161 @@
+"""numpy's legacy MT19937 stream regenerated on the device (counterpart of
+vireo_tpu/ops/mt19937.py).
+
+Seeded runs draw their warm-restart inits from numpy's global MT19937
+stream, in the reference's order. Assembled on the host, those draws are
+60.8M doubles for 20 restarts of the 30k x 100k x 16 pool and 152M for
+the CLI's 50, uploaded as a float array. Here the host only plans the
+stream, and the device regenerates it from the generator's states:
+
+- `plan_stream` advances the host generator through exactly the draws
+  it owes (numpy's C loop), capturing its 624-word state every `chunk`
+  doubles. A chunk is a multiple of 312 doubles (one 624-word twist
+  round), so every lane starts at the same offset in its pool, and the
+  host ends where a plain `rng.rand(n_total)` leaves it.
+- `device_stream` runs the lanes side by side: each tempers the rest of
+  its captured pool, then twists and tempers round after round, written
+  into one preallocated (lanes, 624 * c_blocks) word buffer. The twist's
+  in-place dependencies split into four vectorised sub-steps (new[i]
+  needs new[i-227] for i >= 227, and new[0] at i = 623).
+- Word pairs become doubles by numpy's exact transform
+  ``((a >> 5) * 2^26 + (b >> 6)) / 2^53``, in float64 on the CPU and on
+  the card alike: the stream equals `np.random.rand` bit for bit.
+
+The words live in int64 tensors holding values below 2^32: every mask
+of the generator has 32 bits, so no operation leaves that range, and a
+right shift of a non-negative int64 is the unsigned shift the generator
+needs (PyTorch has no unsigned 32-bit shift on the CPU).
+
+`np_pairwise_sum_last` reproduces numpy's pairwise summation order, so
+the per-restart normalisations built from the stream equal the host's
+bit for bit as well.
+"""
+
+import numpy as np
+import torch
+
+from ..utils.device import resolve_device
+
+__all__ = ["plan_stream", "device_stream", "np_pairwise_sum_last"]
+
+_N = 624
+_M = 397
+_UPPER = 0x80000000
+_LOWER = 0x7FFFFFFF
+_MAG = 0x9908B0DF
+
+
+def plan_stream(n_total, rng=None, max_lanes=1024, device=None):
+    """Advance the host generator by exactly `n_total` `rand()` draws,
+    capturing the start state of each lane.
+
+    Returns a dict with `states` ((D, 624) int64 words on `device`,
+    default utils/device.py's), `p0` (the in-pool word offset, the same
+    for every lane), `c_blocks` (twist rounds per lane), `chunk`
+    (doubles per lane) and `n_total`. The host generator then stands
+    where a plain `rng.rand(n_total)` leaves it, so later host draws
+    (refit inits, the ambient phase's Dirichlet, checkpoints' RNG state)
+    follow the same stream.
+    """
+    if rng is None:
+        rng = np.random
+    n_total = int(n_total)
+    assert n_total > 0
+    c_blocks = -(-n_total // (312 * max_lanes))
+    chunk = 312 * c_blocks
+    n_lanes = -(-n_total // chunk)
+
+    states = np.empty((n_lanes, _N), np.uint32)
+    p0 = None
+    for i in range(n_lanes):
+        name, keys, pos, _, _ = rng.get_state()
+        assert name == "MT19937", "legacy MT19937 stream required"
+        states[i] = keys
+        if p0 is None:
+            p0 = int(pos)
+        else:
+            assert int(pos) == p0, "lane offsets diverged"
+        # every lane but the last advances a whole chunk; the device's
+        # surplus past n_total is dropped, so the host ends at n_total
+        todo = chunk if i < n_lanes - 1 else n_total - (n_lanes - 1) * chunk
+        rng.rand(todo)
+    return {"states": torch.from_numpy(states.astype(np.int64)).to(
+                resolve_device(device)),
+            "p0": p0, "c_blocks": c_blocks, "chunk": chunk,
+            "n_total": n_total}
+
+
+def _twist(mt):
+    """One MT19937 twist round over (D, 624) words, vectorised: new[i]
+    reads old mt[i], mt[i+1] (new only at i = 623) and mt[(i+397) % 624],
+    old for i < 227 and new[i-227] after."""
+    def tw(cur, nxt, far):
+        y = (cur & _UPPER) | (nxt & _LOWER)
+        return far ^ (y >> 1) ^ ((y & 1) * _MAG)
+
+    nA = tw(mt[:, 0:227], mt[:, 1:228], mt[:, _M:_N])
+    nB1 = tw(mt[:, 227:454], mt[:, 228:455], nA)
+    nB2 = tw(mt[:, 454:623], mt[:, 455:624], nB1[:, 0:169])
+    nlast = tw(mt[:, 623:624], nA[:, 0:1], nB1[:, 169:170])
+    return torch.cat([nA, nB1, nB2, nlast], dim=1)
+
+
+def _temper(y):
+    y = y ^ (y >> 11)
+    y = y ^ ((y << 7) & 0x9D2C5680)
+    y = y ^ ((y << 15) & 0xEFC60000)
+    return y ^ (y >> 18)
+
+
+def _words(states, p0, c_blocks):
+    """The tempered word stream of each lane: (D, 624 * c_blocks)."""
+    D = states.shape[0]
+    n = _N * c_blocks
+    out = torch.empty((D, n), dtype=torch.int64, device=states.device)
+    head = _N - p0                          # the rest of the captured pool
+    out[:, :head] = _temper(states[:, p0:])
+    mt = states
+    for lo in range(head, n, _N):
+        mt = _twist(mt)
+        m = min(_N, n - lo)
+        out[:, lo:lo + m] = _temper(mt[:, :m])
+    return out
+
+
+def device_stream(plan, dtype=torch.float64):
+    """The `rand()` doubles of `plan` as one (n_total,) tensor on the
+    device of its states. float64 equals numpy's stream bit for bit;
+    float32 forms the same transform in float32, as the JAX package does
+    without x64 (one rounding, deterministic)."""
+    w = _words(plan["states"], plan["p0"], plan["c_blocks"])
+    a = (w[:, 0::2] >> 5).to(dtype)
+    b = (w[:, 1::2] >> 6).to(dtype)
+    del w
+    vals = (a * 67108864.0 + b) / 9007199254740992.0
+    return vals.reshape(-1)[:plan["n_total"]]
+
+
+def np_pairwise_sum_last(x):
+    """Sum over the last axis in numpy's pairwise order for n <= 128
+    (loops_utils.h pairwise_sum): sequential below 8, else 8 accumulators
+    stepped by 8 and combined as ((r0+r1)+(r2+r3))+((r4+r5)+(r6+r7)),
+    then the tail in sequence. Equals `np.sum(x, -1)` bit for bit at the
+    extents the inits use; works on numpy arrays and torch tensors."""
+    K = x.shape[-1]
+    if K < 8:
+        s = x[..., 0]
+        for k in range(1, K):
+            s = s + x[..., k]
+        return s
+    r = [x[..., j] for j in range(8)]
+    i = 8
+    while i + 8 <= K:
+        for j in range(8):
+            r[j] = r[j] + x[..., i + j]
+        i += 8
+    s = (((r[0] + r[1]) + (r[2] + r[3]))
+         + ((r[4] + r[5]) + (r[6] + r[7])))
+    while i < K:
+        s = s + x[..., i]
+        i += 1
+    return s
