@@ -90,7 +90,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    learnt donors' VCF; then the native .tsv.gz writer against the Python
    writer's bytes on this machine), with a donor VCF (-d, -t GT), then
    with --callAmbientRNAs under VIREO_TIMING=1 (prop_ambient.tsv and the
-   per-phase summary); GTbarcode on the in-tree golden, byte for byte.
+   per-phase summary); GTbarcode on the in-tree golden, byte for byte;
+16. `[mesh_nccl]`: this process joins an NCCL world of one rank and runs
+   phase 7's call on a cells mesh (parallel/mesh.py): its ID_prob,
+   LB_list, doublet outputs and every fit's iterations equal phase 7's
+   bit for bit (an all-reduce over one rank is exact); K1's launches,
+   the phases and the peak memory;
+17. `[mesh_cli]`: `python -m torch.distributed.run --standalone
+   --nproc-per-node 2 -m vireo_tpu_torch.cli.vireo_cli -c <phase 12's
+   folder> -N 16 --randSeed 0 --noPlot --nInit 20 --mesh 1x2 --timing`:
+   the two ranks share the card over gloo, on the dense rung, K1 on each
+   rank in the doublet phase (each rank's launches and peak memory from
+   its own log line); singlet accuracy >= MESH_ACC from donor_ids.tsv
+   and >= MESH_AGREE of the singlets called as in phase 7, after label
+   matching; the wall time and rank 0's phases;
+18. `[mesh_packed]`: two ranks spawned here share the card, each reads
+   its half of the folder (`load_cellSNP_sharded`), packs it
+   (MeshPackedCounts) and runs phase 8's call on a 1 x 2 mesh: K2's and
+   K3's launches on each rank equal phase 8's, singlet accuracy >=
+   MESH_ACC and >= MESH_AGREE of the singlets called as in phase 8; then
+   K2 and K3 on rank 0's block against their plain versions with phase
+   4's tolerances;
+19. `[mesh_small]`: `parallel.dryrun.dryrun_multichip` on the card with
+   four ranks, on a 1 x 4 and a 2 x 2 mesh: every rung against one rank.
 
 Before the kernel table it prints the whole command's seconds. The line
 before the last is the kernel table as JSON; the last line is
@@ -281,6 +303,20 @@ SYNTH_THETA_ATOL = 0.005
 # the CLI from disk at full width: the CLI's default --nInit, 152M init
 # doubles through the device stream
 CLI_FULL_N_INIT = 50
+# the mesh phases on the main pool: singlet accuracy, and the share of
+# singlets called as in the single-device run of the same call, after
+# label matching (the ranks sum in another order, and near-tied doublet
+# singlets may turn)
+MESH_ACC = 0.99
+MESH_AGREE = 0.999
+# iterations the packed mesh's refit may stop away from phase 8's: a
+# float32 ELBO near -1.15e7 meets the 0.01 stop test only when two
+# iterations are equal, and the refits of the main pool stopped after 11
+# (dense), 22 (packed) and 12 (packed, 1 x 2 mesh) iterations
+# (PERF.md section 7)
+MESH_REFIT_SLACK = 15
+# seconds the spawned ranks of a mesh phase may take
+MESH_TIMEOUT_S = 600
 
 
 def log(*args):
@@ -663,16 +699,37 @@ def _library_call(torch, name, X, w):
     return lambda: torch.matmul(X.t(), Wcat)
 
 
-def phase_k23(torch):
-    """K2 and K3 against their plain versions at K23_SHAPES."""
-    from vireo_tpu_torch.ops import counts, packed
-    dev = torch.device("cuda")
+def _k23_calls():
+    """(kernel, plain) calls of K2 and K3 on a PackedCounts, by name;
+    each returns a tuple of outputs."""
+    from vireo_tpu_torch.ops import packed
     kern = {"suff_stats": lambda pc, *w: pc.suff_stats(*w),
             "cell_loglik": lambda pc, *w: (pc.cell_loglik(*w),)}
     plain = {"suff_stats": lambda pc, *w: packed.suff_stats_reference(
                  pc.ad_p, pc.dp_p, pc.n_cell, *w),
              "cell_loglik": lambda pc, *w: (packed.cell_loglik_reference(
                  pc.ad_p, pc.dp_p, pc.n_cell, *w),)}
+    return kern, plain
+
+
+def _float_check(torch, name, kern, plain, pc, w):
+    """The kernel on float weights within Higham's bound of its plain
+    version (the tolerance above K2_TERMS_GAIN); its max |error|."""
+    V, C = pc.shape
+    got = kern(pc, *w)
+    ref = plain(pc, *w)
+    mag = plain(pc, *(x.abs() for x in w))
+    sides = (3 * C, C) if name == "suff_stats" else (6 * V, 2 * V)
+    gamma = sum(n * F32_UNIT / (1 - n * F32_UNIT) for n in sides)
+    return max(_bound_check("%s[%d] float" % (name, i), gt, rf, gamma * m)
+               for i, (gt, rf, m) in enumerate(zip(got, ref, mag))), got
+
+
+def phase_k23(torch):
+    """K2 and K3 against their plain versions at K23_SHAPES."""
+    from vireo_tpu_torch.ops import counts, packed
+    dev = torch.device("cuda")
+    kern, plain = _k23_calls()
     results = {}
     pc = X = None
     for label, V, C, N, names in K23_SHAPES:
@@ -713,18 +770,12 @@ def phase_k23(torch):
             log("[k23]   integer weights: equal to the plain version")
             _split_check(torch, name, kern[name], plain[name], pc, N, g, dev)
             w = _k23_weights(torch, name, V, C, N, g, dev, exact=False)
-            got = kern[name](pc, *w)
-            ref = plain[name](pc, *w)
-            mag = plain[name](pc, *(x.abs() for x in w))
-            sides = (3 * C, C) if name == "suff_stats" else (6 * V, 2 * V)
-            gamma = sum(n * F32_UNIT / (1 - n * F32_UNIT) for n in sides)
-            errs = [_bound_check("%s[%d] float" % (name, i), gt, rf,
-                                 gamma * m)
-                    for i, (gt, rf, m) in enumerate(zip(got, ref, mag))]
-            res = dict(max_abs_err=max(errs))
+            err, got = _float_check(torch, name, kern[name], plain[name], pc,
+                                    w)
+            res = dict(max_abs_err=err)
             res["err_vs_f64"] = _term_errors(torch, name, kern[name],
                                              plain[name], pc, w, got)
-            del got, ref, mag
+            del got
             if label != "edge":
                 res.update(_k23_times(torch, name, kern[name],
                                       plain[name], pc, w, X, V, C, N))
@@ -933,13 +984,14 @@ def _write_cellsnp(folder, d):
         f.write("".join("c%06d\n" % c for c in range(d["AD"].shape[1])))
 
 
-def phase_cli_full(torch, d):
+def phase_cli_full(torch, d, cell):
     """`vireo -c DIR -N 16 --randSeed 0 --noPlot` (the default --nInit 50)
-    on the main pool written to local disk, in this process: the native
-    library loaded, the matrices it read equal the pool, the singlet
-    accuracy of donor_ids.tsv after label matching, K1's launches, the
-    phases of its --timing summaries, the disk-to-answer wall time (the
-    CLI's whole call) and the peak device memory."""
+    on the main pool written to local disk at `cell` (kept for the mesh
+    phases), in this process: the native library loaded, the matrices it
+    read equal the pool, the singlet accuracy of donor_ids.tsv after
+    label matching, K1's launches, the phases of its --timing summaries,
+    the disk-to-answer wall time (the CLI's whole call) and the peak
+    device memory."""
     from scipy.optimize import linear_sum_assignment
     from vireo_tpu_torch.cli import vireo_cli
     from vireo_tpu_torch.io import _native, matrices
@@ -957,7 +1009,6 @@ def phase_cli_full(torch, d):
         return read["dat"]
 
     with tempfile.TemporaryDirectory() as tmp:
-        cell = os.path.join(tmp, "cellsnp")
         t0 = time.perf_counter()
         _write_cellsnp(cell, d)
         size = sum(os.path.getsize(os.path.join(cell, f))
@@ -1083,15 +1134,15 @@ def _run_main(torch, d, tag):
     if acc["singlet_accuracy"] < 0.99:
         raise AssertionError("singlet accuracy %.5f < 0.99"
                              % acc["singlet_accuracy"])
-    return res, launches
+    return res, launches, fits
 
 
 def phase_main_path(torch, d):
     """The dense rung: K1 in the doublet phase."""
-    res, launches = _run_main(torch, d, "main")
+    res, launches, fits = _run_main(torch, d, "main")
     if launches["K1"] < 1:
         raise AssertionError("the main path did not launch K1")
-    return res, launches
+    return res, launches, fits
 
 
 @contextlib.contextmanager
@@ -1123,7 +1174,7 @@ def phase_packed_main_path(torch, d, dense_res):
                float(V) * C / 2**30, rung))
         if rung != "packed":
             raise AssertionError("the main pool is not on the packed rung")
-        res, launches = _run_main(torch, d, "packed")
+        res, launches, fits = _run_main(torch, d, "packed")
     if launches["K2"] < 1 or launches["K3"] < 1 or launches["K1"] != 0:
         raise AssertionError("the packed path launched %s; it must launch "
                              "K2 and K3 and not K1" % json.dumps(launches))
@@ -1133,7 +1184,8 @@ def phase_packed_main_path(torch, d, dense_res):
         % (agree, res["LB_doublet"], dense_res["LB_doublet"]))
     if agree < 0.999:
         raise AssertionError("packed and dense calls disagree")
-    return launches
+    return launches, dict(ID_prob=res["ID_prob"], LB_list=res["LB_list"],
+                          fits=fits)
 
 
 def phase_profile(torch, d):
@@ -1997,6 +2049,277 @@ def phase_cli():
         raise AssertionError("GTbarcode does not reproduce the golden")
 
 
+def _main_record(res, fits):
+    """What the mesh phases compare with from a main-path run."""
+    rec = {k: res[k] for k in ("ID_prob", "LB_list", "doublet_prob",
+                               "doublet_LLR", "GT_prob")}
+    rec["fits"] = fits
+    return rec
+
+
+def phase_mesh_nccl(torch, d, main7):
+    """Phase 7's call on a cells mesh of this one process, in an NCCL
+    world of one rank: every output and fit equal to phase 7's bit for
+    bit, K1 launched; the process group is destroyed after."""
+    import torch.distributed as dist
+    from vireo_tpu_torch.engine.wrap import vireo_wrap
+    from vireo_tpu_torch.parallel.mesh import (initialize_distributed,
+                                               make_mesh)
+    initialize_distributed(num_processes=1, process_id=0,
+                           store=dist.HashStore())
+    try:
+        mesh = make_mesh()
+        log("[mesh_nccl] %r" % mesh)
+        if mesh.backend != "nccl":
+            raise AssertionError("a world of one rank on a card must use "
+                                 "NCCL, got %s" % mesh.backend)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        phases, fits = {}, []
+        _reset_launches()
+        t0 = time.perf_counter()
+        with _fit_lengths(fits):
+            res = vireo_wrap(d["AD"], d["DP"], n_donor=MAIN["n_donor"],
+                             n_init=MAIN["n_init"], random_seed=0,
+                             check_doublet=True, verbose=False,
+                             timing=phases, mesh=mesh)
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        dist.destroy_process_group()
+    for name, sec in phases.items():
+        log("[mesh_nccl] phase %-15s %.3f s" % (name, sec))
+    _log_fit_lengths("[mesh_nccl]", fits)
+    same = {k: bool(np.array_equal(res[k], main7[k]))
+            for k in ("ID_prob", "LB_list", "doublet_prob", "doublet_LLR",
+                      "GT_prob")}
+    same["fit iterations"] = fits == main7["fits"]
+    log("[mesh_nccl] vireo_wrap wall %.3f s, peak device memory %.3f GiB, "
+        "launches %s; equal to phase 7 bit for bit: %s"
+        % (wall, peak / 2**30, json.dumps(launches), json.dumps(same)))
+    if not all(same.values()) or launches["K1"] < 1:
+        raise AssertionError("the one-rank NCCL mesh run differs from the "
+                             "run without a mesh")
+    return launches
+
+
+def _run_group(cmd, env, timeout):
+    """Run `cmd` in a process group of its own; on timeout the whole
+    group (the launcher and its ranks) is killed."""
+    import signal
+    proc = subprocess.Popen(cmd, env=env, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    return proc.returncode, out, err
+
+
+def _singlet_calls(d, best, want):
+    """(singlet accuracy against the truth, agreement with the calls
+    `want` (n_cell,)), each after label matching, over true singlets."""
+    from scipy.optimize import linear_sum_assignment
+    K = MAIN["n_donor"]
+    singlet = d["donor2"] < 0
+    hits = np.zeros((K, K))
+    np.add.at(hits, (d["donor"][singlet], best[singlet]), 1)
+    ti, pi = linear_sum_assignment(-hits)
+    acc = hits[ti, pi].sum() / singlet.sum()
+    return acc, _matched_agreement(np.eye(K)[best[singlet]],
+                                   np.eye(K)[want[singlet]])
+
+
+def phase_mesh_cli(d, cell, main7):
+    """The CLI on two ranks sharing the card (gloo), launched by
+    torch.distributed.run on phase 12's folder with phase 7's call."""
+    K, C = MAIN["n_donor"], MAIN["n_cell"]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "out")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "2", "-m", "vireo_tpu_torch.cli.vireo_cli",
+               "-c", cell, "-N", str(K), "--randSeed", "0", "--noPlot",
+               "--nInit", str(MAIN["n_init"]), "--mesh", "1x2", "--timing",
+               "-o", out]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [REPO] + [x for x in [os.environ.get("PYTHONPATH")] if x]))
+        log("[mesh_cli] %s" % " ".join(cmd[1:]))
+        t0 = time.perf_counter()
+        rc, text, err = _run_group(cmd, env, MESH_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError("the 2-rank CLI exited with %d:\n%s\n%s"
+                                 % (rc, text[-3000:], err[-3000:]))
+        with open(os.path.join(out, "donor_ids.tsv")) as f:
+            rows = [x.split("\t") for x in f.read().splitlines()[1:]]
+    for line in text.splitlines():
+        if line.startswith(("[vireo] torch.distributed", "[vireo] rank ",
+                            "[vireo] counts sharded")):
+            log("[mesh_cli] %s" % line)
+    for summary in _timing_summaries(text, seconds=True):
+        for name, sec in summary.items():
+            log("[mesh_cli] rank 0 phase %-15s %.2f s" % (name, sec))
+    ranks = re.findall(r"\[vireo\] rank (\d+) of 2: peak device memory "
+                       r"(\S+) GiB, kernel launches K1 (\d+) K2 (\d+) K3 "
+                       r"(\d+)", text)
+    best = np.array([int(r[5][len("donor"):]) for r in rows])
+    acc, agree = _singlet_calls(d, best, np.argmax(main7["ID_prob"], 1))
+    log("[mesh_cli] wall %.3f s (two ranks, launch to exit); %d rows, "
+        "singlet accuracy %.5f, singlets called as in phase 7 %.5f"
+        % (wall, len(rows), acc, agree))
+    if len(rows) != C or acc < MESH_ACC or agree < MESH_AGREE \
+            or len(ranks) != 2 or any(int(r[2]) < 1 for r in ranks):
+        raise AssertionError("the 2-rank CLI run is wrong (per rank peak "
+                             "GiB and K1, K2, K3 launches: %s)" % (ranks,))
+
+
+def _k23_block_check(torch, pc, N, seed):
+    """K2 and K3 on a rank's PackedCounts block against their plain
+    versions, with phase 4's tolerances: exactly on integer weights,
+    within Higham's bound on float weights."""
+    kern, plain = _k23_calls()
+    g = torch.Generator(device=pc.device)
+    g.manual_seed(seed)
+    V, C = pc.shape
+    errs = {}
+    for name in ("suff_stats", "cell_loglik"):
+        w = _k23_weights(torch, name, V, C, N, g, pc.device, exact=True)
+        for gt, rf in zip(kern[name](pc, *w), plain[name](pc, *w)):
+            if not torch.equal(gt, rf):
+                raise AssertionError("%s on a rank's block differs from its "
+                                     "plain version on integer weights"
+                                     % name)
+        w = _k23_weights(torch, name, V, C, N, g, pc.device, exact=False)
+        errs[name] = _float_check(torch, name, kern[name], plain[name], pc,
+                                  w)[0]
+    return errs
+
+
+def _rank_mesh_packed(mesh, folder, n_donor, n_init):
+    """A rank of `[mesh_packed]` (run by parallel.launch): its half of the
+    folder, packed, through phase 8's call; the launches of K2 and K3 in
+    that call; then, on rank 0, the block check of K2 and K3."""
+    import torch
+    from vireo_tpu_torch.engine.wrap import vireo_wrap
+    from vireo_tpu_torch.ops.packed import pack_scipy_sharded
+    from vireo_tpu_torch.parallel.loader import load_cellSNP_sharded
+    from vireo_tpu_torch.utils.device import pin_matmul_precision, sync
+    pin_matmul_precision()
+    on_card = mesh.device.type == "cuda"
+    t0 = time.perf_counter()
+    dat, meta = load_cellSNP_sharded(folder)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts = pack_scipy_sharded(dat["AD"], dat["DP"], mesh, cell_range=meta)
+    sync(mesh.device)
+    pack_s = time.perf_counter() - t0
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    phases, fits = {}, []
+    _reset_launches()
+    t0 = time.perf_counter()
+    with _fit_lengths(fits):
+        res = vireo_wrap(counts, n_donor=n_donor, n_init=n_init,
+                         random_seed=0, check_doublet=True, verbose=False,
+                         timing=phases, mesh=mesh)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    rec = dict(meta=meta, read_s=read_s, pack_s=pack_s, phases=phases,
+               fits=fits, wall=wall, launches=launches,
+               peak=torch.cuda.max_memory_allocated() if on_card
+               else float("nan"), backend=mesh.backend,
+               block=tuple(counts.local.shape))
+    if mesh.is_root:
+        rec.update(ID_prob=res["ID_prob"], doublet_prob=res["doublet_prob"],
+                   LB_list=res["LB_list"], LB_doublet=float(res["LB_doublet"]))
+        rec["k23"] = _k23_block_check(torch, counts.local,
+                                      N=n_init * n_donor, seed=7)
+    return rec
+
+
+def phase_mesh_packed(d, cell, packed_launches, packed8):
+    """Two spawned ranks share the card: each reads its half of the
+    folder, packs it and runs phase 8's call on a 1 x 2 mesh."""
+    from vireo_tpu_torch.parallel.launch import run_ranks, MeshArg
+    V, C = MAIN["n_var"], MAIN["n_cell"]
+    log("[mesh_packed] a rank's budget counts twice on a 1 x 2 mesh (the "
+        "cell extent): the ladder would need VIREO_DENSE_BUDGET_GB=2 (4 GiB "
+        "for the two ranks: int8 needs %.1f GiB, packed %.1f GiB) to reach "
+        "this rung; here each rank packs its half itself"
+        % (2.0 * V * C / 2**30, float(V) * C / 2**30))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        recs = run_ranks("chip_smoke:_rank_mesh_packed", 2,
+                         kwargs=dict(mesh=MeshArg((1, 2)), folder=cell,
+                                     n_donor=MAIN["n_donor"],
+                                     n_init=MAIN["n_init"]),
+                         workdir=tmp, device="cuda", timeout=MESH_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+    for rank, rec in enumerate(recs):
+        log("[mesh_packed] rank %d (%s): cells %s, block %s, read %.2f s, "
+            "packed %.2f s; vireo_wrap wall %.3f s, peak %.3f GiB, launches "
+            "%s; phases %s" % (rank, rec["backend"], rec["meta"][:2],
+                               rec["block"], rec["read_s"], rec["pack_s"],
+                               rec["wall"], rec["peak"] / 2**30,
+                               json.dumps(rec["launches"]),
+                               json.dumps({k: round(v, 3) for k, v in
+                                           rec["phases"].items()})))
+    _log_fit_lengths("[mesh_packed]", recs[0]["fits"])
+    root = recs[0]
+    acc = _singlet_accuracy(d, root["ID_prob"], root["doublet_prob"])
+    _, agree = _singlet_calls(d, np.argmax(root["ID_prob"], 1),
+                              np.argmax(packed8["ID_prob"], 1))
+    log("[mesh_packed] spawn to results %.1f s; %s; singlets called as in "
+        "phase 8 %.5f; phase 8's launches %s; K2/K3 on rank 0's block "
+        "against their plain versions: integer weights equal, float max "
+        "|err| %s" % (wall, json.dumps(acc), agree,
+                      json.dumps(packed_launches), json.dumps(root["k23"])))
+    # K2 runs once an iteration of the longest warm restart and of the
+    # refit, and once in the doublet phase's GT refresh; K3 also computes
+    # the doublet phase's loglik. Against phase 8: the warm phase's
+    # launches equal phase 8's less its refit's and doublet phase's; the
+    # refit may stop up to MESH_REFIT_SLACK iterations away from phase
+    # 8's, since each rank's float32 sums round apart from one device's;
+    # the best warm ELBO is phase 8's to SCALAR_RTOL.
+    fits, fits8 = root["fits"], packed8["fits"]
+    refit, refit8 = (sum(f[0] for f in x[1:]) for x in (fits, fits8))
+    want = max(fits[0]) + refit + 1
+    counted = all(rec["launches"] == {"K1": 0, "K2": want, "K3": want + 1}
+                  and rec["fits"] == fits for rec in recs)
+    warm8 = packed_launches["K2"] - refit8 - 1
+    lb, lb8 = float(np.max(root["LB_list"])), float(np.max(packed8["LB_list"]))
+    lb_rel = abs(lb - lb8) / abs(lb8)
+    log("[mesh_packed] launches on each rank %s: the longest warm restart "
+        "and the refit plus the doublet phase's, %s; warm launches %d, "
+        "phase 8's %d (of %s); refit %d iterations, phase 8's %d (slack %d);"
+        " best warm ELBO %.6e, phase 8's %.6e (rel %.2e)"
+        % (json.dumps(root["launches"]), "as counted" if counted
+           else "NOT as counted", max(fits[0]), warm8,
+           json.dumps(packed_launches), refit, refit8, MESH_REFIT_SLACK,
+           lb, lb8, lb_rel))
+    if not counted or max(fits[0]) != warm8 \
+            or abs(refit - refit8) > MESH_REFIT_SLACK \
+            or lb_rel > SCALAR_RTOL or acc["singlet_accuracy"] < MESH_ACC \
+            or agree < MESH_AGREE:
+        raise AssertionError("the packed mesh run is wrong")
+
+
+def phase_mesh_small():
+    """The dry run on four ranks sharing the card, on both meshes."""
+    from vireo_tpu_torch.parallel.dryrun import dryrun_multichip, DRYRUN_ITERS
+    for shape in ((1, 4), (2, 2)):
+        t0 = time.perf_counter()
+        dryrun_multichip(4, shape, device="cuda", timeout=MESH_TIMEOUT_S)
+        log("[mesh_small] %dx%d: every rung passed in %.1f s (%d fixed "
+            "iterations)" % (shape + (time.perf_counter() - t0,
+                                      DRYRUN_ITERS)))
+
+
 def _timing_summaries(text, seconds=False):
     """The phase names of each `[vireo] timing:` summary in `text` (with
     `seconds`, a dict of each phase's seconds), its lines checked against
@@ -2037,8 +2360,9 @@ def main():
     phase_mt(torch)
     d = _main_pool()
     phase_synth(torch, d)
-    dense_res, dense_launches = phase_main_path(torch, d)
-    packed_launches = phase_packed_main_path(torch, d, dense_res)
+    dense_res, dense_launches, dense_fits = phase_main_path(torch, d)
+    main7 = _main_record(dense_res, dense_fits)
+    packed_launches, packed8 = phase_packed_main_path(torch, d, dense_res)
     phase_profile(torch, d)
     from vireo_tpu_torch.ops.counts import counts_from_scipy
     counts = counts_from_scipy(d["AD"], d["DP"], device=torch.device("cuda"))
@@ -2050,8 +2374,14 @@ def main():
     del dense_known
     phase_bmm_full(torch, packed, d)
     del packed
-    phase_cli_full(torch, d)
-    del d
+    with tempfile.TemporaryDirectory() as work:
+        cell = os.path.join(work, "cellsnp")
+        phase_cli_full(torch, d, cell)
+        phase_mesh_nccl(torch, d, main7)
+        phase_mesh_cli(d, cell, main7)
+        phase_mesh_packed(d, cell, packed_launches, packed8)
+    del d, main7, packed8
+    phase_mesh_small()
     phase_small_cross_check(torch)
     phase_small_branches(torch)
     phase_small_rungs(torch)

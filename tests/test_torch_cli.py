@@ -296,13 +296,22 @@ def _compare_gt_vcf(t_path, j_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mesh", "2x4"], "multi-GPU"),
+    (["--mesh", "2x4"], (2, 4)),
 ])
 def test_cli_unported_flags_exit_naming_roadmap(tmp_path, flags, item):
+    """`--mesh VxC`, refused before the multi-GPU slice, parses to the
+    2-D mesh's shape; one process cannot hold its 8 ranks, so the CLI
+    exits naming the launcher (tests/test_torch_mesh_cli.py runs it on
+    two ranks)."""
+    options = tcli.build_parser().parse_args(["-c", str(tmp_path)] + flags)
+    assert tcli._resolve_cli_mesh(options.mesh) == item
+    assert tcli._resolve_cli_mesh("auto") == "auto"
+    assert tcli._resolve_cli_mesh("off") is None
     with pytest.raises(SystemExit) as exc:
         tcli.main(["-c", str(tmp_path), "-N", "2", "-o",
                    str(tmp_path / "out")] + flags)
-    assert "ROADMAP.md" in str(exc.value) and item in str(exc.value)
+    assert "needs 8 ranks" in str(exc.value)
+    assert "torch.distributed.run" in str(exc.value)
 
 
 @pytest.mark.parametrize("case", ["no_variants", "no_tag", "no_match"])

@@ -404,10 +404,18 @@ def test_host_batched_init_stream_matches_jax():
                                           np.asarray(getattr(j, f)))
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    (dict(mesh="2x2"), "multi-GPU"),
+@pytest.mark.parametrize("kwargs,shape", [
+    (dict(mesh="2x2"), {"vars": 2, "cells": 2}),
 ])
-def test_unported_arguments_raise(pool, kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
-        twrap.vireo_wrap(pool["AD"], pool["DP"], n_donor=3, device="cpu",
-                         **kwargs)
+def test_unported_arguments_raise(pool, tmp_path, monkeypatch, kwargs,
+                                  shape):
+    """mesh="VxC", refused before the multi-GPU slice, resolves the 2-D
+    mesh on four ranks (every rank alike); tests/test_torch_mesh_wrap.py
+    runs vireo_wrap on such meshes."""
+    from vireo_tpu_torch.parallel.launch import run_ranks
+    monkeypatch.setenv("VIREO_PLATFORM", "cpu")
+    out = run_ranks("vireo_tpu_torch.engine.wrap:_resolve_mesh", 4,
+                    args=(kwargs["mesh"], pool["AD"].shape[1]),
+                    workdir=str(tmp_path), timeout=120)
+    assert [o["shape"] for o in out] == [shape] * 4
+    assert [o["coords"]["vars"] for o in out] == [0, 0, 1, 1]

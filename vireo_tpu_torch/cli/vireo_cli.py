@@ -8,15 +8,25 @@ summary.tsv, prob_singlet.tsv.gz, prob_doublet.tsv.gz, _log.txt,
 GT_donors.vireo.vcf.gz; prop_ambient.tsv with --callAmbientRNAs; the
 genotype-distance figures unless --noPlot). Where matplotlib is not
 installed the figures are skipped with a one-line note and the run ends
-as usual. A device mesh is not ported yet: `--mesh VxC` exits with an
-error naming its ROADMAP.md item. --timing or VIREO_TIMING=1 prints the
-per-phase summary of vireo_wrap and of the writers.
+as usual. --timing or VIREO_TIMING=1 prints the per-phase summary of
+vireo_wrap and of the writers.
 
     python -m vireo_tpu_torch.cli.vireo_cli -c CELLSNP_DIR -N K -o OUT
     python -m vireo_tpu_torch.cli.vireo_cli -c CELLSNP_DIR -d donors.vcf.gz \
         -t GT -o OUT
+
+On several GPUs (or CPU ranks), one process per rank, launched by
+torch.distributed.run; `--mesh VxC` splits the variants V ways and the
+cells C ways (V x C ranks), `auto` the cells over every rank of a large
+pool (parallel/mesh.py). Every rank reads the input; rank 0 prints and
+writes every file, and each rank prints its peak device memory and its
+kernels' launches.
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m vireo_tpu_torch.cli.vireo_cli -c CELLSNP_DIR -N K -o OUT --mesh 1x2
 """
 
+import contextlib
 import os
 import sys
 import time
@@ -26,11 +36,6 @@ import numpy as np
 
 from ..version import __version__
 from ..utils.timing import PhaseTimer, timing_env
-
-# flag -> (is it set?, ROADMAP.md queue-1 item that ports it)
-_NOT_PORTED = (
-    ("--mesh VxC", lambda o: "x" in (o.mesh or "").lower(), "multi-GPU"),
-)
 
 
 def build_parser():
@@ -108,9 +113,19 @@ def build_parser():
                         help="Print a per-phase timing summary "
                              "(also VIREO_TIMING=1)")
     parser.add_argument("--mesh", dest="mesh", default="auto",
-                        help="'auto' or 'off' (one device); a 'VxC' mesh "
-                             "is not ported yet [default: %(default)s]")
+                        help="Device mesh of the ranks launched by "
+                             "torch.distributed.run: 'auto' (the cells "
+                             "over every rank for big pools), 'off', or "
+                             "'VxC' for a vars-x-cells mesh, e.g. '2x4' "
+                             "[default: %(default)s]")
     return parser
+
+
+def _resolve_cli_mesh(spec):
+    """--mesh auto|off|VxC -> the vireo_wrap mesh argument: "auto", None
+    or (V, C) (vireo_tpu/cli/vireo_cli.py:116-125)."""
+    from ..engine.wrap import parse_mesh_spec
+    return parse_mesh_spec(spec or "auto")
 
 
 def _load_cells(options):
@@ -182,12 +197,49 @@ def main(argv=None):
         print("use -h or --help for help on argument.")
         sys.exit(1)
     options = build_parser().parse_args(argv)
+    try:
+        mesh = _resolve_cli_mesh(options.mesh)
+    except ValueError as e:
+        sys.exit("Error: --mesh: %s" % e)
 
-    for flag, is_set, item in _NOT_PORTED:
-        if is_set(options):
-            sys.exit("Error: %s is not supported by the PyTorch port yet "
-                     "(ROADMAP.md, queue 1: %s)." % (flag, item))
+    import torch
+    import torch.distributed as dist
+    from ..parallel.mesh import initialize_distributed
+    started = not dist.is_initialized() and initialize_distributed()
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if isinstance(mesh, tuple) and mesh[0] * mesh[1] != world:
+        sys.exit("Error: --mesh %dx%d needs %d ranks, this run has %d: "
+                 "launch it with python -m torch.distributed.run "
+                 "--nproc-per-node %d -m vireo_tpu_torch.cli.vireo_cli ..."
+                 % (mesh[0], mesh[1], mesh[0] * mesh[1], world,
+                    mesh[0] * mesh[1]))
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    # rank 0 prints and writes; the others run silent
+    quiet = open(os.devnull, "w") if rank else None
+    try:
+        with contextlib.redirect_stdout(quiet) if quiet else \
+                contextlib.nullcontext():
+            _run(options, start_time, mesh, rank == 0)
+        if world > 1:
+            from ..ops import fused_em, packed
+            dev = torch.cuda.current_device() \
+                if torch.cuda.is_initialized() else None
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30 \
+                if dev is not None else float("nan")
+            print("[vireo] rank %d of %d: peak device memory %.3f GiB, "
+                  "kernel launches K1 %d K2 %d K3 %d"
+                  % (rank, world, peak, fused_em.LAUNCHES,
+                     packed.LAUNCHES["suff_stats"],
+                     packed.LAUNCHES["cell_loglik"]), flush=True)
+    finally:
+        if quiet:
+            quiet.close()
+        if started:
+            dist.destroy_process_group()
 
+
+def _run(options, start_time, mesh, root):
+    """The run after the arguments: every rank computes, `root` writes."""
     from ..engine.wrap import vireo_wrap
     from ..io.matrices import write_donor_id
     from ..io.vcf import write_VCF, GenoINFO_maker
@@ -203,7 +255,8 @@ def main(argv=None):
         out_dir = "./" + options.out_dir
     else:
         out_dir = options.out_dir
-    os.makedirs(out_dir, exist_ok=True)
+    if root:
+        os.makedirs(out_dir, exist_ok=True)
 
     if options.cell_data is None and options.vartrix_data is None:
         print("Error: need cell data in vcf file, or cellSNP output "
@@ -268,7 +321,9 @@ def main(argv=None):
         ASE_mode=options.ASE_mode, check_ambient=options.check_ambient,
         ambient_min_gain=options.ambient_min_gain, nproc=options.nproc,
         checkpoint_dir=options.checkpoint_dir,
-        timing=options.timing or None)
+        timing=options.timing or None, mesh=mesh)
+    if not root:
+        return
 
     # the writers' phases, printed under the same knob as vireo_wrap's
     tail_timer = PhaseTimer()

@@ -1,5 +1,5 @@
-"""Multi-initialization orchestrator for the Vireo model, on one device
-(counterpart of vireo_tpu/engine/wrap.py).
+"""Multi-initialization orchestrator for the Vireo model (counterpart
+of vireo_tpu/engine/wrap.py).
 
 The n_init random restarts run as one batched fit: the restart axis is
 folded into the matmul's column dimension (R*K columns), each restart
@@ -9,20 +9,34 @@ inits from numpy's global stream in the reference's order, on the host
 or, for streams of 2^23 doubles or more, regenerated on the device
 (ops/mt19937.py; VIREO_DEVICE_MT=1/0 forces a path); unseeded runs draw
 them on the device from a torch.Generator.
+
+On a mesh (parallel/mesh.py; one process per rank under
+torch.distributed) every rank calls `vireo_wrap` with the same
+arguments. The counts are placed a block per rank, the cells padded to
+a multiple of the cell shards with zero-count cells; every rank draws
+the whole init stream at the true cell count and keeps its block, so
+numpy's stream stays the single-process one; each fit all-reduces its
+statistics; and every rank returns the single-process result dict, its
+cell-axis arrays gathered and the padding dropped.
 """
 
 import functools
 import os
+import warnings
 
 import numpy as np
 import torch
 
-from ..ops.counts import counts_from_scipy
+from ..ops.counts import (counts_from_scipy, exact_count_dtype,
+                          device_dense_budget, DenseCounts, HybridCounts)
 from ..models.vireo import (Vireo, VireoConfig, VireoState, default_priors,
                             fit_vb)
 from ..models.doublet import predict_doublet
 from ..models.ambient import predict_ambient
 from ..ops.matching import optimal_match, donor_select
+from ..parallel.mesh import (Mesh, Layout, ShardedCounts, VAR_AXIS,
+                             make_mesh, make_mesh2d, n_cell_shards,
+                             shard_state, gather_state, world_size, world_min)
 from ..utils import checkpoint as ckpt
 from ..utils.timing import PhaseTimer, profile_trace, timing_env
 from ..utils.device import (resolve_device, default_dtype,
@@ -31,10 +45,156 @@ from ..utils.device import (resolve_device, default_dtype,
 __all__ = ["vireo_wrap"]
 
 
-def _not_ported(what, item):
-    return NotImplementedError(
-        "%s is not supported by the PyTorch port yet (ROADMAP.md, queue 1: "
-        "%s)" % (what, item))
+def parse_mesh_spec(spec):
+    """A mesh argument as text: "auto", "off" (or "none", "no", "0") ->
+    None, "VxC" -> (V, C)."""
+    spec = str(spec).strip().lower()
+    if spec == "auto":
+        return "auto"
+    if spec in ("off", "none", "no", "0"):
+        return None
+    try:
+        nv, nc = (int(x) for x in spec.split("x"))
+    except ValueError:
+        raise ValueError("a mesh is 'auto', 'off' or 'VxC' (e.g. 2x4), not "
+                         "%r" % spec) from None
+    return nv, nc
+
+
+def _resolve_mesh(mesh, n_cell, count_bytes=None, var_state_bytes=None,
+                  verbose=False):
+    """The run's mesh (vireo_tpu/engine/wrap.py:39-87): None or a Mesh
+    pass through, "VxC" (or (V, C)) builds that vars x cells mesh, and
+    "auto" splits the cells over every rank of the world when the pool
+    is big enough to pay for the collectives (VIREO_MESH=off disables,
+    VIREO_MESH_MIN_CELLS sets the threshold, VIREO_MESH_SHAPE="VxC"
+    forces a 2-D mesh). With no process group, or a world of one rank,
+    "auto" gives no mesh.
+
+    Given the size hints, "auto" elects the 2-D mesh itself: a cells
+    mesh keeps every variant-axis array whole on each rank (the warm
+    genotype batch above all), so when a rank's count block plus that
+    state exceeds the device budget but splitting the variants `a` ways
+    fits, the smallest power of two `a` that fits wins. The budget is
+    the smallest rank's, so that every rank elects alike."""
+    if mesh is None or isinstance(mesh, Mesh):
+        return mesh
+    spec = mesh if isinstance(mesh, tuple) else parse_mesh_spec(mesh)
+    if spec is None:
+        return None
+    if spec != "auto":
+        return make_mesh2d(*spec)
+    if os.environ.get("VIREO_MESH", "auto").lower() in ("0", "off", "no"):
+        return None
+    min_cells = int(os.environ.get("VIREO_MESH_MIN_CELLS", 8192))
+    n_dev = world_size()
+    if n_cell < min_cells or n_dev <= 1:
+        return None
+    shape = os.environ.get("VIREO_MESH_SHAPE", "")
+    if shape:
+        return make_mesh2d(*parse_mesh_spec(shape))
+    if var_state_bytes:
+        budget = world_min(device_dense_budget())
+        per_chip = (count_bytes or 0) / n_dev
+        if per_chip + var_state_bytes > budget:
+            a = 2
+            while a <= n_dev // 2:
+                if n_dev % a == 0 and \
+                        per_chip + var_state_bytes / a <= budget:
+                    mesh = make_mesh2d(a, n_dev // a)
+                    if verbose and mesh.is_root:
+                        print("[vireo] replicated variant-axis state "
+                              "(%.2f GiB) busts the per-chip budget on a "
+                              "1-D cells mesh; using a %dx%d vars-x-cells "
+                              "capacity mesh" % (var_state_bytes / 2**30, a,
+                                                 n_dev // a))
+                    return mesh
+                a *= 2
+    return make_mesh()
+
+
+def _auto_mesh_hints(AD, DP, n_donor, GT_prior, n_extra_donor, n_init,
+                     n_GT, dtype):
+    """(count_bytes, var_state_bytes) for the 2-D election of
+    `_resolve_mesh` (vireo_tpu/engine/wrap.py:90-127); (None, None) for
+    a counts object, which is placed already.
+
+    count_bytes: both dense matrices in the ladder's exact type.
+    var_state_bytes: the variant-axis arrays a cells mesh keeps whole on
+    each rank, the warm genotype batch (n_init, n_var, K, G) and the
+    fit's and the doublet phase's copies, K widened to a wider genotype
+    prior's donors as the wrap widens the fit."""
+    if hasattr(AD, "suff_stats"):
+        return None, None
+    n_var, n_cell = (int(s) for s in AD.shape)
+    vmax = 0.0
+    for X in (AD, DP):
+        data = X.data if hasattr(X, "data") else np.asarray(X)
+        if getattr(data, "size", 0):
+            vmax = max(vmax, float(data.max()))
+    itemsize = torch.empty((), dtype=exact_count_dtype(vmax)).element_size()
+    count_bytes = 2.0 * n_var * n_cell * itemsize
+    K = int(n_donor) if n_donor is not None else (
+        int(GT_prior.shape[1]) if GT_prior is not None else 8)
+    K += int(n_extra_donor or 0)
+    if GT_prior is not None:
+        K = max(K, int(GT_prior.shape[1]))
+    size = torch.empty((), dtype=dtype).element_size()
+    return count_bytes, (int(n_init) + 2) * n_var * K * n_GT * size
+
+
+def _pad_cells(X, n_pad):
+    """`n_pad` zero-count cells (columns) appended to a scipy/numpy count
+    matrix."""
+    import scipy.sparse as sp
+    if sp.issparse(X):
+        pad = sp.csc_matrix((X.shape[0], n_pad), dtype=X.dtype)
+        return sp.hstack([X.tocsc(), pad]).tocsc()
+    return np.pad(np.asarray(X), ((0, 0), (0, n_pad)))
+
+
+def _mesh_native(counts):
+    """Counts placed on a mesh already (ShardedCounts, MeshPackedCounts)."""
+    return isinstance(counts, ShardedCounts)
+
+
+def _as_counts(AD, DP, device, mesh=None, verbose=False):
+    """(counts, the mesh they are placed on or None). Host matrices go
+    through the ladder, on the mesh where there is one. A counts object
+    on a mesh keeps its own. A DenseCounts, or a HybridCounts over one,
+    built on one device is cut into the mesh's blocks when its cells
+    divide into the cell shards; any other is refused by a warning and
+    the run goes on unsharded (vireo_tpu/engine/wrap.py:148-194)."""
+    if not hasattr(AD, "suff_stats"):
+        return counts_from_scipy(AD, DP, device=device, verbose=verbose,
+                                 mesh=mesh), mesh
+    counts = AD
+    if _mesh_native(counts):
+        if mesh is not None and counts.mesh.shape != mesh.shape:
+            raise ValueError("the counts lie on mesh %s, the run asks for "
+                             "%s" % (counts.mesh.shape, mesh.shape))
+        return counts, counts.mesh
+    if mesh is None:
+        return counts, None
+    dense_base = isinstance(counts, DenseCounts) or (
+        isinstance(counts, HybridCounts)
+        and isinstance(counts.base, DenseCounts))
+    if dense_base and counts.n_cell % n_cell_shards(mesh) == 0:
+        lay = Layout.even(mesh, (counts.n_var, counts.n_cell))
+        local = counts.cell_slice(*lay.cells)
+        if mesh.has(VAR_AXIS):
+            local = local.var_subset(np.arange(*lay.vars))
+        if isinstance(local, DenseCounts):
+            local = DenseCounts(local.ad.contiguous(), local.dp.contiguous())
+        return ShardedCounts(local, lay), mesh
+    warnings.warn(
+        "[vireo] pre-built %s counts (n_cell=%d) could not be placed on "
+        "the mesh (cell axis not divisible by its %d shards, or layout "
+        "has no mesh path); the run proceeds UNSHARDED on every rank. Pad "
+        "the cell axis to a multiple of the shard count, or pass raw "
+        "scipy/numpy matrices so vireo_wrap pads for you."
+        % (type(counts).__name__, counts.n_cell, n_cell_shards(mesh)))
+    return counts, None
 
 
 def _batched_beta(cfg, n_init, dtype, device):
@@ -171,26 +331,38 @@ def _device_batched_init(cfg, n_init, GT_prior_use, generator, dtype,
 
 
 def _model_from_state(counts, cfg_kwargs, n_donor, learn_GT, state,
-                      GT_prior_use, dtype, device, device_state=False):
+                      GT_prior_use, dtype, device, device_state=False,
+                      layout=None):
     """A Vireo wrapper seeded with an existing state (no RNG draws).
 
     Seeded runs go through the host, renormalising in float64 as the
-    JAX package does (vireo_tpu/engine/wrap.py:425-432);
-    `device_state=True` adopts the state's tensors as they are."""
+    JAX package does (vireo_tpu/engine/wrap.py:425-432), from the global
+    state on a mesh; `device_state=True` adopts the state's tensors (a
+    rank's block on a mesh) as they are."""
+    common = dict(n_cell=counts.n_cell, n_var=counts.n_var, n_donor=n_donor,
+                  learn_GT=learn_GT, dtype=dtype, device=device,
+                  layout=layout)
     if device_state:
-        m = Vireo(n_cell=counts.n_cell, n_var=counts.n_var,
-                  n_donor=n_donor, learn_GT=learn_GT, dtype=dtype,
-                  device=device, state_init=state, **cfg_kwargs)
+        m = Vireo(state_init=state, **common, **cfg_kwargs)
     else:
-        m = Vireo(n_cell=counts.n_cell, n_var=counts.n_var,
-                  n_donor=n_donor, learn_GT=learn_GT, dtype=dtype,
-                  device=device,
-                  beta_mu_init=state.beta_mu.cpu().numpy(),
+        if layout is not None:
+            state = gather_state(state, layout,
+                                 cfg_kwargs.get("ASE_mode", False))
+        m = Vireo(beta_mu_init=state.beta_mu.cpu().numpy(),
                   beta_sum_init=state.beta_sum.cpu().numpy(),
                   ID_prob_init=state.id_prob.cpu().numpy(),
-                  GT_prob_init=state.gt_prob.cpu().numpy(), **cfg_kwargs)
+                  GT_prob_init=state.gt_prob.cpu().numpy(), **common,
+                  **cfg_kwargs)
     m.set_prior(GT_prior=GT_prior_use)
     return m
+
+
+def _donor_sizes(model):
+    """The summed assignments of each donor (over the padded pool on a
+    mesh, as the JAX package sums its padded global array)."""
+    if model.layout is None:
+        return model.state.id_prob.sum(dim=0).cpu().numpy()
+    return model.ID_prob.sum(axis=0)
 
 
 def _profiled(fn):
@@ -210,27 +382,27 @@ def vireo_wrap(AD, DP=None, GT_prior=None, n_donor=None, learn_GT=True,
                max_iter_init=20, delay_fit_theta=3, n_extra_donor=0,
                extra_donor_mode="distance", check_ambient=False,
                ambient_min_gain=None, nproc=None, dtype=None, verbose=True,
-               mesh=None, checkpoint_dir=None, timing=None, device=None,
+               mesh="auto", checkpoint_dir=None, timing=None, device=None,
                generator=None, **kwargs):
     """Run vireo with multiple initializations; returns the reference's
     result dict (vireo_wrap.py:170-183).
 
     AD, DP: scipy/numpy (n_var, n_cell) counts, placed by
     `ops.counts.counts_from_scipy` on the rung its budget picks, or any
-    prebuilt counts object as AD (DenseCounts, PackedCounts, HybridCounts
-    or SparseCounts), whose device then is the run's default.
-    `device`/`dtype` default to the policy of utils/device.py. `nproc`
-    is accepted for CLI parity and ignored. `kwargs` may carry model
-    flags (ASE_mode, fix_beta_sum, learn_theta, n_GT). `generator`: the
-    torch.Generator for unseeded inits (default: one on `device`, seeded
-    from numpy's global stream). `timing`: True prints the phase summary
-    of the JAX package (`utils.timing.PhaseTimer`), None reads
-    VIREO_TIMING as it does, and a dict is filled with each phase's
-    seconds. Each phase ends in a device sync, so its time holds its own
-    device work; JAX leaves its phases unsynchronised
-    (vireo_tpu/engine/wrap.py:476-480), so there a phase's device work
-    may surface in a later phase. VIREO_PROFILE=<dir> writes a
-    torch.profiler trace of the run there.
+    prebuilt counts object as AD (DenseCounts, PackedCounts, HybridCounts,
+    SparseCounts, or a ShardedCounts placed on a mesh), whose device then
+    is the run's default. `device`/`dtype` default to the policy of
+    utils/device.py. `nproc` is accepted for CLI parity and ignored.
+    `kwargs` may carry model flags (ASE_mode, fix_beta_sum, learn_theta,
+    n_GT). `generator`: the torch.Generator for unseeded inits (default:
+    one on `device`, seeded from numpy's global stream, rank 0's on a
+    mesh). `timing`: True prints the phase summary of the JAX package
+    (`utils.timing.PhaseTimer`), None reads VIREO_TIMING as it does, and
+    a dict is filled with each phase's seconds. Each phase ends in a
+    device sync, so its time holds its own device work; JAX leaves its
+    phases unsynchronised (vireo_tpu/engine/wrap.py:476-480), so there a
+    phase's device work may surface in a later phase. VIREO_PROFILE=<dir>
+    writes a torch.profiler trace of the run there.
 
     `GT_prior` (n_var, n_prior, 3) gives donor genotypes: all donors
     when n_prior equals n_donor, a superset to pick n_donor of, or a
@@ -245,12 +417,29 @@ def vireo_wrap(AD, DP=None, GT_prior=None, n_donor=None, learn_GT=True,
     `ambient_min_gain`, default sqrt(n_cell) / 3) fill `ambient_Psi`,
     `Psi_var` and `Psi_LLRatio`.
 
-    Not ported yet: a mesh raises NotImplementedError.
+    `mesh` (parallel/mesh.py): "auto" (the default; no mesh without a
+    process group of two or more ranks, see `_resolve_mesh`), "off" or
+    None, "VxC", or a Mesh. On a mesh every rank calls vireo_wrap with
+    the same arguments and gets the same result; rank 0 alone prints and
+    writes the checkpoints.
     """
-    if mesh is not None:
-        raise _not_ported("a device mesh", "multi-GPU")
-
     pin_matmul_precision()
+    n_cell_in = AD.n_cell if hasattr(AD, "suff_stats") \
+        else int(AD.shape[1])
+    if _mesh_native(AD) and mesh == "auto":
+        mesh = AD.mesh
+    # the size hints (a scan of the data's largest count) matter only
+    # where an automatic mesh could be elected
+    count_bytes = var_state_bytes = None
+    if mesh == "auto" and world_size() > 1:
+        hint_dtype = dtype or default_dtype(resolve_device(device))
+        count_bytes, var_state_bytes = _auto_mesh_hints(
+            AD, DP, n_donor, GT_prior, n_extra_donor, n_init,
+            int(kwargs.get("n_GT", 3)), hint_dtype)
+    mesh = _resolve_mesh(mesh, n_cell_in, count_bytes=count_bytes,
+                         var_state_bytes=var_state_bytes, verbose=verbose)
+    if mesh is not None and device is None:
+        device = mesh.device
     device = resolve_device(getattr(AD, "device", None)
                             if device is None and hasattr(AD, "suff_stats")
                             else device)
@@ -259,20 +448,34 @@ def vireo_wrap(AD, DP=None, GT_prior=None, n_donor=None, learn_GT=True,
         timing = timing_env()
     timer = PhaseTimer(sync=lambda: sync(device))
     phase = timer.phase
+    root = mesh is None or mesh.is_root
 
     resume = ckpt.latest_step(checkpoint_dir) if checkpoint_dir else None
-    if resume is not None and verbose:
+    if resume is not None and verbose and root:
         print("[vireo] resuming from checkpoint step %d in %s"
               % (resume, checkpoint_dir))
 
-    n_cell_in = AD.n_cell if hasattr(AD, "suff_stats") \
-        else int(AD.shape[1])
+    # the mesh's equal cell ranges: pad the pool with zero-count cells,
+    # whose posterior is the prior; the inits are drawn at the true cell
+    # count and the padding leaves every returned array
+    n_pad_cells = 0
+    if mesh is not None and not hasattr(AD, "suff_stats"):
+        rem = n_cell_in % n_cell_shards(mesh)
+        if rem:
+            n_pad_cells = n_cell_shards(mesh) - rem
+            AD = _pad_cells(AD, n_pad_cells)
+            DP = _pad_cells(DP, n_pad_cells)
     with phase("data_placement"):
-        counts = AD if hasattr(AD, "suff_stats") else counts_from_scipy(
-            AD, DP, device=device, verbose=verbose)
+        counts, mesh = _as_counts(AD, DP, device, mesh=mesh, verbose=verbose)
+    layout = getattr(counts, "layout", None)
+    root = mesh is None or mesh.is_root
+    if mesh is not None and verbose and root:
+        print("[vireo] counts sharded over %d devices (mesh %s, %s)"
+              % (mesh.size, mesh.shape, mesh.backend))
 
     if learn_GT is False and n_extra_donor > 0:
-        print("Searching from extra donors only works with learn_GT")
+        if root:
+            print("Searching from extra donors only works with learn_GT")
         n_extra_donor = 0
 
     if n_donor is None:
@@ -281,7 +484,8 @@ def vireo_wrap(AD, DP=None, GT_prior=None, n_donor=None, learn_GT=True,
         n_donor = GT_prior.shape[1]
 
     if learn_GT is False and n_init > 1:
-        print("GT is fixed, so use a single initialization")
+        if root:
+            print("GT is fixed, so use a single initialization")
         n_init = 1
 
     if random_seed is not None:
@@ -319,59 +523,70 @@ def vireo_wrap(AD, DP=None, GT_prior=None, n_donor=None, learn_GT=True,
                            "fix_beta_sum")}
     cfg = VireoConfig(n_var=counts.n_var, n_cell=counts.n_cell,
                       n_donor=n_donor_use, learn_GT=learn_GT, **cfg_kwargs)
+    ase = cfg.ASE_mode
     priors = default_priors(cfg, GT_prior=GT_prior_use, dtype=dtype,
-                            device=device)
+                            device=device, layout=layout)
 
     def model(n_donor, learn_GT, **init):
         return Vireo(n_cell=counts.n_cell, n_var=counts.n_var,
                      n_donor=n_donor, learn_GT=learn_GT, dtype=dtype,
-                     device=device, **init, **cfg_kwargs)
+                     device=device, layout=layout, **init, **cfg_kwargs)
 
     # ---- warm restarts: one batched fit (vireo_wrap.py:64-87)
     if resume is not None:
         # the saved RNG position keeps later draws (the refits' inits)
         # on the uninterrupted run's stream
         best_state, _, ex = ckpt.load_state(checkpoint_dir, 0, dtype=dtype,
-                                            device=device)
+                                            device=device, layout=layout,
+                                            ase=ase)
         elbo_all = np.asarray(ex["elbo_all"])
         ckpt.load_rng(checkpoint_dir, "rng_0")
     else:
         with phase("warm_restarts"):
             if device_init:
                 if generator is None:
+                    seed = int(rng.randint(2 ** 31))
+                    if mesh is not None:
+                        # one stream for every rank: rank 0's seed
+                        seed = int(mesh.broadcast(torch.tensor([seed])))
                     generator = torch.Generator(device=device)
-                    generator.manual_seed(int(rng.randint(2 ** 31)))
+                    generator.manual_seed(seed)
                 batched = _device_batched_init(cfg, n_init, GT_prior_use,
                                                generator, dtype, device)
             else:
                 batched = _seeded_batched_init(cfg, n_init, GT_prior_use,
                                                rng, dtype, device,
                                                n_cell_draw=n_cell_in)
+            if layout is not None:
+                batched = shard_state(batched, layout, ase)
             warm = fit_vb(counts, batched, priors, cfg,
                           max_iter=max_iter_init, min_iter=5,
                           delay_fit_theta=delay_fit_theta)
-            # np.argmax takes the first maximum, as jnp.argmax does
+            # np.argmax takes the first maximum, as jnp.argmax does; on a
+            # mesh every rank takes rank 0's pick
             best = int(np.argmax(warm.elbo_ref))
+            if mesh is not None:
+                best = int(mesh.broadcast(torch.tensor([best])))
             best_state = warm.state.take(best)
             elbo_all = warm.elbo_ref + float(counts.binom_coeff_sum())
             del warm, batched
         if checkpoint_dir:
             ckpt.save_state(checkpoint_dir, 0, best_state,
                             extra={"elbo_all": elbo_all},
-                            fingerprint=run_fp)
-            ckpt.save_rng(checkpoint_dir, "rng_0")
+                            fingerprint=run_fp, layout=layout, ase=ase)
+            ckpt.save_rng(checkpoint_dir, "rng_0", mesh=mesh)
 
     if resume is not None and resume >= 1:
         state1, priors1, ex1 = ckpt.load_state(checkpoint_dir, 1,
-                                               dtype=dtype, device=device)
+                                               dtype=dtype, device=device,
+                                               layout=layout, ase=ase)
         ckpt.load_rng(checkpoint_dir, "rng_1")
         modelCA = _model_from_state(
             counts, cfg_kwargs, int(ex1["n_donor"]), bool(ex1["learn_GT"]),
-            state1, None, dtype, device)
-        modelCA.state = state1        # as saved (init_state renormalises)
+            state1, None, dtype, device, device_state=True, layout=layout)
         modelCA.priors = priors1      # the branch's genotype prior
         modelCA.ELBO_ = np.asarray(ex1["ELBO_"])
-        if verbose:
+        if verbose and root:
             print("[vireo] lower bound ranges [%.1f, %.1f, %.1f]"
                   % (np.min(elbo_all), np.median(elbo_all),
                      np.max(elbo_all)))
@@ -379,7 +594,8 @@ def vireo_wrap(AD, DP=None, GT_prior=None, n_donor=None, learn_GT=True,
         with phase("model_build"):
             modelCA = _model_from_state(
                 counts, cfg_kwargs, n_donor_use, learn_GT, best_state,
-                GT_prior_use, dtype, device, device_state=device_init)
+                GT_prior_use, dtype, device, device_state=device_init,
+                layout=layout)
         modelCA.ELBO_ = np.asarray([elbo_all[np.argmax(elbo_all)]])
 
         # ---- long refit of the winner / extra-donor reduction
@@ -391,7 +607,7 @@ def vireo_wrap(AD, DP=None, GT_prior=None, n_donor=None, learn_GT=True,
                 _ID_prob = donor_select(
                     modelCA.GT_prob.astype(np.float64),
                     modelCA.ID_prob.astype(np.float64), n_donor,
-                    mode=extra_donor_mode, verbose=verbose)
+                    mode=extra_donor_mode, verbose=verbose and root)
                 modelCA = model(n_donor, learn_GT,
                                 GT_prob_init=GT_prior_use,
                                 ID_prob_init=_ID_prob,
@@ -401,7 +617,7 @@ def vireo_wrap(AD, DP=None, GT_prior=None, n_donor=None, learn_GT=True,
                 modelCA.fit(counts, min_iter=5,
                             delay_fit_theta=delay_fit_theta, verbose=False)
 
-            if verbose:
+            if verbose and root:
                 print("[vireo] lower bound ranges [%.1f, %.1f, %.1f]"
                       % (np.min(elbo_all), np.median(elbo_all),
                          np.max(elbo_all)))
@@ -409,7 +625,7 @@ def vireo_wrap(AD, DP=None, GT_prior=None, n_donor=None, learn_GT=True,
             # ---- donor-subset prior: keep the largest donors, refit with
             # the genotypes fixed (vireo_wrap.py:111-119)
             if GT_prior is not None and n_donor < GT_prior.shape[1]:
-                _donor_cnt = modelCA.state.id_prob.sum(dim=0).cpu().numpy()
+                _donor_cnt = _donor_sizes(modelCA)
                 _donor_idx = np.argsort(_donor_cnt)[::-1]
                 GT_prior_use = GT_prior[:, _donor_idx[:n_donor], :]
                 # the reference keeps the default (uniform) genotype
@@ -441,17 +657,20 @@ def vireo_wrap(AD, DP=None, GT_prior=None, n_donor=None, learn_GT=True,
                                    "ELBO_": modelCA.ELBO_,
                                    "n_donor": modelCA.n_donor,
                                    "learn_GT": modelCA.config.learn_GT},
-                            fingerprint=run_fp)
-            ckpt.save_rng(checkpoint_dir, "rng_1")
+                            fingerprint=run_fp, layout=layout, ase=ase)
+            ckpt.save_rng(checkpoint_dir, "rng_1", mesh=mesh)
 
     if verbose:
-        print("[vireo] allelic rate mean and concentrations:")
-        print(np.round(modelCA.beta_mu, 3))
-        print(np.round(modelCA.beta_sum, 1))
-        print("[vireo] donor size before removing doublets:")
-        _donor_cnt = modelCA.state.id_prob.sum(dim=0).cpu().numpy()
-        print("\t".join(["donor%d" % x for x in range(len(_donor_cnt))]))
-        print("\t".join(["%.0f" % x for x in _donor_cnt]))
+        # every rank gathers (collectives); rank 0 prints
+        beta_mu, beta_sum = modelCA.beta_mu, modelCA.beta_sum
+        _donor_cnt = _donor_sizes(modelCA)
+        if root:
+            print("[vireo] allelic rate mean and concentrations:")
+            print(np.round(beta_mu, 3))
+            print(np.round(beta_sum, 1))
+            print("[vireo] donor size before removing doublets:")
+            print("\t".join(["donor%d" % x for x in range(len(_donor_cnt))]))
+            print("\t".join(["%.0f" % x for x in _donor_cnt]))
 
     # ---- doublet prediction (vireo_wrap.py:150-156)
     n_donor_final = modelCA.n_donor
@@ -466,8 +685,8 @@ def vireo_wrap(AD, DP=None, GT_prior=None, n_donor=None, learn_GT=True,
             (counts.n_cell, int(n_donor_final * (n_donor_final - 1) / 2)))
         doublet_LLR = np.zeros(counts.n_cell)
 
-    theta_shapes = np.append(modelCA.beta_mu * modelCA.beta_sum,
-                             (1 - modelCA.beta_mu) * modelCA.beta_sum,
+    beta_mu, beta_sum = modelCA.beta_mu, modelCA.beta_sum
+    theta_shapes = np.append(beta_mu * beta_sum, (1 - beta_mu) * beta_sum,
                              axis=0)
 
     # ---- ambient RNA (vireo_tpu/engine/wrap.py:772-783)
@@ -480,7 +699,7 @@ def vireo_wrap(AD, DP=None, GT_prior=None, n_donor=None, learn_GT=True,
 
     if isinstance(timing, dict):
         timing.update(timer.phases)
-    elif timing:
+    elif timing and root:
         print(timer.summary())
 
     RV = {}
@@ -489,11 +708,16 @@ def vireo_wrap(AD, DP=None, GT_prior=None, n_donor=None, learn_GT=True,
     RV['doublet_LLR'] = doublet_LLR
     RV['doublet_prob'] = doublet_prob
     RV['theta_shapes'] = theta_shapes
-    RV['theta_mean'] = modelCA.beta_mu
-    RV['theta_sum'] = modelCA.beta_sum
+    RV['theta_mean'] = beta_mu
+    RV['theta_sum'] = beta_sum
     RV['ambient_Psi'] = ambient_Psi
     RV['Psi_var'] = Psi_var
     RV['Psi_LLRatio'] = Psi_logLik_ratio
     RV['LB_list'] = elbo_all
     RV['LB_doublet'] = modelCA.ELBO_[-1]
+    if n_pad_cells:
+        for key in ('ID_prob', 'doublet_prob', 'doublet_LLR',
+                    'ambient_Psi', 'Psi_var', 'Psi_LLRatio'):
+            if RV.get(key) is not None:
+                RV[key] = np.asarray(RV[key])[:n_cell_in]
     return RV

@@ -27,6 +27,12 @@ its results are the values of that iteration: the semantics of JAX's
 vmap of a while_loop, where a finished cell's carry is frozen. Since
 every cell of a chunk starts together, the iteration count is one
 number for the chunk's running cells.
+
+On a mesh (a ShardedCounts) the selected variants' (n_sel, C_shard)
+blocks are all-gathered and every rank runs the EM over every cell, as
+the multi-process branch of vireo_tpu/models/ambient.py:209-217 does;
+the SNP gate reads the all-reduced statistics, and psi0 is rank 0's
+draw, so every rank gets the same results.
 """
 
 import timeit
@@ -234,19 +240,30 @@ def predit_ambient(vobj, AD, DP, nproc=None, min_ELBO_gain=None, rng=None):
 
     counts = vobj._as_counts(AD, DP)
     theta_mat = np.tensordot(vobj.GT_prob, vobj.beta_mu[0, :], axes=(2, 0))
+    mesh = getattr(counts, "mesh", None)
 
     if min_ELBO_gain is None:
         min_ELBO_gain = np.sqrt(counts.n_cell) / 3.0
-    gain = variant_ELBO_gain(counts, vobj.ID_prob)
+    if mesh is None:
+        gain = variant_ELBO_gain(counts, vobj.ID_prob)
+    else:
+        from ..parallel.mesh import VAR_AXIS
+        gain = counts.layout.gather(
+            variant_ELBO_gain(counts, vobj.state.id_prob), VAR_AXIS, 0)
     snp_idx = gain.cpu().numpy() >= min_ELBO_gain
-    print("[vireo] %d out %d SNPs selected for ambient RNA detection: "
-          "ELBO_gain > %.1f" % (snp_idx.sum(), len(snp_idx), min_ELBO_gain))
+    if mesh is None or mesh.is_root:
+        print("[vireo] %d out %d SNPs selected for ambient RNA detection: "
+              "ELBO_gain > %.1f" % (snp_idx.sum(), len(snp_idx),
+                                    min_ELBO_gain))
 
     sel = np.where(snp_idx)[0]
     K = theta_mat.shape[1]
     psi0 = rng.dirichlet([1.0] * K, size=counts.n_cell)
 
-    if isinstance(counts, DenseCounts):
+    if mesh is not None:
+        psi0 = mesh.broadcast(torch.from_numpy(psi0)).numpy()
+        dense, rows = counts.gather_rows(sel), np.arange(len(sel))
+    elif isinstance(counts, DenseCounts):
         dense, rows = counts, sel
     else:
         dense, rows = counts.var_subset(sel).densify(), np.arange(len(sel))
@@ -259,7 +276,8 @@ def predit_ambient(vobj, AD, DP, nproc=None, min_ELBO_gain=None, rng=None):
                                                         Psi_llr))
 
     stop = timeit.default_timer()
-    print('[vireo] Ambient RNA time: %.1f sec' % (stop - start))
+    if mesh is None or mesh.is_root:
+        print('[vireo] Ambient RNA time: %.1f sec' % (stop - start))
     return Psi, Psi_var, Psi_llr
 
 

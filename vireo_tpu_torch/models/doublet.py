@@ -10,6 +10,17 @@ singlet-slice statistics for the GT refresh; every other counts class
 contraction through its own `cell_loglik`, as the JAX package sends only
 a DenseCounts to its kernel. The branch depends on the counts' class and
 type and the prior's shape only, the same on the CPU and on a card.
+
+On a mesh (a ShardedCounts) the E-step runs on each rank's cells and the
+outputs are gathered. Where the variants are not split (a cells mesh,
+or 1 x C) each rank's block is an int8 DenseCounts, so K1 runs there per
+rank and its singlet statistics are all-reduced over the cells. With
+the variants split a rank holds only part of each cell's
+log-likelihood, and K1 takes its softmax in the same pass, so the
+doublet phase goes through the unfused path there, whose partial
+logliks the ShardedCounts all-reduces first. (The JAX package
+keeps its Pallas doublet pass off a mesh altogether,
+vireo_tpu/models/doublet.py:134-135.)
 """
 
 import dataclasses
@@ -21,6 +32,7 @@ import torch
 from ..ops import fused_em
 from ..ops.counts import DenseCounts
 from ..ops.math import normalize, softmax_from_loglik, digamma_triplet
+from ..parallel.mesh import CELL_AXIS, VAR_AXIS
 
 __all__ = ["add_doublet_theta", "add_doublet_GT", "predict_doublet",
            "fused_doublet_estep", "doublet_loglik", "takes_fused_estep"]
@@ -97,17 +109,31 @@ def fused_doublet_estep(counts, gt_both, mu_both, sum_both,
     bf16, as in the JAX package. Returns (S1, SS, ID_prob_both,
     logLik_ID), float32."""
     Wfa, Wfd = _doublet_weights(gt_both, mu_both, sum_both)
+    mesh = getattr(counts, "mesh", None)
+    dense = counts if mesh is None else counts.local
     prior = torch.as_tensor(np.asarray(log_prior_both),
                             device=counts.device).to(torch.float32)
     S1, SS, id_prob, loglik, _, _ = fused_em.fused_estep_stats(
-        counts.ad, counts.dp, Wfa.to(torch.float32), Wfd.to(torch.float32),
+        dense.ad, dense.dp, Wfa.to(torch.float32), Wfd.to(torch.float32),
         prior.reshape(1, -1), stats_cols=n_donor)
+    if mesh is not None:
+        # a rank's cells: the statistics summed over every rank's cells
+        # (the doublet phase reads no ELBO from K1, as in the JAX package)
+        n = counts.layout.n_cell_local
+        id_prob, loglik = id_prob[:n], loglik[:n]
+        S1, SS = mesh.all_reduce(torch.stack([S1, SS]), CELL_AXIS)
     return S1, SS, id_prob, loglik
 
 
 def takes_fused_estep(counts, n_cols):
     """Whether the doublet E-step over `n_cols` assignment columns goes
-    through K1: int8 dense counts, and no more columns than K1 takes."""
+    through K1: int8 dense counts (on a mesh, each rank's block, and the
+    variants not split), and no more columns than K1 takes."""
+    mesh = getattr(counts, "mesh", None)
+    if mesh is not None:
+        if mesh.splits(VAR_AXIS):
+            return False
+        counts = counts.local
     return (isinstance(counts, DenseCounts) and counts.ad.dtype == torch.int8
             and n_cols <= fused_em.MAX_K)
 
@@ -123,6 +149,13 @@ def predict_doublet(vobj, AD, DP=None, update_GT=True, update_ID=True,
     counts = vobj._as_counts(AD, DP)
     K = vobj.n_donor
     n_cell = counts.n_cell
+    layout = getattr(counts, "layout", None)
+
+    def host(x):
+        """A rank's cells' rows -> the global array on the host."""
+        if layout is not None:
+            x = layout.gather(x, CELL_AXIS, 0)
+        return x.cpu().numpy()
 
     gt_both = add_doublet_GT(vobj.state.gt_prob)
     mu_both, sum_both = add_doublet_theta(vobj.state.beta_mu,
@@ -148,20 +181,22 @@ def predict_doublet(vobj, AD, DP=None, update_GT=True, update_ID=True,
                 counts, gt_both, mu_both, sum_both,
                 torch.as_tensor(np.log(prior_row)).to(
                     device=counts.device, dtype=vobj.dtype), K)
-        ID_prob_both = post.cpu().numpy()
-        logLik_ratio = llr.cpu().numpy()
+        ID_prob_both = host(post)
+        logLik_ratio = host(llr)
     else:
         id_prior = np.broadcast_to(id_prior_np, (n_cell, K))
         prior_both = np.concatenate(
             [id_prior * (1 - doublet_rate_prior),
              np.full((n_cell, n_pair), doublet_rate_prior / n_pair)],
             axis=1)
+        if layout is not None:
+            prior_both = layout.take(prior_both, CELL_AXIS, 0)
         logLik_ID = doublet_loglik(counts, gt_both, mu_both, sum_both)
         ID_prob_both = softmax_from_loglik(
             logLik_ID, torch.as_tensor(np.log(prior_both)).to(
                 device=logLik_ID.device, dtype=logLik_ID.dtype))
-        ID_prob_both = ID_prob_both.cpu().numpy()
-        logLik_ID = logLik_ID.cpu().numpy()
+        ID_prob_both = host(ID_prob_both)
+        logLik_ID = host(logLik_ID)
         logLik_ratio = (logLik_ID[:, K:].max(axis=1)
                         - logLik_ID[:, :K].max(axis=1))
 

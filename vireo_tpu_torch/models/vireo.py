@@ -11,6 +11,15 @@
   for all restarts, and the fit loop stops each restart at its own
   convergence and freezes it while the others run.
 
+On a mesh (parallel/mesh.py) the counts are a ShardedCounts and each
+rank's state is its block: the assignments of its cells, the genotypes
+(and the ASE thetas) of its variants. The functions here then take the
+mesh (by default the counts') and add the reductions that the JAX
+package's GSPMD inserts or its `axis_name` psums: the per-cell ELBO
+terms over `cells`, and on a vars axis the theta statistics and the
+genotype and theta KL terms over `vars`. Without a mesh the code and
+its results are those of one device.
+
 A thin OO wrapper ``Vireo`` mirrors the reference class API.
 """
 
@@ -21,6 +30,7 @@ import torch
 
 from ..ops.math import (softmax_from_loglik, kl_categorical, beta_entropy,
                         digamma_triplet)
+from ..parallel.mesh import CELL_AXIS, VAR_AXIS, shard_state, shard_priors
 from ..utils.device import resolve_device, default_dtype, numpy_dtype
 
 __all__ = ["VireoConfig", "VireoState", "VireoPriors", "FitResult",
@@ -171,11 +181,13 @@ def random_init_arrays(cfg, rng=None, dtype=np.float64):
 
 def init_state(cfg, beta_mu_init=None, beta_sum_init=None,
                ID_prob_init=None, GT_prob_init=None, rng=None,
-               dtype=None, device=None):
+               dtype=None, device=None, layout=None):
     """A VireoState with the reference's defaults. Random draws happen in
     the same order and only for the fields left unset, and every field
     is renormalised in float64 on the host before it is placed, as in
-    vireo_tpu/models/vireo.py:132-168."""
+    vireo_tpu/models/vireo.py:132-168. With a `layout` (parallel/mesh.py)
+    the inits are global, drawn whole on every rank, and each rank
+    places its block."""
     device = resolve_device(device)
     dtype = dtype or default_dtype(device)
     if rng is None:
@@ -202,16 +214,20 @@ def init_state(cfg, beta_mu_init=None, beta_sum_init=None,
     GT_prob_init = np.asarray(GT_prob_init, np.float64)
     GT_prob_init = GT_prob_init / GT_prob_init.sum(-1, keepdims=True)
 
-    return VireoState(beta_mu=_to_tensor(beta_mu, dtype, device),
-                      beta_sum=_to_tensor(beta_sum, dtype, device),
-                      gt_prob=_to_tensor(GT_prob_init, dtype, device),
-                      id_prob=_to_tensor(ID_prob_init, dtype, device))
+    state = VireoState(beta_mu=beta_mu, beta_sum=beta_sum,
+                       gt_prob=GT_prob_init, id_prob=ID_prob_init)
+    if layout is not None:
+        state = shard_state(state, layout, cfg.ASE_mode)
+    return VireoState(*(_to_tensor(getattr(state, f), dtype, device)
+                        for f in _STATE_FIELDS))
 
 
 def default_priors(cfg, GT_prior=None, ID_prior=None, beta_mu_prior=None,
                    beta_sum_prior=None, min_GP=0.00001, dtype=None,
-                   device=None):
-    """Priors with the reference's defaults and GT clipping."""
+                   device=None, layout=None):
+    """Priors with the reference's defaults and GT clipping. With a
+    `layout`, each rank keeps the rows of its variants and cells of a
+    per-variant or per-cell prior."""
     device = resolve_device(device)
     dtype = dtype or default_dtype(device)
     G = cfg.n_GT
@@ -241,10 +257,12 @@ def default_priors(cfg, GT_prior=None, ID_prior=None, beta_mu_prior=None,
         gt_prior = np.clip(gt_prior, min_GP, 1.0 - min_GP)
         gt_prior = gt_prior / gt_prior.sum(axis=-1, keepdims=True)
 
-    return VireoPriors(theta_s1=_to_tensor(theta_s1, dtype, device),
-                       theta_s2=_to_tensor(theta_s2, dtype, device),
-                       id_log=_to_tensor(np.log(id_prior), dtype, device),
-                       gt_log=_to_tensor(np.log(gt_prior), dtype, device))
+    priors = VireoPriors(theta_s1=theta_s1, theta_s2=theta_s2,
+                         id_log=np.log(id_prior), gt_log=np.log(gt_prior))
+    if layout is not None:
+        priors = shard_priors(priors, layout)
+    return VireoPriors(*(_to_tensor(getattr(priors, f), dtype, device)
+                         for f in _PRIOR_FIELDS))
 
 
 def _theta_suff(S, gt_prob, ase_mode):
@@ -256,7 +274,7 @@ def _theta_suff(S, gt_prob, ase_mode):
     return per_var.sum(dim=-2, keepdim=True)
 
 
-def updates_from_stats(S1, SS, state, priors, cfg, update_theta):
+def updates_from_stats(S1, SS, state, priors, cfg, update_theta, mesh=None):
     """theta + GT coordinate updates from S1 = AD @ ID_prob and
     SS = DP @ ID_prob (vireo_model.py:165-219).
 
@@ -264,12 +282,22 @@ def updates_from_stats(S1, SS, state, priors, cfg, update_theta):
     KL_GT + KL_theta), where the W matrices fold the reference's three
     transposed products per genotype category into two:
     logLik_ID = AD.T @ Wfold_a + DP.T @ Wfold_d.
+
+    On a `mesh` with a vars axis, S1, SS and the state hold this rank's
+    variants: the theta statistics' sum over variants (unless ASE), KL_GT
+    and, in ASE mode, KL_theta are all-reduced over `vars`, the sums that
+    GSPMD inserts for the JAX package's variant-sharded genotypes.
     """
     b = state.gt_prob.ndim - 3
     S2 = SS - S1
+    split_vars = mesh is not None and mesh.has(VAR_AXIS)
 
-    t1 = priors.theta_s1 + _theta_suff(S1, state.gt_prob, cfg.ASE_mode)
-    t2 = priors.theta_s2 + _theta_suff(S2, state.gt_prob, cfg.ASE_mode)
+    ts1 = _theta_suff(S1, state.gt_prob, cfg.ASE_mode)
+    ts2 = _theta_suff(S2, state.gt_prob, cfg.ASE_mode)
+    if split_vars and not cfg.ASE_mode:
+        ts1, ts2 = mesh.all_reduce(torch.stack([ts1, ts2]), VAR_AXIS)
+    t1 = priors.theta_s1 + ts1
+    t2 = priors.theta_s2 + ts2
     if update_theta and cfg.learn_theta:
         beta_mu = t1 / (t1 + t2)
         beta_sum = state.beta_sum if cfg.fix_beta_sum else (t1 + t2)
@@ -296,6 +324,11 @@ def updates_from_stats(S1, SS, state, priors, cfg, update_theta):
     s2 = (1.0 - beta_mu) * beta_sum
     KL_theta = beta_entropy(s1, s2, priors.theta_s1, priors.theta_s2,
                             batch_ndim=b)
+    if split_vars and cfg.ASE_mode:
+        KL_GT, KL_theta = mesh.all_reduce(torch.stack([KL_GT, KL_theta]),
+                                          VAR_AXIS)
+    elif split_vars:
+        KL_GT = mesh.all_reduce(KL_GT, VAR_AXIS)
     return beta_mu, beta_sum, gt_prob, (Wa - Wb, Wb - Ws), KL_GT + KL_theta
 
 
@@ -308,17 +341,24 @@ def _fold(x):
 def _unfold(y, R):
     """(A, R*K) -> (R, A, K)."""
     A = y.shape[0]
-    return y.reshape(A, R, -1).permute(1, 0, 2)
+    return y.reshape(A, R, y.shape[1] // R).permute(1, 0, 2)
 
 
-def em_step(counts, state, priors, cfg, update_theta):
+def _mesh_of(counts, mesh):
+    return mesh if mesh is not None else getattr(counts, "mesh", None)
+
+
+def em_step(counts, state, priors, cfg, update_theta, mesh=None):
     """One coordinate-ascent iteration; returns (state', loglik_id, elbo).
 
     Update order matches the reference: theta (from the previous GT/ID
     posteriors), then GT (with fresh digammas), then ID, then the ELBO
     on the refreshed posteriors. A batched state gives per-restart
-    ELBOs.
+    ELBOs. `mesh` (default: the counts') is the counterpart of JAX's
+    `axis_name` (vireo_tpu/models/vireo.py:267-298): the per-cell ELBO
+    terms are all-reduced over `cells`, so every rank gets the ELBO.
     """
+    mesh = _mesh_of(counts, mesh)
     R = state.n_batch
     if R is None:
         S1, SS = counts.suff_stats(state.id_prob)
@@ -327,7 +367,7 @@ def em_step(counts, state, priors, cfg, update_theta):
             _fold(state.id_prob)))
 
     beta_mu, beta_sum, gt_prob, (Wfa, Wfd), kl_params = \
-        updates_from_stats(S1, SS, state, priors, cfg, update_theta)
+        updates_from_stats(S1, SS, state, priors, cfg, update_theta, mesh)
 
     if R is None:
         loglik_id = counts.cell_loglik(Wfa, Wfd)
@@ -338,7 +378,10 @@ def em_step(counts, state, priors, cfg, update_theta):
     LB_p = (loglik_id * id_prob).sum(dim=(-2, -1))
     KL_ID = kl_categorical(id_prob, priors.id_log,
                            batch_ndim=0 if R is None else 1)
-    elbo = LB_p - KL_ID - kl_params
+    if mesh is None:
+        elbo = LB_p - KL_ID - kl_params
+    else:
+        elbo = mesh.all_reduce(LB_p - KL_ID, CELL_AXIS) - kl_params
 
     new_state = VireoState(beta_mu=beta_mu, beta_sum=beta_sum,
                            gt_prob=gt_prob, id_prob=id_prob)
@@ -346,7 +389,7 @@ def em_step(counts, state, priors, cfg, update_theta):
 
 
 def fit_vb(counts, state, priors, cfg, max_iter=200, min_iter=5,
-           epsilon_conv=1e-2, delay_fit_theta=0):
+           epsilon_conv=1e-2, delay_fit_theta=0, mesh=None):
     """Run coordinate ascent to convergence (vireo_model.py:251-276).
 
     The convergence predicate is the reference's, evaluated in the
@@ -355,11 +398,13 @@ def fit_vb(counts, state, priors, cfg, max_iter=200, min_iter=5,
     second-to-last executed iteration. For a batched state each restart
     runs until its own predicate stops it, and is then left as it was
     while the others go on: the semantics of the JAX package's vmap of
-    a while_loop.
+    a while_loop. On a mesh (`mesh`, default the counts') every rank
+    reads the same all-reduced ELBOs, so every rank stops each restart
+    at the same iteration.
     """
     def step(st, n):
         st, _, elbo = em_step(counts, st, priors, cfg,
-                              update_theta=(n >= delay_fit_theta))
+                              update_theta=(n >= delay_fit_theta), mesh=mesh)
         return st, elbo
 
     return FitResult(*converge(step, state, max_iter, min_iter,
@@ -424,13 +469,13 @@ def converge(step, state, max_iter, min_iter, epsilon_conv):
     return st, prev, curr, it, trace
 
 
-def run_em_iters(counts, state, priors, cfg, n_iters):
+def run_em_iters(counts, state, priors, cfg, n_iters, mesh=None):
     """Run exactly `n_iters` EM iterations with every update on (no
     convergence check). Returns (state, last_elbo)."""
     elbo = torch.tensor(float("-inf"), dtype=state.id_prob.dtype)
     for _ in range(int(n_iters)):
         state, _, elbo = em_step(counts, state, priors, cfg,
-                                 update_theta=True)
+                                 update_theta=True, mesh=mesh)
     return state, elbo
 
 
@@ -448,9 +493,16 @@ class Vireo:
                  learn_theta=True, ASE_mode=False, fix_beta_sum=False,
                  beta_mu_init=None, beta_sum_init=None, ID_prob_init=None,
                  GT_prob_init=None, dtype=None, rng=None, state_init=None,
-                 device=None):
+                 device=None, layout=None):
         """`state_init`: adopt an existing VireoState as it is, with no
-        host inits drawn or renormalised."""
+        host inits drawn or renormalised.
+
+        `layout` (parallel/mesh.py): the pool is split over a mesh. The
+        state then holds this rank's block, the init and prior arguments
+        stay global (each rank keeps its block of them), and the
+        posterior properties gather the global arrays, on every rank: so
+        every rank reads them at the same points."""
+        self.layout = layout
         self.config = VireoConfig(
             n_var=n_var, n_cell=n_cell, n_donor=n_donor, n_GT=n_GT,
             learn_GT=learn_GT, learn_theta=learn_theta, ASE_mode=ASE_mode,
@@ -482,31 +534,49 @@ class Vireo:
     def n_GT(self):
         return self.config.n_GT
 
+    def _global(self, x, axis, dim):
+        """The global array of a field of this rank's block, on the host."""
+        if self.layout is not None:
+            x = self.layout.gather(x, axis, dim)
+        return x.cpu().numpy()
+
+    def _theta(self, x):
+        if self.config.ASE_mode:
+            return self._global(x, VAR_AXIS, -2)
+        return x.cpu().numpy()
+
     @property
     def beta_mu(self):
-        return self.state.beta_mu.cpu().numpy()
+        return self._theta(self.state.beta_mu)
 
     @property
     def beta_sum(self):
-        return self.state.beta_sum.cpu().numpy()
+        return self._theta(self.state.beta_sum)
 
     @property
     def ID_prob(self):
-        return self.state.id_prob.cpu().numpy()
+        return self._global(self.state.id_prob, CELL_AXIS, -2)
 
     @ID_prob.setter
     def ID_prob(self, value):
+        """Set from the global (n_cell, n_donor) assignments."""
+        value = torch.as_tensor(value)
+        if self.layout is not None:
+            value = self.layout.take(value, CELL_AXIS, -2)
         self.state = dataclasses.replace(
-            self.state, id_prob=torch.as_tensor(value).to(
-                device=self.device, dtype=self.dtype))
+            self.state, id_prob=value.to(device=self.device,
+                                         dtype=self.dtype))
 
     @property
     def GT_prob(self):
-        return self.state.gt_prob.cpu().numpy()
+        return self._global(self.state.gt_prob, VAR_AXIS, -3)
 
     @property
     def ID_prior(self):
-        return np.exp(self.priors.id_log.cpu().numpy())
+        id_log = self.priors.id_log
+        if id_log.shape[0] != 1:
+            return np.exp(self._global(id_log, CELL_AXIS, -2))
+        return np.exp(id_log.cpu().numpy())
 
     @property
     def theta_s1(self):
@@ -525,18 +595,22 @@ class Vireo:
         self.state = init_state(
             self.config, beta_mu_init, beta_sum_init, ID_prob_init,
             GT_prob_init, rng=self._rng, dtype=self.dtype,
-            device=self.device)
+            device=self.device, layout=self.layout)
 
     def set_prior(self, GT_prior=None, ID_prior=None, beta_mu_prior=None,
                   beta_sum_prior=None, min_GP=0.00001):
         self.priors = default_priors(
             self.config, GT_prior, ID_prior, beta_mu_prior,
-            beta_sum_prior, min_GP, dtype=self.dtype, device=self.device)
+            beta_sum_prior, min_GP, dtype=self.dtype, device=self.device,
+            layout=self.layout)
 
     def _as_counts(self, AD, DP):
         from ..ops.counts import counts_from_scipy
         if hasattr(AD, "suff_stats"):
             return AD
+        if self.layout is not None:
+            raise ValueError("a model on a mesh takes the placed "
+                             "ShardedCounts, not host matrices")
         return counts_from_scipy(AD, DP, device=self.device)
 
     def fit(self, AD, DP=None, max_iter=200, min_iter=5, epsilon_conv=1e-2,
@@ -565,7 +639,7 @@ class Vireo:
         st, loglik_id, _ = em_step(counts, self.state, self.priors,
                                    cfg_fixed, update_theta=False)
         self.state = st
-        return loglik_id.cpu().numpy()
+        return self._global(loglik_id, CELL_AXIS, -2)
 
     def update_GT_prob(self, AD, DP):
         """One GT-step refresh keeping theta/ID (vireo_model.py:204-219)."""

@@ -24,6 +24,11 @@ picks one by the pool's size and largest count (`ladder_rung`):
   residual of the few deltas above it.
 - ``SparseCounts``: COO triplets, gathered and summed in a fixed order
   (`index_put_(accumulate=True)`).
+
+On a mesh (`counts_from_scipy(..., mesh=)`) the ladder picks one rung
+for the whole pool, from its global shape and largest count, with the
+budget of the ranks it spans, and each rank places its block of that
+rung, wrapped in a `parallel.mesh.ShardedCounts`.
 """
 
 import dataclasses
@@ -40,6 +45,12 @@ __all__ = ["Counts", "DenseCounts", "SparseCounts", "HybridCounts",
            "counts_from_scipy", "dense_counts", "sparse_counts",
            "hybrid_from_coo", "ladder_rung", "exact_count_dtype",
            "device_dense_budget"]
+
+# No counterpart of vireo_tpu/ops/counts.py::_divisible_sharding: there a
+# spec axis that does not divide the counts' shape is replicated; here
+# the cells split into equal ranges of ceil(C / S) (the model's pool
+# padded with zero-count cells where S does not divide C) and the
+# variants into equal ranges, the last one short, so every extent fits.
 
 # bytes of one converted block of count rows
 _CHUNK_BYTES = 1 << 29
@@ -131,6 +142,10 @@ class DenseCounts:
         """The variant rows `idx` (indices or a boolean mask)."""
         idx = _row_index(idx, self.device)
         return DenseCounts(self.ad[idx], self.dp[idx])
+
+    def cell_slice(self, start, stop):
+        """Cells [start, stop)."""
+        return DenseCounts(self.ad[:, start:stop], self.dp[:, start:stop])
 
     def densify(self):
         return self
@@ -563,6 +578,32 @@ class HybridCounts:
                             torch.tensor(corr, dtype=torch.float64,
                                          device=self.device), self.cap)
 
+    def cell_slice(self, start, stop):
+        """Cells [start, stop) without densifying the pool
+        (vireo_tpu/ops/counts.py:440-470): the base slices on the device
+        (a packed base unpacks only the slice's bytes, as int8), the
+        residual is filtered on the host and `binom_corr` recomputed from
+        the kept entries."""
+        start, stop = int(start), int(stop)
+        base = self.base.cell_slice(start, stop)
+        r = self.resid
+        rows, cols = r.rows_r.cpu().numpy(), r.cols_r.cpu().numpy()
+        keep = (cols >= start) & (cols < stop)
+        new_rows, new_cols = rows[keep], cols[keep] - start
+        da = r.ad_r.cpu().numpy()[keep].astype(np.float64)
+        dd = r.dp_r.cpu().numpy()[keep].astype(np.float64)
+        at = (torch.as_tensor(new_rows, device=self.device).long(),
+              torch.as_tensor(new_cols, device=self.device).long())
+        ba = base.ad[at].cpu().numpy().astype(np.float64)
+        bb = base.dp[at].cpu().numpy().astype(np.float64)
+        corr = float(np.sum(_np_log_binom_coeff(bb + dd, ba + da))
+                     - np.sum(_np_log_binom_coeff(bb, ba)))
+        resid = _sparse_from_triplets(new_rows, new_cols, da, dd,
+                                      (self.n_var, base.n_cell), self.device)
+        return HybridCounts(base, resid,
+                            torch.tensor(corr, dtype=torch.float64,
+                                         device=self.device), self.cap)
+
 
 Counts = (DenseCounts, SparseCounts, HybridCounts)
 
@@ -637,9 +678,10 @@ def _dense_bytes(shape, vmax):
     return 2 * shape[0] * shape[1] * itemsize
 
 
-def ladder_rung(shape, vmax, budget):
+def ladder_rung(shape, vmax, budget, packed_budget=None):
     """The rung `counts_from_scipy` places a (n_var, n_cell) pool with
-    largest count `vmax` on, under a budget of `budget` bytes, in the
+    largest count `vmax` on, under a budget of `budget` bytes
+    (`packed_budget` for the packed rungs, default the same), in the
     order of vireo_tpu/ops/counts.py:1533-1614:
 
     - "dense": both matrices in `exact_count_dtype(vmax)` fit;
@@ -652,6 +694,8 @@ def ladder_rung(shape, vmax, budget):
     VIREO_NO_HYBRID=1 skips both hybrid rungs and VIREO_NO_PACKED=1 both
     packed ones.
     """
+    if packed_budget is None:
+        packed_budget = budget
     n_elems = int(shape[0]) * int(shape[1])
     if _dense_bytes(shape, vmax) <= budget:
         return "dense"
@@ -659,14 +703,106 @@ def ladder_rung(shape, vmax, budget):
     packed_ok = os.environ.get("VIREO_NO_PACKED", "0") != "1"
     if vmax > 127 and 2 * n_elems <= budget and not no_hybrid:
         return "int8-hybrid"
-    if vmax <= PACK_MAX and n_elems <= budget and packed_ok:
+    if vmax <= PACK_MAX and n_elems <= packed_budget and packed_ok:
         return "packed"
-    if vmax > PACK_MAX and n_elems <= budget and packed_ok and not no_hybrid:
+    if vmax > PACK_MAX and n_elems <= packed_budget and packed_ok \
+            and not no_hybrid:
         return "packed-hybrid"
     return "coo"
 
 
-def counts_from_scipy(AD, DP, device=None, dense_budget=None, verbose=False):
+def _shard_factor(mesh):
+    """Number of ranks a mesh splits the dense layouts over (the extents
+    count_spec uses: vars x cells): the dense ladder's budget aggregates
+    over them (vireo_tpu/ops/counts.py:1424-1437)."""
+    return 1 if mesh is None else mesh.size
+
+
+def _cell_axis_of(mesh):
+    """The axis a mesh splits cells along (None without a mesh)."""
+    from ..parallel.mesh import CELL_AXIS
+    return None if mesh is None or not mesh.has(CELL_AXIS) else CELL_AXIS
+
+
+def _packed_shard_factor(mesh):
+    """Number of ways the packed rungs' budget aggregates: the cell
+    extent only, as vireo_tpu/ops/counts.py:1462-1474 counts it (its
+    packed layout is 1-D over cells). The port's packed blocks split the
+    variants too on a vars axis, so this sizing is on the safe side."""
+    return 1 if mesh is None else mesh.extent(_cell_axis_of(mesh))
+
+
+def _rung_counts(rung, rows, cols, ad_v, dp_v, shape, vmax, device):
+    """The counts object of `rung` for host triplets of a (V, C) block;
+    the dense rung in `exact_count_dtype(vmax)`."""
+    if rung == "dense":
+        dtype = exact_count_dtype(vmax)
+        return DenseCounts(
+            _scatter_dense(rows, cols, ad_v, shape, dtype, device),
+            _scatter_dense(rows, cols, dp_v, shape, dtype, device))
+    if rung == "int8-hybrid":
+        return _hybrid_from_triplets(rows, cols, ad_v, dp_v, shape, 127,
+                                     "int8", device)
+    if rung == "packed":
+        return _pack_triplets(rows, cols, ad_v, dp_v, shape, device)
+    if rung == "packed-hybrid":
+        return _hybrid_from_triplets(rows, cols, ad_v, dp_v, shape, PACK_MAX,
+                                     "packed", device)
+    return _sparse_from_triplets(rows, cols, ad_v, dp_v, shape, device)
+
+
+def _value_range(*mats):
+    """(smallest, largest) stored value of scipy/numpy count matrices
+    (0 included)."""
+    import scipy.sparse as sp
+    lo = hi = 0.0
+    for X in mats:
+        data = X.data if sp.issparse(X) else np.asarray(X)
+        if data.size:
+            lo, hi = min(lo, float(data.min())), max(hi, float(data.max()))
+    return lo, hi
+
+
+def _block_union(AD, DP, var_range, cell_range):
+    """Host union triplets (`_host_union_triplets`) of the (variant range,
+    cell range) block of AD and DP, in block coordinates: only the block
+    is read, so a rank's host work is its share of the pool's."""
+    import scipy.sparse as sp
+    (v0, v1), (c0, c1) = var_range, cell_range
+
+    def cut(X):
+        X = X.tocsc() if sp.issparse(X) else sp.csc_matrix(np.asarray(X))
+        return X[:, c0:c1][v0:v1]
+
+    return _host_union_triplets(cut(AD), cut(DP))
+
+
+def _mesh_counts(rung, AD, DP, shape, vmax, mesh, device):
+    """This rank's block of `rung` as a ShardedCounts: the packed rungs
+    on the packed cell grid of vireo_tpu/ops/packed.py:616-620 (the
+    model keeps the pool's n_cell; the grid's extra cells are zero),
+    the others on equal ranges of cells, the pool padded with zero-count
+    cells to a multiple of the cell shards."""
+    from ..parallel.mesh import Layout, ShardedCounts, CELL_AXIS
+    from .packed import MeshPackedCounts, packed_cell_block
+    V, C = shape
+    S = mesh.extent(CELL_AXIS)
+    if rung in ("packed", "packed-hybrid"):
+        lay = Layout.even(mesh, (V, C), cell_block=packed_cell_block(C, S))
+        stored = packed_cell_block(C, S)
+    else:
+        lay = Layout.even(mesh, (V, S * -(-C // S)))
+        stored = lay.n_cell_local
+    c0 = lay.cells[0]
+    block = _block_union(AD, DP, lay.vars, (c0, c0 + stored))
+    local = _rung_counts(rung, *block, (lay.n_var_local, stored), vmax,
+                         device)
+    cls = MeshPackedCounts if rung == "packed" else ShardedCounts
+    return cls(local, lay)
+
+
+def counts_from_scipy(AD, DP, device=None, dense_budget=None, verbose=False,
+                      mesh=None):
     """Place a scipy/numpy AD-DP pair on `device` (default:
     utils/device.py's) on the rung that `ladder_rung` picks under
     `dense_budget` bytes (default `device_dense_budget(device)`).
@@ -676,19 +812,44 @@ def counts_from_scipy(AD, DP, device=None, dense_budget=None, verbose=False):
     64M elements in the caller's float type instead; int8 converts to
     float exactly, so the contractions give the same numbers, and the
     fused doublet E-step then sees int8 counts at every size).
+
+    With a `mesh` (parallel/mesh.py), every rank passes the whole pool;
+    the rung is one for all ranks, picked from the global shape and
+    largest count under the budget the mesh spans: an explicit
+    `dense_budget` is the total, the default is the smallest rank's
+    budget times the mesh's size for the dense rungs and times its cell
+    extent for the packed ones (vireo_tpu/ops/counts.py:1521-1532).
+    Each rank places its block on the mesh's device and gets a
+    ShardedCounts (MeshPackedCounts on the packed rung); its n_cell is
+    the pool's, rounded up to the cell shards except on the packed
+    rungs.
     """
+    if mesh is not None:
+        device = mesh.device if device is None else device
+        # each rank reads only its block, once the rung is known
+        vmin, vmax = _value_range(AD, DP)
+    else:
+        rows, cols, ad_v, dp_v = _host_union_triplets(AD, DP)
+        vmax = float(max(ad_v.max() if len(ad_v) else 0.0,
+                         dp_v.max() if len(dp_v) else 0.0))
+        vmin = float(min(ad_v.min() if len(ad_v) else 0.0,
+                         dp_v.min() if len(dp_v) else 0.0))
     device = resolve_device(device)
-    rows, cols, ad_v, dp_v = _host_union_triplets(AD, DP)
-    vmax = float(max(ad_v.max() if len(ad_v) else 0.0,
-                     dp_v.max() if len(dp_v) else 0.0))
-    if float(min(ad_v.min() if len(ad_v) else 0.0,
-                 dp_v.min() if len(dp_v) else 0.0)) < 0:
+    if vmin < 0:
         raise ValueError("counts must be non-negative")
     shape = (int(AD.shape[0]), int(AD.shape[1]))
-    budget = device_dense_budget(device) if dense_budget is None \
-        else dense_budget
-    rung = ladder_rung(shape, vmax, budget)
-    if verbose:
+    if dense_budget is not None:
+        budget = packed_budget = dense_budget
+    elif mesh is None:
+        budget = packed_budget = device_dense_budget(device)
+    else:
+        # the smallest rank's budget, so that every rank picks one rung
+        from ..parallel.mesh import world_min
+        least = world_min(device_dense_budget(device))
+        budget = least * _shard_factor(mesh)
+        packed_budget = least * _packed_shard_factor(mesh)
+    rung = ladder_rung(shape, vmax, budget, packed_budget)
+    if verbose and (mesh is None or mesh.is_root):
         what = {
             "dense": "densified as %s (%.1f GiB)" % (
                 str(exact_count_dtype(vmax)).replace("torch.", ""),
@@ -704,19 +865,10 @@ def counts_from_scipy(AD, DP, device=None, dense_budget=None, verbose=False):
                    "GiB); using COO segment sums"
                    % (_dense_bytes(shape, vmax) / 2**30, budget / 2**30),
         }[rung]
-        print("[vireo] %dx%d counts (max %.0f) on %s: %s"
-              % (shape[0], shape[1], vmax, device, what))
-    if rung == "dense":
-        dtype = exact_count_dtype(vmax)
-        return DenseCounts(
-            _scatter_dense(rows, cols, ad_v, shape, dtype, device),
-            _scatter_dense(rows, cols, dp_v, shape, dtype, device))
-    if rung == "int8-hybrid":
-        return _hybrid_from_triplets(rows, cols, ad_v, dp_v, shape, 127,
-                                     "int8", device)
-    if rung == "packed":
-        return _pack_triplets(rows, cols, ad_v, dp_v, shape, device)
-    if rung == "packed-hybrid":
-        return _hybrid_from_triplets(rows, cols, ad_v, dp_v, shape, PACK_MAX,
-                                     "packed", device)
-    return _sparse_from_triplets(rows, cols, ad_v, dp_v, shape, device)
+        print("[vireo] %dx%d counts (max %.0f) on %s: %s%s"
+              % (shape[0], shape[1], vmax, device, what,
+                 "" if mesh is None else ", split over %d ranks (mesh %s)"
+                 % (mesh.size, mesh.shape)))
+    if mesh is not None:
+        return _mesh_counts(rung, AD, DP, shape, vmax, mesh, device)
+    return _rung_counts(rung, rows, cols, ad_v, dp_v, shape, vmax, device)

@@ -30,8 +30,12 @@ type and calls `torch.matmul` on `lo @ W[0::2] + hi @ W[1::2]`; on the
 CPU that is float64, so the port's CPU runs stay exact. `LAUNCHES`
 counts each kernel's launches.
 
-The reductions, `densify` and `var_subset` are plain PyTorch (the
-reductions over blocks of rows).
+The reductions, `densify`, `var_subset` and `cell_slice` are plain
+PyTorch (the reductions over blocks of rows).
+
+On a mesh, `MeshPackedCounts` is a rank's PackedCounts block behind
+`parallel.mesh.ShardedCounts`: K2 and K3 run on each rank's block and
+their results are all-reduced (`pack_scipy_sharded`).
 """
 
 import ctypes
@@ -40,11 +44,13 @@ import dataclasses
 import torch
 
 from .math import log_binom_coeff
+from ..parallel.mesh import ShardedCounts
 
 __all__ = ["PACK_MAX", "PackedCounts", "pack_dense", "packed_suff_stats",
            "packed_cell_loglik", "suff_stats_reference",
            "cell_loglik_reference", "split_bf16x3", "split_weights_kmajor",
-           "LAUNCHES"]
+           "LAUNCHES", "MeshPackedCounts", "pack_scipy_sharded",
+           "packed_cell_block"]
 
 PACK_MAX = 15  # the largest count a nibble holds exactly
 
@@ -311,6 +317,22 @@ class PackedCounts:
         return PackedCounts(self.ad_p[idx], self.dp_p[idx],
                             (int(idx.shape[0]), self.n_cell))
 
+    def cell_slice(self, start, stop):
+        """Cells [start, stop) as an int8 DenseCounts, unpacking only the
+        bytes that hold them (a whole densify would double the memory the
+        packed rung saves; vireo_tpu/ops/packed.py:344-360)."""
+        from .counts import DenseCounts
+        start, stop = int(start), int(stop)
+        b0, b1 = start // 2, -(-stop // 2)
+        off = start - 2 * b0
+
+        def part(p):
+            lo, hi = _unpack(p[:, b0:b1], torch.int8)
+            full = torch.stack([lo, hi], dim=2).reshape(self.n_var, -1)
+            return full[:, off:off + max(stop - start, 0)].contiguous()
+
+        return DenseCounts(part(self.ad_p), part(self.dp_p))
+
 
 def _pack_pair(x):
     """(V, C) integer counts in [0, 15] -> (V, ceil(C / 2)) uint8 bytes."""
@@ -332,3 +354,86 @@ def pack_dense(ad, dp):
                              % (name, PACK_MAX))
     return PackedCounts(_pack_pair(ad), _pack_pair(dp),
                         (int(ad.shape[0]), int(ad.shape[1])))
+
+
+# --------------------------------------------------------------------
+# the packed rung on a mesh
+# --------------------------------------------------------------------
+
+def packed_cell_block(n_cell, n_shards, block_c=2048):
+    """Cells of each rank's packed block: ceil(n_cell / n_shards) rounded
+    up to whole kernel blocks of bytes, as
+    vireo_tpu/ops/packed.py:616-620 rounds them (two cells a byte,
+    blocks of min(block_c, the bytes rounded to 128)). The port's kernels
+    mask ragged edges, so the rounding keeps only the JAX package's
+    ranges; the grid's extra cells hold zeros."""
+    def up(x, m):
+        return -(-x // m) * m
+    c2 = -(-(-(-int(n_cell) // int(n_shards))) // 2)
+    bc = min(block_c, up(max(c2, 1), 128))
+    return 2 * up(max(c2, 1), bc)
+
+
+class MeshPackedCounts(ShardedCounts):
+    """The packed rung on a mesh (vireo_tpu/ops/packed.py:432-593): each
+    rank holds a PackedCounts block of its cells (of its variants too on
+    a vars axis), on the JAX package's cell grid or on the ranges a
+    loader gives (`pack_scipy_sharded`). `suff_stats` runs K2 on the
+    block and all-reduces the (n_var_local, N) statistics over the
+    cells; `cell_loglik` runs K3 on the block (its sums over variants
+    all-reduced on a vars axis). The model's n_cell is the pool's; the
+    grid's extra cells are zero and never leave the block."""
+
+    @property
+    def n_shards(self):
+        from ..parallel.mesh import CELL_AXIS
+        return self.mesh.extent(CELL_AXIS)
+
+    @property
+    def c2_local(self):
+        """Bytes of a row of this rank's block (two cells a byte)."""
+        return self.local.ad_p.shape[1]
+
+    @property
+    def n_cell_pad(self):
+        return 2 * self.c2_local * self.n_shards
+
+
+def pack_scipy_sharded(AD, DP, mesh, axis=None, block_c=2048,
+                       cell_range=None, device=None):
+    """A MeshPackedCounts of a scipy/numpy AD-DP pair with every count
+    <= PACK_MAX (the ladder checks the largest first).
+
+    Without `cell_range`, AD and DP are the whole pool on every rank:
+    cells split into the ranges of `packed_cell_block` (the JAX
+    package's grid) and each rank packs its range, on the mesh's device.
+    With `cell_range`, (lo, hi, c_local, n_cell) from
+    `parallel.loader.load_cellSNP_sharded`, AD and DP are this rank's
+    columns [lo, hi) of an n_cell pool split into ranges of c_local.
+    `axis` names the cell axis (default "cells")."""
+    from ..parallel.mesh import Layout, CELL_AXIS
+    from .counts import _value_range, _block_union, _pack_triplets
+    if axis not in (None, CELL_AXIS):
+        raise ValueError("the packed layout splits the cell axis, %r"
+                         % (CELL_AXIS,))
+    device = mesh.device if device is None else torch.device(device)
+    vmin, vmax = _value_range(AD, DP)
+    if vmin < 0 or vmax > PACK_MAX:
+        raise ValueError("packed counts hold values in [0, %d]" % PACK_MAX)
+    V = int(AD.shape[0])
+    S = mesh.extent(CELL_AXIS)
+    if cell_range is None:
+        C = int(AD.shape[1])
+        block = packed_cell_block(C, S, block_c)
+        lay = Layout.even(mesh, (V, C), cell_block=block)
+        c0 = lay.cells[0]
+    else:
+        lo, hi, block, C = (int(x) for x in cell_range)
+        lay = Layout.even(mesh, (V, C), cell_block=block)
+        if lay.cells != (lo, hi) or AD.shape[1] != hi - lo:
+            raise ValueError("cells [%d, %d) are not this rank's range %s"
+                             % (lo, hi, lay.cells))
+        c0 = 0
+    r, c, a, d = _block_union(AD, DP, lay.vars, (c0, c0 + block))
+    local = _pack_triplets(r, c, a, d, (lay.n_var_local, block), device)
+    return MeshPackedCounts(local, lay)

@@ -1,10 +1,16 @@
 """Checkpoint and resume for long fits (counterpart of
-vireo_tpu/utils/checkpoint.py, single process).
+vireo_tpu/utils/checkpoint.py).
 
 One `.npz` per checkpoint, with the JAX package's keys and file names
 (the state's fields, `prior_*`, `extra_*`, `fp_*` for the run's
 fingerprint) and the numpy global RNG in its own `.npz`, so each package
 reads the other's files.
+
+On a mesh (a `layout`, parallel/mesh.py) every rank calls these
+functions: `save_state` gathers the global state (as
+vireo_tpu/utils/checkpoint.py:38-52 fetches its sharded state), rank 0
+writes it and every rank waits for the file; `load_state` reads the
+global file on every rank and keeps the rank's block.
 """
 
 import glob
@@ -15,6 +21,8 @@ import numpy as np
 import torch
 
 from ..models.vireo import VireoState, VireoPriors
+from ..parallel.mesh import (shard_state, gather_state, shard_priors,
+                             gather_priors)
 from .device import resolve_device, default_dtype
 
 __all__ = ["save_state", "load_state", "latest_step", "save_rng",
@@ -32,13 +40,32 @@ def _host(x):
 
 
 def save_state(ckpt_dir, step, state, priors=None, elbo_trace=None,
-               extra=None, fingerprint=None):
+               extra=None, fingerprint=None, layout=None, ase=False):
     """Write a checkpoint atomically (a temporary file, then a rename).
 
     `fingerprint` is a flat dict of scalars that identify the run
     (shapes, n_donor, n_init, seed, ...); `check_fingerprint` refuses
-    to resume from a checkpoint whose fingerprint differs.
+    to resume from a checkpoint whose fingerprint differs. With a
+    `layout`, `state` and `priors` are this rank's blocks (thetas per
+    variant when `ase`): they are gathered, rank 0 writes, and every
+    rank returns once the file is there.
     """
+    if layout is not None:
+        state = gather_state(state, layout, ase)
+        if priors is not None:
+            priors = gather_priors(priors, layout)
+        if not layout.mesh.is_root:
+            layout.mesh.barrier()
+            return _path(ckpt_dir, step)
+    path = _write_state(ckpt_dir, step, state, priors, elbo_trace, extra,
+                        fingerprint)
+    if layout is not None:
+        layout.mesh.barrier()
+    return path
+
+
+def _write_state(ckpt_dir, step, state, priors, elbo_trace, extra,
+                 fingerprint):
     payload = {"beta_mu": _host(state.beta_mu),
                "beta_sum": _host(state.beta_sum),
                "gt_prob": _host(state.gt_prob),
@@ -71,9 +98,11 @@ def latest_step(ckpt_dir):
     return max(int(os.path.basename(p)[11:-4]) for p in paths)
 
 
-def load_state(ckpt_dir, step=None, dtype=None, device=None):
+def load_state(ckpt_dir, step=None, dtype=None, device=None, layout=None,
+               ase=False):
     """(state, priors or None, dict of extras) from a checkpoint, as
-    tensors of `dtype` on `device` (defaults: utils/device.py's)."""
+    tensors of `dtype` on `device` (defaults: utils/device.py's); with a
+    `layout`, this rank's blocks of the global state and priors."""
     device = resolve_device(device)
     dtype = dtype or default_dtype(device)
     if step is None:
@@ -95,6 +124,10 @@ def load_state(ckpt_dir, step=None, dtype=None, device=None):
         extras = {k[6:]: z[k] for k in z.files if k.startswith("extra_")}
         if "elbo_trace" in z:
             extras["elbo_trace"] = z["elbo_trace"]
+    if layout is not None:
+        state = shard_state(state, layout, ase)
+        if priors is not None:
+            priors = shard_priors(priors, layout)
     return state, priors, extras
 
 
@@ -125,13 +158,19 @@ def check_fingerprint(ckpt_dir, fingerprint, step=None):
             "--checkpointDir elsewhere." % (ckpt_dir, detail))
 
 
-def save_rng(ckpt_dir, name="rng_state"):
-    """Save numpy's global RNG state (the seeded init stream)."""
+def save_rng(ckpt_dir, name="rng_state", mesh=None):
+    """Save numpy's global RNG state (the seeded init stream); on a
+    `mesh`, rank 0's, and every rank returns once it is written."""
+    if mesh is not None and not mesh.is_root:
+        mesh.barrier()
+        return
     os.makedirs(ckpt_dir, exist_ok=True)
     s = np.random.get_state()
     np.savez(os.path.join(ckpt_dir, name + ".npz"),
              name=np.array(s[0]), keys=s[1], pos=np.array(s[2]),
              has_gauss=np.array(s[3]), cached=np.array(s[4]))
+    if mesh is not None:
+        mesh.barrier()
 
 
 def load_rng(ckpt_dir, name="rng_state"):
