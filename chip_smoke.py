@@ -7,9 +7,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. environment: torch, CUDA and nvcc versions, the card's name and power
    limit; there is no CPU path;
-2. build: the CUDA kernels, K1 (csrc/fused_estep.cu) and K2/K3
-   (csrc/packed_counts.cu), from the sources in the checkout, one nvcc
-   for each, started together;
+2. build: the CUDA kernels, K1 (csrc/fused_estep.cu), K2/K3
+   (csrc/packed_counts.cu) and the probes' A/B (csrc/probe_nibbles.cu)
+   and C/D (csrc/probe_coo.cu), from the sources in the checkout, one
+   nvcc for each, started together;
 3. K1 against its plain PyTorch version on the card, at the slice's
    shapes (two edge shapes, one with K above 256 and an unaligned C;
    the fit over 8192 cells and the fused fit's iteration on the main
@@ -29,6 +30,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    as close as one); both times, each kernel's bound and achieved
    TFLOP/s, and as the library call one cuBLAS float32 torch.matmul on
    the counts unpacked ahead of the timing, where they fit the card;
+4b. `[probes]`: the kernels of the probes of benchmarks/
+   (vireo_tpu_torch/probes/) against their plain versions: A
+   (nibble_unpack) in its three variants bit for bit at the probe's
+   256 x 512 bytes and the main pool's packed AD (30000 x 50000 bytes);
+   B (packed_mm) in its three codecs at 30000 x 100000 @ 100000 x 16,
+   exactly on integer weights and on sparse weights that use every bit
+   of a bf16 significand, and on random bf16 weights within a
+   probabilistic sum bound against float64 sums; C (coo_gather) in both
+   layouts at 4,194,304
+   nonzeros over 100000 cells (W through L2) and 3500 (W in shared
+   memory), against float64 sums within its chain's bound; D
+   (coo_scatter) within Higham's bound a bin; each timed against its
+   plain version in turns, beside its library call (B: the bf16 dense
+   product of the unpacked counts, and the int8 counts converted in the
+   call; C: index_select and a product; D: index_add_; A: none) and its
+   bound; A's and B's registers and instruction counts (cuobjdump, via
+   ops/sass.py); then the four probes' entry points at their JAX
+   defaults (and coo_pallas_probe again at PB_CELLS=3500, W in shared
+   memory), each with the launch counts set to 0 just before it and
+   read just after: each launches exactly the kernels and counts its
+   code calls for, and these are the probes' launches in the kernels
+   line. The probes lie on no path of vireo_wrap: their launches in
+   phases 7 and 8 must be 0;
 5. `[mt]`: the main call's seeded inits (20 restarts, 60.8M doubles of
    numpy's stream) drawn on the host and regenerated on the card
    (ops/mt19937.py): equal bit for bit, numpy's position equal after,
@@ -227,6 +251,47 @@ K23_SHAPES = (
     ("doublet", 30000, 100000, 136, ("suff_stats", "cell_loglik")),
     ("capacity", 100000, 300000, 16, ("suff_stats", "cell_loglik")),
 )
+# --- the probes of benchmarks/ (vireo_tpu_torch/probes/): kernels A-D ---
+# A (nibble_unpack) bit for bit at the probe's (256, 512) bytes and at
+# the main pool's packed AD, 30000 x 50000 bytes, timed there; B
+# (packed_mm) at int4_micro's 30000 x 100000 @ 100000 x 16; C
+# (coo_gather) at 4,194,304 nonzeros over C = 100000 cells (W read
+# through L2) and C = 3500 (W staged in shared memory), in both layouts;
+# D (coo_scatter) at 4,194,304 nonzeros.
+PROBE_UNPACK = ((256, 512), (30000, 50000))
+PROBE_MM = (30000, 100000, 16)
+PROBE_NNZ = 4_194_304
+PROBE_CELLS = (100_000, 3_500)
+# kernel C's block (csrc/probe_coo.cu, kThreads): 512 threads, 16 warps.
+# Its sums are chains of: a thread's FMAs over its nonzeros, a 5-level
+# shuffle tree, the 16 warps in order, then the blocks in order; so
+# against float64 sums it errs by at most gamma_d sum|terms|, d the
+# chain's length. Against the plain float32 version (whose order is
+# torch's) by at most (gamma_d + gamma_nnz) sum|terms|.
+PROBE_COO_THREADS, PROBE_COO_WARPS = 512, 16
+# B: every product (a nibble, or a byte, times a bf16 weight) is exact in
+#   float32, so only the order of the adds differs from the plain version.
+#   Exactly equal to it on integer weights (-2..2), and on sparse weights
+#   +-m 2^-7 (m odd, 129..255: all eight bits of a bf16 significand; one
+#   row in PROBE_MM_SPARSE nonzero) whose sums stay below 2^24 units of
+#   2^-7, checked on the data, so that every order of adds is exact. On
+#   random normal weights against float64 sums within Higham and Mary's
+#   probabilistic bound (SIAM J. Sci. Comput. 41(5), 2019), lambda
+#   sqrt(n) u sum|terms|, n the k values of an output (C cells; C / 2
+#   bytes for raw_byte): with lambda = 8 an output exceeds it with
+#   probability below 2n exp(-lambda^2 / 2) = 3e-9 when the rounding
+#   errors are independent and of mean zero. The tensor cores truncate
+#   within each 64-deep k-block, which biases those errors; summed over
+#   the k-blocks (which the CUDA cores add with rounding) that bias stays
+#   below 1/40 of the bound at these counts.
+PROBE_MM_SPARSE = 128
+PROBE_MM_LAMBDA = 8.0
+# D: a bin's n nonzeros are added by atomics in some order within a
+#   block, then the blocks' tiles in order, so (gamma_(n + blocks) +
+#   gamma_n) sum|v| over the bin against the plain version.
+# float32 outside the tensor cores (C's and D's adds), NVIDIA's data
+# sheet, H100 SXM
+PEAK_F32_FLOPS = 67e12
 # the packed main path's budget: int8 (6.0e9 B) does not fit, packed
 # (3.0e9 B) does; what a card with about 7 GiB free gives (55% of it)
 PACKED_BUDGET_GB = "4"
@@ -341,15 +406,17 @@ def phase_environment(torch):
 
 
 def phase_build():
-    """Both kernel libraries, their nvcc runs started together."""
+    """The four kernel libraries, their nvcc runs started together."""
     from concurrent.futures import ThreadPoolExecutor
     from vireo_tpu_torch.ops import fused_em, packed
+    from vireo_tpu_torch.probes import coo_pallas_probe, nibbles
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(fused_em._library), pool.submit(packed._library)]:
+    libs = (fused_em, packed, nibbles, coo_pallas_probe)
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for f in [pool.submit(m._library) for m in libs]:
             f.result()
-    log("[build] K1 and K2/K3 built and loaded in %.2f s"
-        % (time.perf_counter() - t0))
+    log("[build] K1, K2/K3 and the probes' A/B and C/D built and loaded in "
+        "%.2f s" % (time.perf_counter() - t0))
 
 
 def _k1_inputs(torch, V, C, K, seed, device):
@@ -647,10 +714,10 @@ def _term_errors(torch, name, kern, plain, pc, w, got):
     return errs
 
 
-def _bound(flops, nbytes):
-    """(ms, what bounds it): the larger of flops at the bf16 peak and
-    bytes at the memory's rate."""
-    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+def _bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    """(ms, what bounds it): the larger of flops at `peak` (the bf16
+    peak by default) and bytes at the memory's rate."""
+    ops_ms = flops / peak * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     return ((ops_ms, "operations") if ops_ms >= bytes_ms
             else (bytes_ms, "bytes"))
@@ -819,18 +886,316 @@ def _k23_times(torch, name, kern, plain, pc, w, X, V, C, N):
     return res
 
 
-def _bound_check(name, got, ref, bound):
+def _bound_check(name, got, ref, bound, tag="k23"):
     err = (got - ref).abs()
     bad = int((err > bound).sum())
     rel = float((err / ref.abs().clamp(min=1e-30)).max())
     ratio = float((err / bound.clamp(min=1e-30)).max())
-    log("[k23]   %-22s max_abs_err %.3e  max|ref| %.3e  max rel err %.3e  "
+    log("[%s]   %-22s max_abs_err %.3e  max|ref| %.3e  max rel err %.3e  "
         "max bound %.3e  max err/bound %.3f  %s"
-        % (name, float(err.max()), float(ref.abs().max()), rel,
+        % (tag, name, float(err.max()), float(ref.abs().max()), rel,
            float(bound.max()), ratio, "ok" if bad == 0 else "%d OVER" % bad))
     if bad:
         raise AssertionError("%s disagrees with its plain version" % name)
     return float(err.max())
+
+
+def _gamma(n):
+    """Higham's gamma_n of float32 (n a number or a tensor)."""
+    return n * F32_UNIT / (1 - n * F32_UNIT)
+
+
+def _probe_times(torch, tag, res, kern, plain, library, flops, nbytes,
+                 peak=PEAK_BF16_FLOPS):
+    """Kernel and plain version in turns, the library call (None where
+    there is none) and the bound, into res; logged."""
+    res["ms"], res["plain_ms"], nrun = _timed_pair(torch, kern, plain)
+    res["library_ms"] = (None if library is None else
+                         float(np.median(_time_ms(torch, library, reps=6))))
+    res["bound_ms"], res["bound_by"] = _bound(flops, nbytes, peak)
+    log("[probes]   %s median ms: kernel %.4f  plain %.4f  library %s "
+        "(CUDA events, %d runs each); bound %.4f ms (%s): the kernel at "
+        "%.1f%% of it" % (tag, res["ms"], res["plain_ms"],
+                          "none" if library is None
+                          else "%.4f" % res["library_ms"], nrun,
+                          res["bound_ms"], res["bound_by"],
+                          100.0 * res["bound_ms"] / res["ms"]))
+    return res
+
+
+def _probe_unpack(torch, nibbles, dev):
+    """Kernel A's three variants bit for bit against the plain version;
+    timed at the larger shape. No single PyTorch call computes both
+    planes, so A has no library time."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    out = {}
+    for R, C in PROBE_UNPACK:
+        p = torch.randint(0, 256, (R, C), generator=g, dtype=torch.uint8,
+                          device=dev)
+        ref = nibbles.nibble_unpack_reference(p)
+        for variant in nibbles.VARIANTS:
+            got = nibbles.nibble_unpack(p, variant)
+            for a, b in zip(got, ref):
+                if not torch.equal(a.view(torch.int16), b.view(torch.int16)):
+                    raise AssertionError("nibble_unpack %s at %d x %d "
+                                         "differs from its plain version"
+                                         % (variant, R, C))
+            del got
+            log("[probes] A nibble_unpack %-7s %d x %d bytes: both planes "
+                "equal to the plain version bit for bit" % (variant, R, C))
+            if (R, C) == PROBE_UNPACK[-1]:
+                out["nibble_unpack_" + variant] = _probe_times(
+                    torch, "A " + variant, dict(max_abs_err=0.0),
+                    lambda: nibbles.nibble_unpack(p, variant),
+                    lambda: nibbles.nibble_unpack_reference(p), None,
+                    0.0, 5.0 * R * C)
+        del p, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mm_magnitude(torch, nibbles, p, we, wo, codec):
+    """sum|terms| of each of kernel B's outputs, in float64."""
+    if codec != "raw_byte":
+        return nibbles.packed_mm_reference(p, we.abs(), wo.abs(), codec,
+                                           dtype=torch.float64)
+    wa = we.double().abs()
+    return torch.cat([torch.matmul(rows.view(torch.int8).double().abs(), wa)
+                      for rows in p.split(4096)])
+
+
+def _full_mantissa_weights(torch, shape, g, dev):
+    """+-m 2^-7 (m odd, 129..255) in one row of PROBE_MM_SPARSE, else 0."""
+    m = 129 + 2 * torch.randint(0, 64, shape, generator=g, device=dev)
+    sign = 2 * torch.randint(0, 2, shape, generator=g, device=dev) - 1
+    keep = torch.rand(shape, generator=g, device=dev) < 1.0 / PROBE_MM_SPARSE
+    return (m * sign * keep).float() * 2.0 ** -7
+
+
+def _probe_mm(torch, nibbles, dev):
+    """Kernel B's three codecs against the plain version: exactly on
+    integer weights and on sparse weights that use every bit of a bf16
+    significand, and on random bf16 weights within the probabilistic sum
+    bound against float64 sums (PROBE_MM_LAMBDA); timed beside the dense
+    products of the unpacked counts (cuBLAS, bf16)."""
+    from vireo_tpu_torch.ops.packed import pack_nibbles
+    from vireo_tpu_torch.probes import int4_micro
+    V, C, K = PROBE_MM
+    x8, w, _ = int4_micro.make_pool(V, C, K, dev, seed=1)
+    p = pack_nibbles(x8)
+    Cb = p.shape[1]
+    g = torch.Generator(device=dev)
+    g.manual_seed(V + C + K)
+    # weights whose sums are exact in float32 in any order of adds while
+    # sum|terms| stays below 2^24 of their unit (checked on the data)
+    exact = {
+        "integer": (1.0, [torch.randint(-2, 3, (Cb, K), generator=g,
+                                        device=dev).float()
+                          for _ in range(2)]),
+        "full-significand": (2.0 ** -7, [
+            _full_mantissa_weights(torch, (Cb, K), g, dev)
+            for _ in range(2)])}
+    we, wo = (x.to(torch.bfloat16).float()
+              for x in int4_micro.split_weights(w))
+    wb = w.to(torch.bfloat16)
+    xb = x8.to(torch.bfloat16)
+    lib_ms = float(np.median(_time_ms(torch, lambda: torch.matmul(xb, wb),
+                                      reps=6)))
+    lib_err = float((torch.matmul(xb, wb).float() - nibbles.
+                     packed_mm_reference(p, we, wo)).abs().max())
+    int8_ms = float(np.median(_time_ms(
+        torch, lambda: torch.matmul(x8.to(torch.bfloat16), wb), reps=6)))
+    del x8
+    torch.cuda.empty_cache()
+    log("[probes] B library: torch.matmul of the bf16 counts (%d x %d) "
+        "by bf16 W %.4f ms (max |diff| from the plain version %.3e, its "
+        "bf16 output); with the int8 counts converted to bf16 in the call "
+        "%.4f ms" % (V, C, lib_ms, lib_err, int8_ms))
+    out = {}
+    for codec in nibbles.CODECS:
+        raw = codec == "raw_byte"
+        n = Cb if raw else 2 * Cb
+        for kind, (unit, ws) in exact.items():
+            got = nibbles.packed_mm(p, *ws, codec=codec)
+            ref = nibbles.packed_mm_reference(p, *ws, codec=codec)
+            top = float(_mm_magnitude(torch, nibbles, p, *ws, codec).max())
+            if top >= 2.0 ** 24 * unit:
+                raise AssertionError("B %s %s weights: sum|terms| %.0f "
+                                     "is not exact in float32"
+                                     % (codec, kind, top))
+            if not torch.equal(got, ref):
+                raise AssertionError(
+                    "packed_mm %s on %s weights differs from its plain "
+                    "version by %.3e" % (codec, kind,
+                                         float((got - ref).abs().max())))
+            log("[probes] B packed_mm %s %d x %d @ %d x %d: %s weights "
+                "equal to the plain version (largest sum|terms| %.0f, "
+                "exact below %.0f)" % (codec, V, C, C, K, kind, top,
+                                       2.0 ** 24 * unit))
+        got = nibbles.packed_mm(p, we, wo, codec)
+        ref64 = nibbles.packed_mm_reference(p, we, wo, codec,
+                                            dtype=torch.float64)
+        mag = _mm_magnitude(torch, nibbles, p, we, wo, codec)
+        _bound_check("B %s f64" % codec, got, ref64,
+                     PROBE_MM_LAMBDA * n ** 0.5 * F32_UNIT * mag,
+                     tag="probes")
+        err = float((got - nibbles.packed_mm_reference(p, we, wo, codec))
+                    .abs().max())
+        log("[probes] B %s on normal weights: max |err| against float64 "
+            "%.3e, rms of the outputs %.3e; against the float32 plain "
+            "version %.3e" % (codec, float((got - ref64).abs().max()),
+                              float(ref64.pow(2).mean().sqrt()), err))
+        del got, ref64, mag
+        out["packed_mm_" + codec] = _probe_times(
+            torch, "B " + codec, dict(max_abs_err=err, int8_ms=int8_ms),
+            lambda: nibbles.packed_mm(p, we, wo, codec),
+            lambda: nibbles.packed_mm_reference(p, we, wo, codec),
+            lambda: torch.matmul(xb, wb),
+            2.0 * V * n * K, V * Cb + (1 if raw else 2) * Cb * K * 2.0
+            + 4.0 * V * K)
+    del p, xb
+    torch.cuda.empty_cache()
+    return out
+
+
+def _probe_coo(torch, coo, dev):
+    """Kernel C in both layouts at each of PROBE_CELLS and kernel D,
+    against their plain versions within the bounds stated above; timed
+    beside index_select and a product (C) and index_add_ (D)."""
+    nnz, K = PROBE_NNZ, coo.K
+    g = torch.Generator(device=dev)
+    g.manual_seed(nnz)
+    val = torch.rand(nnz, generator=g, device=dev)
+    out = {}
+    for C in PROBE_CELLS:
+        idx = torch.randint(0, C, (nnz,), generator=g, dtype=torch.int32,
+                            device=dev)
+        staged = coo.gather_staged(C)
+        blocks = coo._library().vireo_probe_coo_blocks(nnz, int(staged))
+        depth = (-(-nnz // (blocks * PROBE_COO_THREADS)) + 5
+                 + PROBE_COO_WARPS + blocks)
+        for layout in coo.LAYOUTS:
+            shape = (C, K) if layout == "rows" else (K, C)
+            w = torch.rand(shape, generator=g, device=dev)
+            got = coo.coo_gather(idx, val, w, layout)
+            ref64 = coo.coo_gather_reference(idx, val, w, layout,
+                                             dtype=torch.float64)
+            ref = coo.coo_gather_reference(idx, val, w, layout)
+            tag = "C %s C=%d (W %s)" % (layout, C, "in shared memory"
+                                        if staged else "through L2")
+            _bound_check(tag + " f64", got.double(), ref64,
+                         _gamma(depth) * ref64, tag="probes")
+            err = _bound_check(tag + " f32", got, ref,
+                               (_gamma(depth) + _gamma(nnz))
+                               * ref64.float(), tag="probes")
+            if layout == "rows":
+                library = lambda: coo.take_sum(idx, val, w)  # noqa: E731
+            else:
+                library = lambda: torch.matmul(  # noqa: E731
+                    w.index_select(1, idx), val)
+            name = "coo_gather_%s%s" % (layout, "_smem" if staged else "")
+            out[name] = _probe_times(
+                torch, tag, dict(max_abs_err=err, staged=staged),
+                lambda: coo.coo_gather(idx, val, w, layout),
+                lambda: coo.coo_gather_reference(idx, val, w, layout),
+                library, 2.0 * nnz * K, 8.0 * nnz + 4.0 * C * K + 4.0 * K,
+                PEAK_F32_FLOPS)
+            del w
+    r = torch.randint(0, coo.TILE[0], (nnz,), generator=g,
+                      dtype=torch.int32, device=dev)
+    c = torch.randint(0, coo.TILE[1], (nnz,), generator=g,
+                      dtype=torch.int32, device=dev)
+    got = coo.coo_scatter(r, c, val)
+    ref = coo.coo_scatter_reference(r, c, val)
+    n = coo.coo_scatter_reference(r, c, torch.ones_like(val))
+    blocks = coo._library().vireo_probe_coo_blocks(nnz, 0)
+    err = _bound_check("D scatter", got, ref,
+                       (_gamma(n + blocks) + _gamma(n)) * ref,
+                       tag="probes")
+    flat = r.long() * coo.TILE[1] + c.long()
+    tile = torch.zeros(coo.TILE[0] * coo.TILE[1], device=dev)
+    out["coo_scatter"] = _probe_times(
+        torch, "D scatter", dict(max_abs_err=err),
+        lambda: coo.coo_scatter(r, c, val),
+        lambda: coo.coo_scatter_reference(r, c, val),
+        lambda: tile.index_add_(0, flat, val), float(nnz),
+        12.0 * nnz + 4.0 * tile.numel(), PEAK_F32_FLOPS)
+    return out
+
+
+def _probe_sass():
+    """Registers and instruction counts of kernels A and B by variant and
+    codec, from cuobjdump on the built library (ops/sass.py)."""
+    from vireo_tpu_torch.ops import sass
+    from vireo_tpu_torch.ops._build import library_path
+    fns, regs = sass.dump(library_path("probe_nibbles"))
+    # kernels by their mangled names' templates
+    names = {"nibble_unpack_kernelILi0E": "A int8",
+             "nibble_unpack_kernelILi1E": "A int32",
+             "nibble_unpack_kernelILi2E": "A bitcast",
+             "7Nibbles": "B nibble_int", "11NibbleFloat": "B nibble_float",
+             "7RawByte": "B raw_byte"}
+    for fn, code in sorted(fns.items()):
+        label = next((v for k, v in names.items() if k in fn), None)
+        if label:
+            top = sorted(sass.opcode_counts(code).items(),
+                         key=lambda kv: -kv[1])[:12]
+            log("[probes] %-15s %s registers; SASS: %d instructions; %s"
+                % (label, regs.get(fn, "?"), len(code),
+                   ", ".join("%s %d" % kv for kv in top)))
+
+
+def phase_probes(torch):
+    """The probes' kernels A-D against their plain versions at the probes'
+    widths, with their times, library times and bounds; their register
+    and instruction counts; then the probes' own entry points, each with
+    every launch count set to 0 just before it and read just after: each
+    must launch the kernels its lines time, as often as its code calls
+    them. Returns the kernels' records and their launches in those runs."""
+    import importlib
+    from vireo_tpu_torch.probes import coo_pallas_probe, int4_micro, nibbles
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    res = _probe_unpack(torch, nibbles, dev)
+    res.update(_probe_mm(torch, nibbles, dev))
+    res.update(_probe_coo(torch, coo_pallas_probe, dev))
+    _probe_sass()
+    it = int4_micro.settings()["ITERS"]
+    # module, PB_CELLS, the launches of its code: one a check, one a
+    # warm-up and `it` timed by ms_per_call, one and three by timed
+    runs = (
+        ("unpack_probe", None,
+         {"nibble_unpack_" + v: 1 for v in nibbles.VARIANTS}),
+        ("int4_micro", None, {"packed_mm_nibble_int": it + 2}),
+        ("pack_kernel_tune", None,
+         {"packed_mm_nibble_int": it + 2, "packed_mm_nibble_float": it + 2,
+          "packed_mm_raw_byte": it + 1}),
+        ("coo_pallas_probe", PROBE_CELLS[0],
+         {"coo_gather_rows": 4, "coo_gather_cols": 4, "coo_scatter": 4}),
+        ("coo_pallas_probe", PROBE_CELLS[1],
+         {"coo_gather_rows_smem": 4, "coo_gather_cols_smem": 4,
+          "coo_scatter": 4}))
+    path = dict.fromkeys(_probe_launches(), 0)
+    for name, cells, want in runs:
+        log("[probes] %spython -m vireo_tpu_torch.probes.%s"
+            % ("" if cells is None else "PB_CELLS=%d " % cells, name))
+        with _env("PB_CELLS", None if cells is None else str(cells)):
+            _reset_launches()
+            importlib.import_module("vireo_tpu_torch.probes." + name).main(
+                dev)
+            made = {k: v for k, v in _probe_launches().items() if v}
+        log("[probes] its launches: %s" % json.dumps(made))
+        if made != want:
+            raise AssertionError("probes.%s launched %s, not %s"
+                                 % (name, json.dumps(made), json.dumps(want)))
+        for key, count in made.items():
+            path[key] += count
+        torch.cuda.empty_cache()
+    if not all(path.values()):
+        raise AssertionError("the probes launched %s" % json.dumps(path))
+    log("[probes] the phase took %.1f s" % (time.perf_counter() - t0))
+    return res, path
 
 
 def _main_pool():
@@ -1062,14 +1427,28 @@ def phase_cli_full(torch, d, cell):
 def _reset_launches():
     from vireo_tpu_torch.ops import fused_em, packed
     fused_em.LAUNCHES = 0
-    for key in packed.LAUNCHES:
-        packed.LAUNCHES[key] = 0
+    for counts in (packed.LAUNCHES,) + _probe_counters():
+        for key in counts:
+            counts[key] = 0
 
 
 def _launches():
     from vireo_tpu_torch.ops import fused_em, packed
     return dict(K1=fused_em.LAUNCHES, K2=packed.LAUNCHES["suff_stats"],
                 K3=packed.LAUNCHES["cell_loglik"])
+
+
+def _probe_counters():
+    from vireo_tpu_torch.probes import coo_pallas_probe, nibbles
+    return (nibbles.LAUNCHES, coo_pallas_probe.LAUNCHES)
+
+
+def _probe_launches():
+    """The probes' kernels A-D by their wrappers' names."""
+    out = {}
+    for counts in _probe_counters():
+        out.update(counts)
+    return out
 
 
 @contextlib.contextmanager
@@ -1113,6 +1492,7 @@ def _run_main(torch, d, tag):
                          check_doublet=True, verbose=False, timing=phases)
     wall = time.perf_counter() - t0
     launches = _launches()
+    launches.update(_probe_launches())
     _log_fit_lengths("[%s]" % tag, fits)
     peak = torch.cuda.max_memory_allocated()
     for name, sec in phases.items():
@@ -1146,17 +1526,23 @@ def phase_main_path(torch, d):
 
 
 @contextlib.contextmanager
-def _dense_budget(gb):
-    """VIREO_DENSE_BUDGET_GB=gb (unset when None) for the block only."""
-    saved = os.environ.pop("VIREO_DENSE_BUDGET_GB", None)
-    if gb is not None:
-        os.environ["VIREO_DENSE_BUDGET_GB"] = gb
+def _env(name, value):
+    """The environment variable `name` set to value (unset when None) for
+    the block only."""
+    saved = os.environ.pop(name, None)
+    if value is not None:
+        os.environ[name] = value
     try:
         yield
     finally:
-        os.environ.pop("VIREO_DENSE_BUDGET_GB", None)
+        os.environ.pop(name, None)
         if saved is not None:
-            os.environ["VIREO_DENSE_BUDGET_GB"] = saved
+            os.environ[name] = saved
+
+
+def _dense_budget(gb):
+    """VIREO_DENSE_BUDGET_GB=gb (unset when None) for the block only."""
+    return _env("VIREO_DENSE_BUDGET_GB", gb)
 
 
 def phase_packed_main_path(torch, d, dense_res):
@@ -2357,6 +2743,7 @@ def main():
     phase_build()
     k1 = phase_k1(torch)
     k23 = phase_k23(torch)
+    probes, probe_launches = phase_probes(torch)
     phase_mt(torch)
     d = _main_pool()
     phase_synth(torch, d)
@@ -2390,31 +2777,58 @@ def main():
     phase_checkpoints(torch)
     phase_cli()
 
-    # each kernel at its main-path shape: K1 at the doublet phase's, and
-    # at the fused fit's with that fit's launches; K2 and K3 at the warm
-    # restarts' (N = 20 x 16)
+    # each kernel at its main-path shape, with the launches of the run of
+    # its path: K1 at the doublet phase's (vireo_wrap on the dense rung),
+    # and at the fused fit's with that fit's launches; K2 and K3 at the
+    # warm restarts' (N = 20 x 16; vireo_wrap on the packed rung)
     table = [
         ("fused_estep_stats", "vireo_tpu_torch/csrc/fused_estep.cu",
-         "vireo_tpu/ops/pallas_em.py:145", dense_launches["K1"],
-         k1["doublet"]),
+         "vireo_tpu/ops/pallas_em.py:145", "vireo_wrap dense",
+         dense_launches["K1"], k1["doublet"]),
         ("fused_estep_stats_fit", "vireo_tpu_torch/csrc/fused_estep.cu",
-         "vireo_tpu/ops/pallas_em.py:145", fused_launches, k1["fit_full"]),
+         "vireo_tpu/ops/pallas_em.py:145", "fused fit", fused_launches,
+         k1["fit_full"]),
         ("packed_suff_stats", "vireo_tpu_torch/csrc/packed_counts.cu",
-         "vireo_tpu/ops/packed.py:161", packed_launches["K2"],
-         k23[("warm", "suff_stats")]),
+         "vireo_tpu/ops/packed.py:161", "vireo_wrap packed",
+         packed_launches["K2"], k23[("warm", "suff_stats")]),
         ("packed_cell_loglik", "vireo_tpu_torch/csrc/packed_counts.cu",
-         "vireo_tpu/ops/packed.py:195", packed_launches["K3"],
-         k23[("warm", "cell_loglik")]),
+         "vireo_tpu/ops/packed.py:195", "vireo_wrap packed",
+         packed_launches["K3"], k23[("warm", "cell_loglik")]),
     ]
+    # the probes' kernels: their launches in the runs of the probes' entry
+    # points; beside them their launches in the two vireo_wrap runs (0:
+    # they lie on no path of vireo_wrap)
+    replaces = {
+        "nibble_unpack": "benchmarks/unpack_probe.py:27",
+        "packed_mm_nibble_int": "benchmarks/int4_micro.py:85, "
+                                "benchmarks/pack_kernel_tune.py:87",
+        "packed_mm_nibble_float": "benchmarks/pack_kernel_tune.py:87",
+        "packed_mm_raw_byte": "benchmarks/pack_kernel_tune.py:87",
+        "coo_gather_rows": "benchmarks/coo_pallas_probe.py:78",
+        "coo_gather_cols": "benchmarks/coo_pallas_probe.py:204",
+        "coo_scatter": "benchmarks/coo_pallas_probe.py:123"}
+    wrap_launches = {}
+    for name, res in probes.items():
+        source = ("vireo_tpu_torch/csrc/probe_coo.cu" if "coo" in name
+                  else "vireo_tpu_torch/csrc/probe_nibbles.cu")
+        key = next(k for k in replaces if name.startswith(k))
+        table.append((name, source, replaces[key], "probes",
+                      probe_launches[name], res))
+        wrap_launches[name] = dense_launches[name] + packed_launches[name]
+    if any(wrap_launches.values()):
+        raise AssertionError("vireo_wrap launched a probe's kernel: %s"
+                             % json.dumps(wrap_launches))
     log("[time] the whole command took %.1f s"
         % (time.perf_counter() - t_start))
-    print(json.dumps({"kernels": [{
+    print(json.dumps({"kernels": [dict({
         "name": name, "route": "cuda", "source": source,
-        "replaces": replaces, "launches": launches,
+        "replaces": replaces, "launches": launches, "path": path,
         "max_abs_err": res["max_abs_err"], "ms": res["ms"],
         "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-        "bound_by": res["bound_by"], "library_ms": res["library_ms"]}
-        for name, source, replaces, launches, res in table]}))
+        "bound_by": res["bound_by"], "library_ms": res["library_ms"]},
+        **({"vireo_wrap_launches": wrap_launches[name]}
+           if name in wrap_launches else {}))
+        for name, source, replaces, path, launches, res in table]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,6 @@
 // Building blocks shared by the tensor-core kernels K1 (fused_estep.cu),
-// K2 and K3 (packed_counts.cu) on Hopper (sm_90a):
+// K2 and K3 (packed_counts.cu), and the probes' kernels A and B
+// (probe_nibbles.cu), on Hopper (sm_90a):
 //
 // - a ring of shared-memory stages filled by bulk tensor copies (TMA)
 //   for B, with one mbarrier a stage, and by 16-byte cp.async copies for
@@ -12,7 +13,8 @@
 // - `rows_kernel`, the contraction OUT_m = A_m . sum_p B_p for the two
 //   count matrices m = AD, DP held as byte rows (packed nibbles for K2,
 //   int8 for K1's statistics), which is both K2 and the second kernel
-//   of K1.
+//   of K1; with MATS = 1, for one matrix (the packed-matmul probe,
+//   probe_nibbles.cu).
 //
 // Operand layouts. B is K-major in device memory: planes x rows (the
 // output columns n) x ld (the contracted axis k), bf16, with ld a
@@ -583,8 +585,9 @@ __device__ __forceinline__ uint64_t b_desc(const uint8_t* stage, int p,
 }
 
 // ---------------------------------------------------------------------
-// rows_kernel: OUT_m[v, n] = sum_k A_m[v, k] sum_p B_p[n, k] for the two
-// count matrices m (A_0 = AD, A_1 = DP), rows v of V, columns n of N.
+// rows_kernel: OUT_m[v, n] = sum_k A_m[v, k] sum_p B_p[n, k] for the
+// MATS count matrices m (A_0 = AD, A_1 = DP; MATS = 1 reads A_0 alone
+// and writes OUT_0 alone), rows v of V, columns n of N.
 //
 // A block owns 128 rows (64 a warpgroup) and one tile of BN columns of
 // both outputs, and walks the whole contracted axis in k-blocks of
@@ -594,22 +597,23 @@ __device__ __forceinline__ uint64_t b_desc(const uint8_t* stage, int p,
 // range and different column tiles are adjacent in the grid; all blocks
 // start at k = 0 and move at one pace, so the blocks in flight read the
 // same B rows and B's traffic comes from L2.
-template <class Codec, int PLANES, int BN_>
+template <class Codec, int PLANES, int BN_, int MATS = 2>
 struct RowsShape {
   static constexpr int BN = BN_;
   static constexpr int BK = kKBlock;  // cells a k-block
   static constexpr int BKB = BK / Codec::kCellsPerByte;  // bytes a k-block
   static constexpr int A_PITCH = BKB + 16;
   static constexpr int B_BYTES = PLANES * BK * BN * 2;
-  static constexpr int A_BYTES = 2 * kBlockRows * A_PITCH;
+  static constexpr int A_BYTES = MATS * kBlockRows * A_PITCH;
   static constexpr int STAGE = B_BYTES + A_BYTES;
   static constexpr int STAGES = ring_depth(STAGE);
   static constexpr size_t SMEM = (size_t)STAGES * STAGE + kSmemAlign;
   static_assert(STAGES >= 2, "a ring needs two stages");
   static_assert(STAGE % kSmemAlign == 0, "stages keep the alignment");
+  static_assert(MATS == 1 || MATS == 2, "one count matrix or two");
 };
 
-template <class Codec, int PLANES, int BN>
+template <class Codec, int PLANES, int BN, int MATS = 2>
 __global__ void __launch_bounds__(kBlockThreads, 1)
     rows_kernel(const uint8_t* __restrict__ a0,
                 const uint8_t* __restrict__ a1, long long row_bytes,
@@ -617,7 +621,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
                 long long k_len, float* __restrict__ out0,
                 float* __restrict__ out1, long long ld_out, int N,
                 int n_tiles) {
-  using S = RowsShape<Codec, PLANES, BN>;
+  using S = RowsShape<Codec, PLANES, BN, MATS>;
   extern __shared__ __align__(128) uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
   __shared__ uint64_t b_full[S::STAGES];
@@ -640,17 +644,18 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     const long long j0 = (long long)t * S::BKB;
     load_byte_rows<kBlockRows, S::BKB>(st + S::B_BYTES, a0, row0, n_rows,
                                        row_bytes, j0);
-    load_byte_rows<kBlockRows, S::BKB>(
-        st + S::B_BYTES + kBlockRows * S::A_PITCH, a1, row0, n_rows,
-        row_bytes, j0);
+    if constexpr (MATS > 1)
+      load_byte_rows<kBlockRows, S::BKB>(
+          st + S::B_BYTES + kBlockRows * S::A_PITCH, a1, row0, n_rows,
+          row_bytes, j0);
   };
 
   // part: one k-block's sums, formed by the tensor cores; acc: the sums
   // over all k-blocks, added to in float32 on the CUDA cores (see
   // kRowsMaxTile)
-  float acc[2][BN / 2], part[2][BN / 2];
+  float acc[MATS][BN / 2], part[MATS][BN / 2];
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+  for (int m = 0; m < MATS; ++m)
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[m][i] = part[m][i] = 0.f;
 
@@ -674,9 +679,9 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
 
     const uint8_t* st = stage(t % S::STAGES);
     const long long j0 = (long long)t * S::BKB;
-    uint32_t frag[2][S::BK / 16][4];
+    uint32_t frag[MATS][S::BK / 16][4];
 #pragma unroll
-    for (int m = 0; m < 2; ++m) {
+    for (int m = 0; m < MATS; ++m) {
       const uint8_t* a = m ? a1 : a0;
       const uint8_t* base = st + S::B_BYTES + m * kBlockRows * S::A_PITCH;
       const uint8_t* lo = byte_row(base + r_lo * S::A_PITCH, a,
@@ -693,7 +698,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     }
 
     fence_regs(part[0]);
-    fence_regs(part[1]);
+    if constexpr (MATS > 1) fence_regs(part[1]);
     wgmma_fence();
 #pragma unroll
     for (int s = 0; s < S::BK / 16; ++s)
@@ -702,7 +707,8 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
         const uint64_t desc = b_desc<BN, S::BK>(st, p, s);
         const int more = s > 0 || p > 0;  // the first MMA starts part at 0
         wgmma_rs<BN>(part[0], frag[0][s], desc, more);
-        wgmma_rs<BN>(part[1], frag[1][s], desc, more);
+        if constexpr (MATS > 1)
+          wgmma_rs<BN>(part[1], frag[1][s], desc, more);
       }
     wgmma_commit();
     // the slot of k-block t - 1, which every warpgroup has finished
@@ -710,16 +716,16 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     cp_async_commit();
     wgmma_wait_all();
     fence_regs(part[0]);
-    fence_regs(part[1]);
+    if constexpr (MATS > 1) fence_regs(part[1]);
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
+    for (int m = 0; m < MATS; ++m)
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[m][i] += part[m][i];
   }
   cp_async_wait<0>();
 
 #pragma unroll
-  for (int m = 0; m < 2; ++m) {
+  for (int m = 0; m < MATS; ++m) {
     float* out = m ? out1 : out0;
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) {
@@ -741,14 +747,15 @@ inline int pick_tile(int N, int max_bn, int unit = 32) {
 }
 
 // b: PLANES x N x ld bf16, B's k values k_len of each row (see encode_b).
-template <class Codec, int PLANES, int BN>
+// With MATS = 1, a1 and out1 are not read.
+template <class Codec, int PLANES, int BN, int MATS = 2>
 cudaError_t launch_rows(const uint8_t* a0, const uint8_t* a1,
                         long long row_bytes, int n_rows, const void* b,
                         long long ld, long long k_len, float* out0,
                         float* out1, long long ld_out, int N,
                         cudaStream_t s) {
-  using Sh = RowsShape<Codec, PLANES, BN>;
-  auto kernel = rows_kernel<Codec, PLANES, BN>;
+  using Sh = RowsShape<Codec, PLANES, BN, MATS>;
+  auto kernel = rows_kernel<Codec, PLANES, BN, MATS>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sh::SMEM);
   if (err != cudaSuccess) return err;

@@ -97,3 +97,4 @@ def load_library(name):
     lib = ctypes.CDLL(str(out))
     _LOADED[name] = lib
     return lib
+

@@ -22,6 +22,8 @@ import ctypes
 
 import torch
 
+from ._launch import launch, on_cpu
+
 __all__ = ["fused_estep_stats", "fused_estep_stats_reference", "LAUNCHES",
            "MAX_K"]
 
@@ -111,12 +113,9 @@ def fused_estep_stats(ad, dp, Wa, Wd, id_log_prior, stats_cols=None):
     if Wa.shape[1] > MAX_K:
         raise ValueError("fused_estep_stats takes at most %d assignment "
                          "columns, got %d" % (MAX_K, Wa.shape[1]))
-    if ad.device.type == "cpu":
+    if on_cpu("fused_estep_stats", ad):
         return fused_estep_stats_reference(ad, dp, Wa, Wd, id_log_prior,
                                            stats_cols)
-    if ad.device.type != "cuda":
-        raise ValueError("fused_estep_stats runs on CUDA or CPU tensors, "
-                         "not %s" % ad.device)
     return _launch(ad, dp, Wa, Wd, id_log_prior, stats_cols)
 
 
@@ -158,16 +157,10 @@ def _launch(ad, dp, Wa, Wd, id_log_prior, stats_cols):
     loglik = torch.empty((C, K), **f32)
     partials = torch.empty((-(-C // cb), 2), **f32)
     scal = torch.empty((2,), **f32)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.vireo_fused_estep_stats(
-            ad.data_ptr(), dp.data_ptr(), wt.data_ptr(), prior.data_ptr(),
+    launch("fused_estep_stats", lib.vireo_fused_estep_stats,
+           (ad.data_ptr(), dp.data_ptr(), wt.data_ptr(), prior.data_ptr(),
             S.data_ptr(), id_prob.data_ptr(), loglik.data_ptr(),
             id_t.data_ptr(), partials.data_ptr(), scal.data_ptr(), V, C, K,
-            Ks, ldv, ldc, stream)
-    if err != 0:
-        raise RuntimeError("fused_estep_stats kernel launch failed: %s "
-                           "(code %d)" % (lib.vireo_cuda_error_string(err)
-                                          .decode(), err))
+            Ks, ldv, ldc), device, lib.vireo_cuda_error_string)
     LAUNCHES += 1
     return S[:, :Ks], S[:, Ks:], id_prob, loglik, scal[0], scal[1]

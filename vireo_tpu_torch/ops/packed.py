@@ -7,7 +7,7 @@ int8, so a card holds pools twice as large without falling back to the
 COO rung.
 
 Layout, as in the JAX package (vireo_tpu/ops/packed.py:16-20 and
-`_pack_pair`): `ad_p` and `dp_p` are (n_var, ceil(n_cell / 2)) uint8,
+`pack_nibbles`): `ad_p` and `dp_p` are (n_var, ceil(n_cell / 2)) uint8,
 and byte [v, j] holds cell 2j in its low nibble and cell 2j + 1 in its
 high nibble. There is no padding to a block grid; when n_cell is odd
 the high nibble of each row's last byte is zero, and the kernels mask
@@ -43,6 +43,7 @@ import dataclasses
 
 import torch
 
+from ._launch import launch, on_cpu
 from .math import log_binom_coeff
 from ..parallel.mesh import ShardedCounts
 
@@ -50,7 +51,7 @@ __all__ = ["PACK_MAX", "PackedCounts", "pack_dense", "packed_suff_stats",
            "packed_cell_loglik", "suff_stats_reference",
            "cell_loglik_reference", "split_bf16x3", "split_weights_kmajor",
            "LAUNCHES", "MeshPackedCounts", "pack_scipy_sharded",
-           "packed_cell_block"]
+           "packed_cell_block", "pack_nibbles"]
 
 PACK_MAX = 15  # the largest count a nibble holds exactly
 
@@ -182,29 +183,14 @@ def _check_launch(name, ad_p, dp_p, n_cell, weights, rows):
 
 
 def _run(name, fn, args, device):
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError("%s kernel launch failed: %s (code %d)"
-                           % (name, _library().vireo_packed_error_string(
-                               err).decode(), err))
+    launch(name, fn, args, device, _library().vireo_packed_error_string)
     LAUNCHES[name] += 1
-
-
-def _on_cpu(name, t):
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
-        raise ValueError("%s runs on CUDA or CPU tensors, not %s"
-                         % (name, t.device))
-    return False
 
 
 def packed_suff_stats(ad_p, dp_p, n_cell, W):
     """K2: (AD @ W, DP @ W) -> two (n_var, N). CPU tensors run the
     plain version; CUDA tensors launch the kernel or raise."""
-    if _on_cpu("suff_stats", ad_p):
+    if on_cpu("suff_stats", ad_p):
         return suff_stats_reference(ad_p, dp_p, n_cell, W)
     ad_p, dp_p, (W,) = _check_launch("suff_stats", ad_p, dp_p, n_cell, [W],
                                      n_cell)
@@ -222,7 +208,7 @@ def packed_cell_loglik(ad_p, dp_p, n_cell, Wa, Wd):
     """K3: AD.T @ Wa + DP.T @ Wd -> (n_cell, N) in cell order. CPU
     tensors run the plain version; CUDA tensors launch the kernel or
     raise."""
-    if _on_cpu("cell_loglik", ad_p):
+    if on_cpu("cell_loglik", ad_p):
         return cell_loglik_reference(ad_p, dp_p, n_cell, Wa, Wd)
     ad_p, dp_p, (Wa, Wd) = _check_launch("cell_loglik", ad_p, dp_p, n_cell,
                                          [Wa, Wd], ad_p.shape[0])
@@ -334,7 +320,7 @@ class PackedCounts:
         return DenseCounts(part(self.ad_p), part(self.dp_p))
 
 
-def _pack_pair(x):
+def pack_nibbles(x):
     """(V, C) integer counts in [0, 15] -> (V, ceil(C / 2)) uint8 bytes."""
     x = torch.as_tensor(x)
     V, C = x.shape
@@ -352,7 +338,7 @@ def pack_dense(ad, dp):
         if x.numel() and (x.min() < 0 or x.max() > PACK_MAX):
             raise ValueError("%s holds counts outside [0, %d]"
                              % (name, PACK_MAX))
-    return PackedCounts(_pack_pair(ad), _pack_pair(dp),
+    return PackedCounts(pack_nibbles(ad), pack_nibbles(dp),
                         (int(ad.shape[0]), int(ad.shape[1])))
 
 
