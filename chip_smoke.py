@@ -37,15 +37,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    B (packed_mm) in its three codecs at 30000 x 100000 @ 100000 x 16,
    exactly on integer weights and on sparse weights that use every bit
    of a bf16 significand, and on random bf16 weights within a
-   probabilistic sum bound against float64 sums; C (coo_gather) in both
-   layouts at 4,194,304
+   probabilistic sum bound against float64 sums, and equal to itself on
+   a second launch; C (coo_gather) in both layouts at 4,194,304
    nonzeros over 100000 cells (W through L2) and 3500 (W in shared
-   memory), against float64 sums within its chain's bound; D
-   (coo_scatter) within Higham's bound a bin; each timed against its
-   plain version in turns, beside its library call (B: the bf16 dense
-   product of the unpacked counts, and the int8 counts converted in the
-   call; C: index_select and a product; D: index_add_; A: none) and its
-   bound; A's and B's registers and instruction counts (cuobjdump, via
+   memory), against float64 sums within the bound of its summation
+   tree's depth (read from the library), and equal to itself on a
+   second launch; D (coo_scatter) within Higham's bound a bin; each
+   timed against its plain version in turns, beside its library call
+   (B: the bf16 dense product of the unpacked counts, and the int8
+   counts converted in the call; C: index_select and a product; D:
+   index_add_; A: none) and its bound; B's plan (blocks an SM from the
+   occupancy API, grid, units, waves, ring stages, bytes in flight an
+   SM) and its control (the ring without the MMAs) timed once; C's
+   blocks and threads an SM, waves and loads in flight; A's, B's and
+   C's registers and instruction counts (cuobjdump, via
    ops/sass.py); then the four probes' entry points at their JAX
    defaults (and coo_pallas_probe again at PB_CELLS=3500, W in shared
    memory), each with the launch counts set to 0 just before it and
@@ -262,13 +267,22 @@ PROBE_UNPACK = ((256, 512), (30000, 50000))
 PROBE_MM = (30000, 100000, 16)
 PROBE_NNZ = 4_194_304
 PROBE_CELLS = (100_000, 3_500)
-# kernel C's block (csrc/probe_coo.cu, kThreads): 512 threads, 16 warps.
-# Its sums are chains of: a thread's FMAs over its nonzeros, a 5-level
-# shuffle tree, the 16 warps in order, then the blocks in order; so
-# against float64 sums it errs by at most gamma_d sum|terms|, d the
-# chain's length. Against the plain float32 version (whose order is
-# torch's) by at most (gamma_d + gamma_nnz) sum|terms|.
-PROBE_COO_THREADS, PROBE_COO_WARPS = 512, 16
+# calls of a probe's kernel timed back to back, beside the median of
+# single calls (which also holds the host's work for the call)
+PROBE_STREAM = 20
+# C: each of its sums is a tree (csrc/probe_coo.cu): a thread's FMAs over
+#   the nonzeros it takes (at most `per_thread`, four lanes sharing each
+#   nonzero's row, one column set a lane), a shuffle tree over the 8
+#   quads of lanes of a warp (`shuffle_levels`, 3), the `warps` of a
+#   block in order, then the blocks in order (`blocks`), the four counts
+#   read from the library for each launch (coo_pallas_probe.gather_shape).
+#   A term passes through at most d = per_thread + shuffle_levels +
+#   warps + blocks roundings (each FMA rounds once; the first add of each
+#   chain is onto an exact 0), so against float64 sums C errs by at most
+#   gamma_d sum|terms| (Higham's bound for a summation tree of height
+#   d, Accuracy and Stability of Numerical Algorithms, 2002, §4.2), and
+#   against the plain float32 version (whose order is torch's) by at most
+#   (gamma_d + gamma_nnz) sum|terms|.
 # B: every product (a nibble, or a byte, times a bf16 weight) is exact in
 #   float32, so only the order of the adds differs from the plain version.
 #   Exactly equal to it on integer weights (-2..2), and on sparse weights
@@ -900,26 +914,47 @@ def _bound_check(name, got, ref, bound, tag="k23"):
     return float(err.max())
 
 
+def _sms(torch):
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def _gamma(n):
     """Higham's gamma_n of float32 (n a number or a tensor)."""
     return n * F32_UNIT / (1 - n * F32_UNIT)
 
 
 def _probe_times(torch, tag, res, kern, plain, library, flops, nbytes,
-                 peak=PEAK_BF16_FLOPS):
+                 peak=PEAK_BF16_FLOPS, kernels=()):
     """Kernel and plain version in turns, the library call (None where
-    there is none) and the bound, into res; logged."""
+    there is none) and the bound, into res; the kernel's calls back to
+    back, and the device time of its CUDA kernels (names holding one of
+    `kernels`) from torch.profiler; logged."""
     res["ms"], res["plain_ms"], nrun = _timed_pair(torch, kern, plain)
     res["library_ms"] = (None if library is None else
                          float(np.median(_time_ms(torch, library, reps=6))))
     res["bound_ms"], res["bound_by"] = _bound(flops, nbytes, peak)
+    # the kernel's calls back to back, so the host's work for one call
+    # overlaps the card's for the one before
+    def stream():
+        for _ in range(PROBE_STREAM):
+            kern()
+    res["stream_ms"] = _time_ms(torch, stream)[-1] / PROBE_STREAM
+    by_name = _kernel_ms(torch, kern, kernels)
+    res["device_by_kernel"] = by_name
+    res["device_ms"] = (None if None in by_name.values()
+                        else sum(by_name.values()))
     log("[probes]   %s median ms: kernel %.4f  plain %.4f  library %s "
         "(CUDA events, %d runs each); bound %.4f ms (%s): the kernel at "
-        "%.1f%% of it" % (tag, res["ms"], res["plain_ms"],
-                          "none" if library is None
-                          else "%.4f" % res["library_ms"], nrun,
-                          res["bound_ms"], res["bound_by"],
-                          100.0 * res["bound_ms"] / res["ms"]))
+        "%.1f%% of it; %d calls back to back %.4f ms a call; device time "
+        "of its kernels (torch.profiler) %s"
+        % (tag, res["ms"], res["plain_ms"],
+           "none" if library is None else "%.4f" % res["library_ms"], nrun,
+           res["bound_ms"], res["bound_by"],
+           100.0 * res["bound_ms"] / res["ms"], PROBE_STREAM,
+           res["stream_ms"],
+           ", ".join("%s %s" % (k, "not measured" if v is None
+                                else "%.4f ms" % v)
+                     for k, v in by_name.items())))
     return res
 
 
@@ -949,7 +984,7 @@ def _probe_unpack(torch, nibbles, dev):
                     torch, "A " + variant, dict(max_abs_err=0.0),
                     lambda: nibbles.nibble_unpack(p, variant),
                     lambda: nibbles.nibble_unpack_reference(p), None,
-                    0.0, 5.0 * R * C)
+                    0.0, 5.0 * R * C, kernels=("nibble_unpack_kernel",))
         del p, ref
         torch.cuda.empty_cache()
     return out
@@ -1034,6 +1069,9 @@ def _probe_mm(torch, nibbles, dev):
                 "exact below %.0f)" % (codec, V, C, C, K, kind, top,
                                        2.0 ** 24 * unit))
         got = nibbles.packed_mm(p, we, wo, codec)
+        if not torch.equal(got, nibbles.packed_mm(p, we, wo, codec)):
+            raise AssertionError("packed_mm %s gave other sums on a second "
+                                 "launch" % codec)
         ref64 = nibbles.packed_mm_reference(p, we, wo, codec,
                                             dtype=torch.float64)
         mag = _mm_magnitude(torch, nibbles, p, we, wo, codec)
@@ -1047,16 +1085,48 @@ def _probe_mm(torch, nibbles, dev):
             "version %.3e" % (codec, float((got - ref64).abs().max()),
                               float(ref64.pow(2).mean().sqrt()), err))
         del got, ref64, mag
-        out["packed_mm_" + codec] = _probe_times(
+        res = _probe_times(
             torch, "B " + codec, dict(max_abs_err=err, int8_ms=int8_ms),
             lambda: nibbles.packed_mm(p, we, wo, codec),
             lambda: nibbles.packed_mm_reference(p, we, wo, codec),
             lambda: torch.matmul(xb, wb),
             2.0 * V * n * K, V * Cb + (1 if raw else 2) * Cb * K * 2.0
-            + 4.0 * V * K)
+            + 4.0 * V * K, kernels=("packed_mm_kernel", "sum_slices_kernel"))
+        res.update(_mm_geometry(torch, nibbles, p, we, wo, codec, res))
+        out["packed_mm_" + codec] = res
     del p, xb
     torch.cuda.empty_cache()
     return out
+
+
+def _mm_geometry(torch, nibbles, p, we, wo, codec, res):
+    """Kernel B's plan and ring on this card (blocks an SM from the
+    occupancy API), logged; and its control, the same ring and fragment
+    build without the MMAs, timed once against the kernel."""
+    V, Cb = p.shape
+    shape = nibbles.mm_shape(codec)
+    plan = nibbles.card_plan(V, Cb, we.shape[1], codec, p.device)
+    flight = shape["blocks_per_sm"] * shape["ring"] * nibbles.TILE[0] \
+        * nibbles.TILE[1]
+    # device times (torch.profiler) of the control's and the kernel's
+    # packed_mm_kernel
+    control_ms = _kernel_ms(
+        torch, lambda: nibbles.packed_mm_control(p, we, wo, codec),
+        ("packed_mm_kernel",))["packed_mm_kernel"]
+    kernel_ms = res["device_by_kernel"]["packed_mm_kernel"]
+    log("[probes]   B %s: %d blocks an SM, grid %d, %d units (%d stages "
+        "of %d k values in %d slices of %d), %.3f waves; ring %d stages "
+        "of %d bytes, %d bytes of counts in flight an SM; device time of "
+        "the control (no MMAs) %s against the kernel's %s"
+        % (codec, shape["blocks_per_sm"], plan["grid"], plan["units"],
+           plan["stages"], plan["stage_k"], plan["n_slices"],
+           plan["slice_stages"], plan["waves"], shape["ring"],
+           shape["stage_bytes"], flight,
+           "not measured" if control_ms is None else "%.4f ms" % control_ms,
+           "not measured" if kernel_ms is None else "%.4f ms" % kernel_ms))
+    return dict(blocks_per_sm=shape["blocks_per_sm"], grid=plan["grid"],
+                waves=plan["waves"], ring=shape["ring"],
+                bytes_in_flight=flight, control_ms=control_ms)
 
 
 def _probe_coo(torch, coo, dev):
@@ -1071,14 +1141,17 @@ def _probe_coo(torch, coo, dev):
     for C in PROBE_CELLS:
         idx = torch.randint(0, C, (nnz,), generator=g, dtype=torch.int32,
                             device=dev)
-        staged = coo.gather_staged(C)
-        blocks = coo._library().vireo_probe_coo_blocks(nnz, int(staged))
-        depth = (-(-nnz // (blocks * PROBE_COO_THREADS)) + 5
-                 + PROBE_COO_WARPS + blocks)
         for layout in coo.LAYOUTS:
+            sh = coo.gather_shape(nnz, C, layout)
+            staged = bool(sh["staged"])
+            depth = (sh["per_thread"] + sh["shuffle_levels"] + sh["warps"]
+                     + sh["blocks"])
             shape = (C, K) if layout == "rows" else (K, C)
             w = torch.rand(shape, generator=g, device=dev)
             got = coo.coo_gather(idx, val, w, layout)
+            if not torch.equal(got, coo.coo_gather(idx, val, w, layout)):
+                raise AssertionError("coo_gather %s C=%d gave other sums "
+                                     "on a second launch" % (layout, C))
             ref64 = coo.coo_gather_reference(idx, val, w, layout,
                                              dtype=torch.float64)
             ref = coo.coo_gather_reference(idx, val, w, layout)
@@ -1096,11 +1169,25 @@ def _probe_coo(torch, coo, dev):
                     w.index_select(1, idx), val)
             name = "coo_gather_%s%s" % (layout, "_smem" if staged else "")
             out[name] = _probe_times(
-                torch, tag, dict(max_abs_err=err, staged=staged),
+                torch, tag, dict(sh, max_abs_err=err, staged=staged,
+                                 depth=depth),
                 lambda: coo.coo_gather(idx, val, w, layout),
                 lambda: coo.coo_gather_reference(idx, val, w, layout),
                 library, 2.0 * nnz * K, 8.0 * nnz + 4.0 * C * K + 4.0 * K,
-                PEAK_F32_FLOPS)
+                PEAK_F32_FLOPS,
+                kernels=("coo_gather_kernel", "sum_rows_kernel")
+                + (("transpose_kernel",) if layout == "cols" and not staged
+                   else ()))
+            log("[probes]   %s: %d blocks an SM of %d threads (%d threads "
+                "an SM), %d blocks, %.3f waves; %d W-row loads of 16 bytes "
+                "in flight a thread (%d bytes an SM); sums' depth %d; the "
+                "64-byte rows' L2 traffic (%.1f MB) at %.2f TB/s"
+                % (tag, sh["blocks_per_sm"], sh["threads"],
+                   sh["blocks_per_sm"] * sh["threads"], sh["blocks"],
+                   sh["blocks"] / (sh["blocks_per_sm"] * _sms(torch)),
+                   sh["loads_in_flight"], sh["blocks_per_sm"] * sh["threads"]
+                   * sh["loads_in_flight"] * 16, depth, 64e-6 * nnz,
+                   64.0 * nnz / (out[name]["ms"] * 1e9)))
             del w
     r = torch.randint(0, coo.TILE[0], (nnz,), generator=g,
                       dtype=torch.int32, device=dev)
@@ -1109,7 +1196,7 @@ def _probe_coo(torch, coo, dev):
     got = coo.coo_scatter(r, c, val)
     ref = coo.coo_scatter_reference(r, c, val)
     n = coo.coo_scatter_reference(r, c, torch.ones_like(val))
-    blocks = coo._library().vireo_probe_coo_blocks(nnz, 0)
+    blocks = coo.scatter_blocks(nnz)
     err = _bound_check("D scatter", got, ref,
                        (_gamma(n + blocks) + _gamma(n)) * ref,
                        tag="probes")
@@ -1120,30 +1207,42 @@ def _probe_coo(torch, coo, dev):
         lambda: coo.coo_scatter(r, c, val),
         lambda: coo.coo_scatter_reference(r, c, val),
         lambda: tile.index_add_(0, flat, val), float(nnz),
-        12.0 * nnz + 4.0 * tile.numel(), PEAK_F32_FLOPS)
+        12.0 * nnz + 4.0 * tile.numel(), PEAK_F32_FLOPS,
+        kernels=("coo_scatter_kernel", "sum_rows_kernel"))
     return out
 
 
 def _probe_sass():
-    """Registers and instruction counts of kernels A and B by variant and
-    codec, from cuobjdump on the built library (ops/sass.py)."""
+    """Registers and instruction counts of kernels A, B (and B's control)
+    and C by variant, codec and staging, from cuobjdump on the built
+    libraries (ops/sass.py)."""
     from vireo_tpu_torch.ops import sass
     from vireo_tpu_torch.ops._build import library_path
-    fns, regs = sass.dump(library_path("probe_nibbles"))
     # kernels by their mangled names' templates
-    names = {"nibble_unpack_kernelILi0E": "A int8",
-             "nibble_unpack_kernelILi1E": "A int32",
-             "nibble_unpack_kernelILi2E": "A bitcast",
-             "7Nibbles": "B nibble_int", "11NibbleFloat": "B nibble_float",
-             "7RawByte": "B raw_byte"}
-    for fn, code in sorted(fns.items()):
-        label = next((v for k, v in names.items() if k in fn), None)
-        if label:
-            top = sorted(sass.opcode_counts(code).items(),
-                         key=lambda kv: -kv[1])[:12]
-            log("[probes] %-15s %s registers; SASS: %d instructions; %s"
-                % (label, regs.get(fn, "?"), len(code),
-                   ", ".join("%s %d" % kv for kv in top)))
+    names = {"probe_nibbles": {
+        "nibble_unpack_kernelILi0E": "A int8",
+        "nibble_unpack_kernelILi1E": "A int32",
+        "nibble_unpack_kernelILi2E": "A bitcast",
+        "NibbleIntELb1E": "B nibble_int",
+        "NibbleFloatELb1E": "B nibble_float",
+        "RawByteELb1E": "B raw_byte",
+        "NibbleIntELb0E": "B control nibble_int",
+        "NibbleFloatELb0E": "B control nibble_float",
+        "RawByteELb0E": "B control raw_byte"}, "probe_coo": {
+        "coo_gather_kernelILi0E": "C through L2",
+        "coo_gather_kernelILi1E": "C rows staged",
+        "coo_gather_kernelILi2E": "C cols staged",
+        "transpose_kernel": "C cols transpose"}}
+    for lib, labels in names.items():
+        fns, regs = sass.dump(library_path(lib))
+        for fn, code in sorted(fns.items()):
+            label = next((v for k, v in labels.items() if k in fn), None)
+            if label:
+                top = sorted(sass.opcode_counts(code).items(),
+                             key=lambda kv: -kv[1])[:12]
+                log("[probes] %-22s %s registers; SASS: %d instructions; %s"
+                    % (label, regs.get(fn, "?"), len(code),
+                       ", ".join("%s %d" % kv for kv in top)))
 
 
 def phase_probes(torch):

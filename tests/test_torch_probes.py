@@ -213,6 +213,154 @@ def test_from_jax_packed_is_the_port_layout(C):
         assert torch.equal(got, want)
 
 
+# --- kernel B's host side: plan, k order, padding ----------------------
+
+SMS = 132
+
+
+@pytest.mark.parametrize("V,Cb,N,codec,sms,per_sm", [
+    (30000, 50000, K, "nibble_int", SMS, 1),     # int4_micro's shape
+    (30000, 50000, K, "raw_byte", SMS, 1),
+    (1000, 50000, K, "nibble_float", SMS, 1),    # ragged V
+    (333, 4999, 20, "nibble_int", 7, 2),         # odd C: 9997 cells
+    (64, 48, K, "raw_byte", SMS, 1),             # C below one stage
+    (129, 144, 3, "nibble_int", 1, 1),           # one SM
+])
+def test_mm_plan_tiles_the_k_axis_once(V, Cb, N, codec, sms, per_sm):
+    """The slices tile [0, k_len) exactly once, on stage boundaries, each
+    holding at least one stage; the units and grid follow from them."""
+    plan = nibbles.mm_plan(V, Cb, N, codec, sms, per_sm)
+    cells = 1 if codec == "raw_byte" else 2
+    ks = nibbles.TILE[1] * cells
+    assert plan["stage_k"] == ks
+    assert plan["stages"] == -(-Cb // nibbles.TILE[1])
+    bounds = plan["bounds"]
+    assert len(bounds) == plan["n_slices"]
+    assert bounds[0][0] == 0 and bounds[-1][1] == Cb * cells
+    for (a0, a1), (b0, _) in zip(bounds, bounds[1:]):
+        assert a1 == b0
+    for k0, k1 in bounds:
+        assert k0 % ks == 0 and k1 > k0
+        assert k0 // ks + plan["slice_stages"] >= -(-k1 // ks)
+    covered = sum(-(-k1 // ks) - k0 // ks for k0, k1 in bounds)
+    assert covered == plan["stages"]
+    tiles = -(-V // nibbles.TILE[0]) * -(-N // 16)
+    assert plan["units"] == tiles * plan["n_slices"]
+    assert plan["grid"] == min(plan["units"], sms * per_sm)
+    assert plan["rounds"] == -(-plan["units"] // (sms * per_sm))
+
+
+def test_mm_plan_balances_the_card():
+    """At int4_micro's shape the busiest block walks within 5% of an even
+    share of the stages (235 blocks each walking all 391 stages on 132
+    SMs, two to an SM, would be 12% over)."""
+    plan = nibbles.mm_plan(30000, 50000, K, "nibble_int", SMS, 1)
+    even = -(-30000 // nibbles.TILE[0]) * plan["stages"] / SMS
+    assert plan["rounds"] * plan["slice_stages"] <= 1.05 * even
+
+
+def _slice_weights(rng, Cb, integer):
+    if integer:
+        return [torch.from_numpy(rng.randint(-2, 3, (Cb, K)).astype(
+            np.float32)) for _ in range(2)]
+    return [torch.from_numpy(rng.standard_normal((Cb, K)).astype(np.float32))
+            for _ in range(2)]
+
+
+@pytest.mark.parametrize("codec", nibbles.CODECS)
+@pytest.mark.parametrize("integer", [True, False], ids=["integer", "normal"])
+def test_slice_sums_in_order_equal_the_plain_version(codec, integer):
+    """The kernel's split: the plain product of each slice, in float32,
+    added slice by slice in order. Exactly the plain float32 version on
+    integer weights (every partial sum an integer below 2^24); on normal
+    weights both sum the same k_len float32 products in two orders, each
+    within gamma_n sum|terms| of the exact sum (Higham), n = k_len, so
+    they differ by at most 2 gamma_n sum|terms|."""
+    rng = np.random.RandomState(7)
+    V, Cb = 70, 1000
+    p = torch.from_numpy(rng.randint(0, 256, (V, Cb)).astype(np.uint8))
+    we, wo = _slice_weights(rng, Cb, integer)
+    plan = nibbles.mm_plan(V, Cb, K, codec, 3, 1)
+    assert plan["n_slices"] > 1
+    cells = 1 if codec == "raw_byte" else 2
+    whole = nibbles.packed_mm_reference(p, we, wo, codec,
+                                        dtype=torch.float32)
+    sliced = torch.zeros_like(whole)
+    for k0, k1 in plan["bounds"]:
+        j0, j1 = k0 // cells, k1 // cells
+        sliced += nibbles.packed_mm_reference(
+            p[:, j0:j1], we[j0:j1], wo[j0:j1], codec, dtype=torch.float32)
+    if integer:
+        assert torch.equal(sliced, whole)
+    else:
+        mag = _sum_bound(p, we, wo, codec, 1) / _gamma(1)     # sum|terms|
+        n = Cb * cells
+        assert np.all(np.abs((sliced - whole).double().numpy())
+                      <= 2 * _gamma(n) * mag)
+
+
+@pytest.mark.parametrize("Cb", [37, 48, 129])
+def test_row_padding_leaves_the_plain_result_unchanged(Cb):
+    rng = np.random.RandomState(Cb)
+    p = torch.from_numpy(rng.randint(0, 256, (9, Cb)).astype(np.uint8))
+    we, wo = _slice_weights(rng, Cb, False)
+    q, qe, qo = nibbles.pad_rows(p, we, wo)
+    assert q.shape[1] % 16 == 0 and q.shape[1] - Cb < 16
+    assert qe.shape == qo.shape == (q.shape[1], K)
+    if Cb % 16 == 0:
+        assert q is p and qe is we and qo is wo
+    for codec in nibbles.CODECS:
+        assert torch.equal(nibbles.packed_mm_reference(q, qe, qo, codec),
+                           nibbles.packed_mm_reference(p, we, wo, codec))
+
+
+def _fragment_rows(p, codec, stages):
+    """The A rows the kernel's fragments hold, k value L of each stage
+    (128 bytes of each row) at column L: consumer lane column c reads
+    bytes 32 c .. 32 c + 31 of its row in the stage
+    (csrc/probe_nibbles.cu, `load_run`), and step s takes pairs 2 s
+    (register half h = 0) and 2 s + 1 (h = 1) of that run
+    (`Codec::pair`), at k 16 s + 8 h + 2 c + e."""
+    V, Cb = p.shape
+    ks = nibbles.TILE[1] * (1 if codec == "raw_byte" else 2)
+    padded = torch.zeros((V, stages * nibbles.TILE[1]), dtype=torch.int64)
+    padded[:, :Cb] = p.to(torch.int64)
+    a = torch.zeros((V, stages * ks), dtype=torch.float64)
+    for t in range(stages):
+        for c in range(4):
+            run = padded[:, t * 128 + 32 * c:t * 128 + 32 * c + 32]
+            for s in range(ks // 16):
+                for h in range(2):
+                    j = 2 * s + h
+                    if codec == "raw_byte":
+                        pair = [run[:, 2 * j], run[:, 2 * j + 1]]
+                        pair = [torch.where(x > 127, x - 256, x)
+                                for x in pair]
+                    else:
+                        pair = [run[:, j] & 15, run[:, j] >> 4]
+                    for e in range(2):
+                        a[:, t * ks + 16 * s + 8 * h + 2 * c + e] = pair[e]
+    return a
+
+
+@pytest.mark.parametrize("codec", nibbles.CODECS)
+@pytest.mark.parametrize("Cb", [300, 37])
+def test_k_order_matches_the_fragment_reads(codec, Cb):
+    """Bᵀ in `k_order` (mm_weights) against the A values the kernel's
+    fragments build from the staged bytes gives the plain product,
+    exactly on integer weights, for full and partial stages."""
+    rng = np.random.RandomState(11)
+    p = torch.from_numpy(rng.randint(0, 256, (5, Cb)).astype(np.uint8))
+    we, wo = _slice_weights(rng, Cb, True)
+    order = nibbles.k_order(codec)
+    assert sorted(order.tolist()) == list(range(len(order)))
+    stages = nibbles.mm_plan(5, Cb, K, codec, 1, 1)["stages"]
+    b = nibbles.mm_weights(we, wo, codec, stages)
+    assert b.dtype == torch.bfloat16
+    got = _fragment_rows(p, codec, stages) @ b.double().t()
+    assert torch.equal(got, nibbles.packed_mm_reference(p, we, wo, codec))
+
+
 # --- P1-P3: kernels C and D ------------------------------------------
 
 NNZ, C_COO = 8192, 1000
@@ -356,9 +504,14 @@ def test_entry_point_without_a_card_raises(monkeypatch, name):
     (lambda: tcoo.coo_scatter(*(torch.zeros(4, dtype=torch.int32,
                                             device="meta"),) * 2,
                               torch.zeros(4, device="meta")), ValueError),
+    (lambda: nibbles.packed_mm_control(torch.zeros((2, 3), dtype=torch.uint8),
+                                       torch.zeros(3, K), torch.zeros(3, K)),
+     ValueError),
+    (lambda: nibbles.mm_plan(0, 16, K, "nibble_int", SMS, 1), ValueError),
 ], ids=["unpack-variant", "unpack-dtype", "mm-codec", "mm-rows",
         "mm-weight-dtype", "gather-index-dtype", "gather-width",
-        "gather-layout", "scatter-lengths", "scatter-device"])
+        "gather-layout", "scatter-lengths", "scatter-device",
+        "mm-control-cpu", "mm-plan-empty"])
 def test_wrappers_refuse_what_the_kernels_do_not_take(call, error):
     with pytest.raises(error):
         call()

@@ -1,5 +1,5 @@
 // Building blocks shared by the tensor-core kernels K1 (fused_estep.cu),
-// K2 and K3 (packed_counts.cu), and the probes' kernels A and B
+// K2 and K3 (packed_counts.cu), and the probes' kernel B
 // (probe_nibbles.cu), on Hopper (sm_90a):
 //
 // - a ring of shared-memory stages filled by bulk tensor copies (TMA)
@@ -13,8 +13,10 @@
 // - `rows_kernel`, the contraction OUT_m = A_m . sum_p B_p for the two
 //   count matrices m = AD, DP held as byte rows (packed nibbles for K2,
 //   int8 for K1's statistics), which is both K2 and the second kernel
-//   of K1; with MATS = 1, for one matrix (the packed-matmul probe,
-//   probe_nibbles.cu).
+//   of K1;
+// - for the packed-matmul probe (kernel B, probe_nibbles.cu): a 2-D
+//   tensor map over a byte matrix, barriers that count several
+//   arrivals, and 2-D bulk tensor copies.
 //
 // Operand layouts. B is K-major in device memory: planes x rows (the
 // output columns n) x ld (the contracted axis k), bf16, with ld a
@@ -149,6 +151,39 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"((uint64_t)map), "r"(smem_addr(bar)), "r"(x), "r"(y), "r"(z)
+      : "memory");
+}
+
+// A barrier that `count` plain arrivals complete (kernel B's "empty"
+// barriers: one arrival by each consumer warp).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival where `pred` holds, by a predicated instruction, not a
+// branch: a branch on the lane between warpgroup MMAs makes the compiler
+// serialise them.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(
+          smem_addr(bar)),
+      "r"((int)pred)
+      : "memory");
+}
+
+// A box of a 2D tensor map at column x, row y, into shared memory,
+// reported to `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"((uint64_t)map), "r"(smem_addr(bar)), "r"(x), "r"(y)
       : "memory");
 }
 
@@ -527,24 +562,32 @@ __device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
 // chunk kc ^ (n % 8). Box elements outside the logical sizes read as 0
 // (FLOAT_OOB_FILL_NONE), and the mbarrier still counts the whole box.
 // Host side; false if the encoder is missing or refuses the map.
-inline bool encode_b(CUtensorMap* map, const void* b, int planes,
-                     long long rows, long long k_len, long long ld,
-                     int box_rows) {
-  typedef CUresult (*Encode)(
-      CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-      const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-      const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-      CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
+typedef CUresult (*TensorMapEncoder)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, or nullptr where it is missing.
+inline TensorMapEncoder tensor_map_encoder() {
+  static TensorMapEncoder encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
     if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
                                 cudaEnableDefault, &found) != cudaSuccess ||
         found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return false;
-    encode = (Encode)fn;
+      return nullptr;
+    encode = (TensorMapEncoder)fn;
   }
+  return encode;
+}
+
+inline bool encode_b(CUtensorMap* map, const void* b, int planes,
+                     long long rows, long long k_len, long long ld,
+                     int box_rows) {
+  const TensorMapEncoder encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
   if (ld % 8 != 0 || ld < k_len) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)k_len, (cuuint64_t)rows,
                               (cuuint64_t)planes};
@@ -553,6 +596,28 @@ inline bool encode_b(CUtensorMap* map, const void* b, int planes,
   const cuuint32_t box[3] = {(cuuint32_t)kKBlock, (cuuint32_t)box_rows, 1};
   const cuuint32_t steps[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, (void*)b, dims,
+                strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The tensor map of a (rows, row_bytes) byte matrix, row_bytes a multiple
+// of 16 (TMA's row stride) and `a` 16-byte aligned, read in boxes of
+// box_rows rows x 128 bytes with the 128-byte swizzle: row r of a box at
+// byte 128 r, its 16-byte chunk q at chunk q ^ (r % 8). Bytes outside
+// the matrix read as 0. Host side; false if the encoder is missing or
+// refuses the map.
+inline bool encode_bytes(CUtensorMap* map, const void* a, long long rows,
+                         long long row_bytes, int box_rows) {
+  const TensorMapEncoder encode = tensor_map_encoder();
+  if (encode == nullptr || row_bytes % 16 != 0 || ((uintptr_t)a & 15))
+    return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)row_bytes, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {128, (cuuint32_t)box_rows};
+  const cuuint32_t steps[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, (void*)a, dims,
                 strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -585,9 +650,8 @@ __device__ __forceinline__ uint64_t b_desc(const uint8_t* stage, int p,
 }
 
 // ---------------------------------------------------------------------
-// rows_kernel: OUT_m[v, n] = sum_k A_m[v, k] sum_p B_p[n, k] for the
-// MATS count matrices m (A_0 = AD, A_1 = DP; MATS = 1 reads A_0 alone
-// and writes OUT_0 alone), rows v of V, columns n of N.
+// rows_kernel: OUT_m[v, n] = sum_k A_m[v, k] sum_p B_p[n, k] for the two
+// count matrices m (A_0 = AD, A_1 = DP), rows v of V, columns n of N.
 //
 // A block owns 128 rows (64 a warpgroup) and one tile of BN columns of
 // both outputs, and walks the whole contracted axis in k-blocks of
@@ -597,23 +661,22 @@ __device__ __forceinline__ uint64_t b_desc(const uint8_t* stage, int p,
 // range and different column tiles are adjacent in the grid; all blocks
 // start at k = 0 and move at one pace, so the blocks in flight read the
 // same B rows and B's traffic comes from L2.
-template <class Codec, int PLANES, int BN_, int MATS = 2>
+template <class Codec, int PLANES, int BN_>
 struct RowsShape {
   static constexpr int BN = BN_;
   static constexpr int BK = kKBlock;  // cells a k-block
   static constexpr int BKB = BK / Codec::kCellsPerByte;  // bytes a k-block
   static constexpr int A_PITCH = BKB + 16;
   static constexpr int B_BYTES = PLANES * BK * BN * 2;
-  static constexpr int A_BYTES = MATS * kBlockRows * A_PITCH;
+  static constexpr int A_BYTES = 2 * kBlockRows * A_PITCH;
   static constexpr int STAGE = B_BYTES + A_BYTES;
   static constexpr int STAGES = ring_depth(STAGE);
   static constexpr size_t SMEM = (size_t)STAGES * STAGE + kSmemAlign;
   static_assert(STAGES >= 2, "a ring needs two stages");
   static_assert(STAGE % kSmemAlign == 0, "stages keep the alignment");
-  static_assert(MATS == 1 || MATS == 2, "one count matrix or two");
 };
 
-template <class Codec, int PLANES, int BN, int MATS = 2>
+template <class Codec, int PLANES, int BN>
 __global__ void __launch_bounds__(kBlockThreads, 1)
     rows_kernel(const uint8_t* __restrict__ a0,
                 const uint8_t* __restrict__ a1, long long row_bytes,
@@ -621,7 +684,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
                 long long k_len, float* __restrict__ out0,
                 float* __restrict__ out1, long long ld_out, int N,
                 int n_tiles) {
-  using S = RowsShape<Codec, PLANES, BN, MATS>;
+  using S = RowsShape<Codec, PLANES, BN>;
   extern __shared__ __align__(128) uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
   __shared__ uint64_t b_full[S::STAGES];
@@ -644,18 +707,17 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     const long long j0 = (long long)t * S::BKB;
     load_byte_rows<kBlockRows, S::BKB>(st + S::B_BYTES, a0, row0, n_rows,
                                        row_bytes, j0);
-    if constexpr (MATS > 1)
-      load_byte_rows<kBlockRows, S::BKB>(
-          st + S::B_BYTES + kBlockRows * S::A_PITCH, a1, row0, n_rows,
-          row_bytes, j0);
+    load_byte_rows<kBlockRows, S::BKB>(
+        st + S::B_BYTES + kBlockRows * S::A_PITCH, a1, row0, n_rows,
+        row_bytes, j0);
   };
 
   // part: one k-block's sums, formed by the tensor cores; acc: the sums
   // over all k-blocks, added to in float32 on the CUDA cores (see
   // kRowsMaxTile)
-  float acc[MATS][BN / 2], part[MATS][BN / 2];
+  float acc[2][BN / 2], part[2][BN / 2];
 #pragma unroll
-  for (int m = 0; m < MATS; ++m)
+  for (int m = 0; m < 2; ++m)
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[m][i] = part[m][i] = 0.f;
 
@@ -679,9 +741,9 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
 
     const uint8_t* st = stage(t % S::STAGES);
     const long long j0 = (long long)t * S::BKB;
-    uint32_t frag[MATS][S::BK / 16][4];
+    uint32_t frag[2][S::BK / 16][4];
 #pragma unroll
-    for (int m = 0; m < MATS; ++m) {
+    for (int m = 0; m < 2; ++m) {
       const uint8_t* a = m ? a1 : a0;
       const uint8_t* base = st + S::B_BYTES + m * kBlockRows * S::A_PITCH;
       const uint8_t* lo = byte_row(base + r_lo * S::A_PITCH, a,
@@ -698,7 +760,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     }
 
     fence_regs(part[0]);
-    if constexpr (MATS > 1) fence_regs(part[1]);
+    fence_regs(part[1]);
     wgmma_fence();
 #pragma unroll
     for (int s = 0; s < S::BK / 16; ++s)
@@ -707,8 +769,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
         const uint64_t desc = b_desc<BN, S::BK>(st, p, s);
         const int more = s > 0 || p > 0;  // the first MMA starts part at 0
         wgmma_rs<BN>(part[0], frag[0][s], desc, more);
-        if constexpr (MATS > 1)
-          wgmma_rs<BN>(part[1], frag[1][s], desc, more);
+        wgmma_rs<BN>(part[1], frag[1][s], desc, more);
       }
     wgmma_commit();
     // the slot of k-block t - 1, which every warpgroup has finished
@@ -716,16 +777,16 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     cp_async_commit();
     wgmma_wait_all();
     fence_regs(part[0]);
-    if constexpr (MATS > 1) fence_regs(part[1]);
+    fence_regs(part[1]);
 #pragma unroll
-    for (int m = 0; m < MATS; ++m)
+    for (int m = 0; m < 2; ++m)
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[m][i] += part[m][i];
   }
   cp_async_wait<0>();
 
 #pragma unroll
-  for (int m = 0; m < MATS; ++m) {
+  for (int m = 0; m < 2; ++m) {
     float* out = m ? out1 : out0;
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) {
@@ -747,15 +808,14 @@ inline int pick_tile(int N, int max_bn, int unit = 32) {
 }
 
 // b: PLANES x N x ld bf16, B's k values k_len of each row (see encode_b).
-// With MATS = 1, a1 and out1 are not read.
-template <class Codec, int PLANES, int BN, int MATS = 2>
+template <class Codec, int PLANES, int BN>
 cudaError_t launch_rows(const uint8_t* a0, const uint8_t* a1,
                         long long row_bytes, int n_rows, const void* b,
                         long long ld, long long k_len, float* out0,
                         float* out1, long long ld_out, int N,
                         cudaStream_t s) {
-  using Sh = RowsShape<Codec, PLANES, BN, MATS>;
-  auto kernel = rows_kernel<Codec, PLANES, BN, MATS>;
+  using Sh = RowsShape<Codec, PLANES, BN>;
+  auto kernel = rows_kernel<Codec, PLANES, BN>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sh::SMEM);
   if (err != cudaSuccess) return err;

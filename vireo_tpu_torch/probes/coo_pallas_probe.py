@@ -9,7 +9,10 @@ TPU all three failed to compile (coo_pallas_probe_result.json). Here:
 - C, `coo_gather(idx, val, w, layout)`: the K sums of val_m W[idx_m],
   W as (C, K) rows (`rows`, P1: out (1, K)) or as its transpose (K, C)
   (`cols`, P3: out (K, 1)); W staged in shared memory where it fits
-  (C <= 3616 at K = 16 on an H100), read through L2 otherwise;
+  (C <= 3600 at K = 16 on an H100; a `cols` W transposed on the way),
+  read through L2 otherwise (a `cols` W first transposed into a (C, K)
+  scratch); four lanes a nonzero, eight nonzeros a quad of lanes in
+  flight (`gather_shape` reports the grid and its sums' depth);
 - D, `coo_scatter(r, c, v)`: out[r_m, c_m] += v_m into one (8, 128)
   tile (P2), by shared-memory atomics a block;
 - `take_sum(idx, val, w)`: the probe's own library baseline
@@ -46,7 +49,8 @@ from . import device_label
 
 __all__ = ["K", "BLK", "LAYOUTS", "TILE", "LAUNCHES", "coo_gather",
            "coo_gather_reference", "coo_scatter", "coo_scatter_reference",
-           "take_sum", "gather_staged", "timed", "probe_xla_take",
+           "take_sum", "gather_shape", "scatter_blocks",
+           "timed", "probe_xla_take",
            "probe_gather", "probe_scatter", "probe_lane_gather", "main"]
 
 K = 16
@@ -68,12 +72,13 @@ def _library():
     if _LIB is None:
         lib = load_library("probe_coo")
         ptr, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.vireo_probe_coo_gather_staged.argtypes = [ll]
-        lib.vireo_probe_coo_gather_staged.restype = i
-        lib.vireo_probe_coo_blocks.argtypes = [ll, i]
-        lib.vireo_probe_coo_blocks.restype = ll
-        lib.vireo_probe_coo_gather.argtypes = [ptr, ptr, ptr, ll, i, i, ptr,
-                                               ll, ptr, ptr]
+        lib.vireo_probe_coo_gather_shape.argtypes = [
+            ll, i, i, ctypes.POINTER(ll)]
+        lib.vireo_probe_coo_gather_shape.restype = i
+        lib.vireo_probe_coo_scatter_blocks.argtypes = [ll]
+        lib.vireo_probe_coo_scatter_blocks.restype = ll
+        lib.vireo_probe_coo_gather.argtypes = [ptr, ptr, ptr, ll, i, i, i,
+                                               ptr, ptr, ll, ptr, ptr]
         lib.vireo_probe_coo_gather.restype = i
         lib.vireo_probe_coo_scatter.argtypes = [ptr, ptr, ptr, ll, ptr, ll,
                                                 ptr, ptr]
@@ -126,10 +131,44 @@ def coo_gather_reference(idx, val, w, layout="rows", dtype=None):
     return (g * val[None, :]).sum(1, keepdim=True)
 
 
-def gather_staged(n_cell):
-    """Whether kernel C stages a W of n_cell rows in shared memory on the
-    current card."""
-    return bool(_library().vireo_probe_coo_gather_staged(int(n_cell)))
+# the fields of kernel C's shape, in the C entry point's order
+_SHAPE_KEYS = ("staged", "threads", "blocks_per_sm", "blocks",
+               "per_thread", "shuffle_levels", "warps", "loads_in_flight")
+
+
+def gather_shape(nnz, n_cell, layout="rows"):
+    """Kernel C's launch on the current card for nnz nonzeros over n_cell
+    cells: whether W is staged, threads a block, blocks an SM (the
+    occupancy API), blocks, and its sums' tree: the most nonzeros one
+    thread chains, the shuffle levels and the warps a block (then the
+    blocks, in order), and the W-row loads a thread keeps in flight.
+    Asked of the library once for each card and shape."""
+    return dict(_gather_shape(int(nnz), int(n_cell), layout,
+                              torch.cuda.current_device()))
+
+
+@functools.lru_cache(maxsize=64)
+def _gather_shape(nnz, n_cell, layout, device):
+    out = (ctypes.c_longlong * len(_SHAPE_KEYS))()
+    with torch.cuda.device(device):
+        err = _library().vireo_probe_coo_gather_shape(
+            nnz, n_cell, int(layout == "cols"), out)
+    if err:
+        raise RuntimeError("coo_gather: no launch shape for %d nonzeros "
+                           "over %d cells (error %d)" % (nnz, n_cell, err))
+    return dict(zip(_SHAPE_KEYS, out))
+
+
+def scatter_blocks(nnz):
+    """Kernel D's blocks, and so the rows of its partial sums."""
+    return int(_library().vireo_probe_coo_scatter_blocks(int(nnz)))
+
+
+def _aligned(x):
+    """x contiguous at a 16-byte boundary (the kernels read 16-byte
+    vectors)."""
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
 
 
 def coo_gather(idx, val, w, layout="rows"):
@@ -144,19 +183,24 @@ def coo_gather(idx, val, w, layout="rows"):
         raise TypeError("coo_gather takes float32 values and W, got %s/%s"
                         % (val.dtype, w.dtype))
     n_cell = w.shape[0] if layout == "rows" else w.shape[1]
-    idx, val, w = idx.contiguous(), val.contiguous(), w.contiguous()
-    if w.data_ptr() % 16:       # W is read as 16-byte vectors
-        w = w.clone()
-    lib = _library()
-    staged = lib.vireo_probe_coo_gather_staged(n_cell)
-    blocks = lib.vireo_probe_coo_blocks(idx.numel(), staged)
-    part = torch.empty((blocks, K), dtype=torch.float32, device=idx.device)
+    idx, val, w = _aligned(idx), _aligned(val), _aligned(w)
+    shape = _gather_shape(idx.numel(), n_cell, layout, idx.device.index)
+    # a cols W read through L2 is first transposed into rows here
+    scratch = (torch.empty((n_cell, K), dtype=torch.float32,
+                           device=idx.device)
+               if layout == "cols" and not shape["staged"] else None)
+    part = torch.empty((shape["blocks"], K), dtype=torch.float32,
+                       device=idx.device)
     out = torch.empty(K, dtype=torch.float32, device=idx.device)
+    lib = _library()
     launch("coo_gather", lib.vireo_probe_coo_gather,
            (idx.data_ptr(), val.data_ptr(), w.data_ptr(), idx.numel(),
-            n_cell, int(layout == "cols"), part.data_ptr(), blocks,
-            out.data_ptr()), idx.device, lib.vireo_probe_coo_error_string)
-    LAUNCHES["coo_gather_%s%s" % (layout, "_smem" if staged else "")] += 1
+            n_cell, int(layout == "cols"), shape["staged"],
+            None if scratch is None else scratch.data_ptr(),
+            part.data_ptr(), shape["blocks"], out.data_ptr()), idx.device,
+           lib.vireo_probe_coo_error_string)
+    LAUNCHES["coo_gather_%s%s" % (layout, "_smem" if shape["staged"]
+                                  else "")] += 1
     return out.reshape((1, K) if layout == "rows" else (K, 1))
 
 
@@ -198,7 +242,7 @@ def coo_scatter(r, c, v):
         raise TypeError("coo_scatter takes float32 values, got %s" % v.dtype)
     r, c, v = r.contiguous(), c.contiguous(), v.contiguous()
     lib = _library()
-    blocks = lib.vireo_probe_coo_blocks(r.numel(), 0)
+    blocks = scatter_blocks(r.numel())
     part = torch.empty((blocks, TILE[0] * TILE[1]), dtype=torch.float32,
                        device=r.device)
     out = torch.empty(TILE, dtype=torch.float32, device=r.device)

@@ -10,8 +10,9 @@ Timed at the main pool's contraction, (30k x 100k) @ (100k x 16):
   so this line pays the conversion's pass over memory), and on bf16
   counts (2 bytes a count). The JAX probe's reading: bf16 at about twice
   the int8 time means memory binds, equal times mean the MMAs do;
-- kernel B (`nibbles.packed_mm`, K2's design with one count matrix and
-  one bf16 term of W) on the packed counts, 1.5 GB.
+- kernel B (`nibbles.packed_mm`: a TMA producer warp, two wgmma
+  consumer warpgroups, split-k over a persistent grid, one bf16 term of
+  W) on the packed counts, 1.5 GB.
 
 JAX chains its products in a `fori_loop` with a tiny dependence so that
 XLA hoists nothing; PyTorch runs eagerly and hoists nothing, so each

@@ -17,10 +17,11 @@ what the card does), in the JAX script's three variants (its codecs):
 
 base and f32u are checked against the int8 path first, to the JAX
 script's max error below 1.0. The TPU's (block_v, block_c) sweep sized
-VMEM blocks; kernel B's block is fixed by the card (128 variants, 64 k
-values a stage, 16 columns, `nibbles.TILE`: the tensor cores' m64 tile
-for each of two warpgroups and a 128-byte swizzle row of bf16), so it
-has no counterpart here, and there is no tuning knob.
+VMEM blocks; kernel B's unit is fixed by the card (128 variants, 16
+columns, stages of 128 bytes of each row, `nibbles.TILE`: the tensor
+cores' m64 tile for each of two warpgroups and one 128-byte swizzle row
+of a TMA box), and its k-slices and grid by `nibbles.mm_plan`, so the
+sweep has no counterpart here, and there is no tuning knob.
 
     MB_VARS=.. MB_CELLS=.. MB_K=.. MB_ITERS=.. \\
         python -m vireo_tpu_torch.probes.pack_kernel_tune
