@@ -32,32 +32,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    the counts unpacked ahead of the timing, where they fit the card;
 4b. `[probes]`: the kernels of the probes of benchmarks/
    (vireo_tpu_torch/probes/) against their plain versions: A
-   (nibble_unpack) in its three variants bit for bit at the probe's
-   256 x 512 bytes and the main pool's packed AD (30000 x 50000 bytes);
-   B (packed_mm) in its three codecs at 30000 x 100000 @ 100000 x 16,
+   (nibble_unpack) in its three variants bit for bit at the probe's 256
+   x 512 bytes and the main pool's packed AD (30000 x 50000 bytes); B
+   (packed_mm) in its three codecs at 30000 x 100000 @ 100000 x 16,
    exactly on integer weights and on sparse weights that use every bit
    of a bf16 significand, and on random bf16 weights within a
    probabilistic sum bound against float64 sums, and equal to itself on
-   a second launch; C (coo_gather) in both layouts at 4,194,304
-   nonzeros over 100000 cells (W through L2) and 3500 (W in shared
-   memory), against float64 sums within the bound of its summation
-   tree's depth (read from the library), and equal to itself on a
-   second launch; D (coo_scatter) within Higham's bound a bin; each
-   timed against its plain version in turns, beside its library call
-   (B: the bf16 dense product of the unpacked counts, and the int8
-   counts converted in the call; C: index_select and a product; D:
-   index_add_; A: none) and its bound; B's plan (blocks an SM from the
-   occupancy API, grid, units, waves, ring stages, bytes in flight an
-   SM) and its control (the ring without the MMAs) timed once; C's
-   blocks and threads an SM, waves and loads in flight; A's, B's and
-   C's registers and instruction counts (cuobjdump, via
+   a second launch; C (coo_gather) in both layouts at 4,194,304 nonzeros
+   over 100000 cells (W through L2) and 3500 (W in shared memory),
+   against float64 sums within the bound of its summation tree's depth
+   (read from the library), and equal to itself on a second launch; D
+   (coo_scatter) equal to itself on a second launch and to its order's
+   emulation (`coo_scatter_in_order`) bit for bit at 4,194,304 nonzeros,
+   at a ragged count and with indices out of the tile (which add
+   nothing), and within the bound of its tree's depth (the library's
+   plan, held equal to the host's) against float64 sums; each timed
+   against its plain version in turns, beside its library call (B: the
+   bf16 dense product of the unpacked counts, and the int8 counts
+   converted in the call; C: index_select and a product; D: index_add_;
+   A: none), its bound and, for C and D, 20 calls replayed from a CUDA
+   graph (the device's time without the wrapper's); B's plan (blocks an
+   SM from the occupancy API, grid, units, waves, ring stages, bytes in
+   flight an SM) and its control (the ring without the MMAs) timed once;
+   C's blocks and threads an SM, waves and loads in flight; A's, B's,
+   C's and D's registers and instruction counts (cuobjdump, via
    ops/sass.py); then the four probes' entry points at their JAX
    defaults (and coo_pallas_probe again at PB_CELLS=3500, W in shared
-   memory), each with the launch counts set to 0 just before it and
-   read just after: each launches exactly the kernels and counts its
-   code calls for, and these are the probes' launches in the kernels
-   line. The probes lie on no path of vireo_wrap: their launches in
-   phases 7 and 8 must be 0;
+   memory), each with the launch counts set to 0 just before it and read
+   just after: each launches exactly the kernels and counts its code
+   calls for, and these are the probes' launches in the kernels line.
+   The probes lie on no path of vireo_wrap: their launches in phases 7
+   and 8 must be 0;
 5. `[mt]`: the main call's seeded inits (20 restarts, 60.8M doubles of
    numpy's stream) drawn on the host and regenerated on the card
    (ops/mt19937.py): equal bit for bit, numpy's position equal after,
@@ -267,6 +272,11 @@ PROBE_UNPACK = ((256, 512), (30000, 50000))
 PROBE_MM = (30000, 100000, 16)
 PROBE_NNZ = 4_194_304
 PROBE_CELLS = (100_000, 3_500)
+# D also at PROBE_NNZ - PROBE_RAGGED nonzeros (the last warp's range ends
+# inside a 16-byte vector), and with PROBE_OUT_OF_RANGE of its indices
+# moved out of the tile
+PROBE_RAGGED = 13
+PROBE_OUT_OF_RANGE = 3000
 # calls of a probe's kernel timed back to back, beside the median of
 # single calls (which also holds the host's work for the call)
 PROBE_STREAM = 20
@@ -300,9 +310,11 @@ PROBE_STREAM = 20
 #   below 1/40 of the bound at these counts.
 PROBE_MM_SPARSE = 128
 PROBE_MM_LAMBDA = 8.0
-# D: a bin's n nonzeros are added by atomics in some order within a
-#   block, then the blocks' tiles in order, so (gamma_(n + blocks) +
-#   gamma_n) sum|v| over the bin against the plain version.
+# D: sums in one fixed order (csrc/probe_coo.cu), so it equals its
+#   emulation coo_scatter_in_order bit for bit; a term passes through at
+#   most `depth` adds of the plan, so gamma_depth sum|v| over the bin
+#   against float64 sums, and (gamma_depth + gamma_n) sum|v| against the
+#   float32 plain version (n the bin's nonzeros, added in torch's order).
 # float32 outside the tensor cores (C's and D's adds), NVIDIA's data
 # sheet, H100 SXM
 PEAK_F32_FLOPS = 67e12
@@ -923,12 +935,35 @@ def _gamma(n):
     return n * F32_UNIT / (1 - n * F32_UNIT)
 
 
+def _graph_ms(torch, kern):
+    """ms a call of kern with the host's work taken out: PROBE_STREAM
+    calls captured once in a CUDA graph (after a warm-up on the side
+    stream that captures them), the graph replayed between CUDA events;
+    the median of three replays over PROBE_STREAM."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            kern()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(PROBE_STREAM):
+            kern()
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = float(np.median(_time_ms(torch, graph.replay))) / PROBE_STREAM
+    del graph
+    return ms
+
+
 def _probe_times(torch, tag, res, kern, plain, library, flops, nbytes,
-                 peak=PEAK_BF16_FLOPS, kernels=()):
+                 peak=PEAK_BF16_FLOPS, kernels=(), graph=False):
     """Kernel and plain version in turns, the library call (None where
     there is none) and the bound, into res; the kernel's calls back to
-    back, and the device time of its CUDA kernels (names holding one of
-    `kernels`) from torch.profiler; logged."""
+    back, with `graph` also inside a CUDA graph (`_graph_ms`), and the
+    device time of its CUDA kernels (names holding one of `kernels`) from
+    torch.profiler; logged."""
     res["ms"], res["plain_ms"], nrun = _timed_pair(torch, kern, plain)
     res["library_ms"] = (None if library is None else
                          float(np.median(_time_ms(torch, library, reps=6))))
@@ -939,19 +974,23 @@ def _probe_times(torch, tag, res, kern, plain, library, flops, nbytes,
         for _ in range(PROBE_STREAM):
             kern()
     res["stream_ms"] = _time_ms(torch, stream)[-1] / PROBE_STREAM
+    res["graph_ms"] = _graph_ms(torch, kern) if graph else None
     by_name = _kernel_ms(torch, kern, kernels)
     res["device_by_kernel"] = by_name
     res["device_ms"] = (None if None in by_name.values()
                         else sum(by_name.values()))
     log("[probes]   %s median ms: kernel %.4f  plain %.4f  library %s "
         "(CUDA events, %d runs each); bound %.4f ms (%s): the kernel at "
-        "%.1f%% of it; %d calls back to back %.4f ms a call; device time "
-        "of its kernels (torch.profiler) %s"
+        "%.1f%% of it; %d calls back to back %.4f ms a call%s; device "
+        "time of its kernels (torch.profiler) %s"
         % (tag, res["ms"], res["plain_ms"],
            "none" if library is None else "%.4f" % res["library_ms"], nrun,
            res["bound_ms"], res["bound_by"],
            100.0 * res["bound_ms"] / res["ms"], PROBE_STREAM,
            res["stream_ms"],
+           "" if res["graph_ms"] is None else
+           ", in a CUDA graph %.4f ms a call (%.1f%% of the bound)"
+           % (res["graph_ms"], 100.0 * res["bound_ms"] / res["graph_ms"]),
            ", ".join("%s %s" % (k, "not measured" if v is None
                                 else "%.4f ms" % v)
                      for k, v in by_name.items())))
@@ -1177,7 +1216,7 @@ def _probe_coo(torch, coo, dev):
                 PEAK_F32_FLOPS,
                 kernels=("coo_gather_kernel", "sum_rows_kernel")
                 + (("transpose_kernel",) if layout == "cols" and not staged
-                   else ()))
+                   else ()), graph=True)
             log("[probes]   %s: %d blocks an SM of %d threads (%d threads "
                 "an SM), %d blocks, %.3f waves; %d W-row loads of 16 bytes "
                 "in flight a thread (%d bytes an SM); sums' depth %d; the "
@@ -1189,27 +1228,81 @@ def _probe_coo(torch, coo, dev):
                    * sh["loads_in_flight"] * 16, depth, 64e-6 * nnz,
                    64.0 * nnz / (out[name]["ms"] * 1e9)))
             del w
+    out["coo_scatter"] = _probe_scatter(torch, coo, dev, g, val)
+    return out
+
+
+def _probe_scatter(torch, coo, dev, g, val):
+    """Kernel D in its own order (csrc/probe_coo.cu): the library's plan
+    equal to the host's (`scatter_plan`); at PROBE_NNZ and at PROBE_NNZ -
+    PROBE_RAGGED nonzeros equal bit for bit to `coo_scatter_in_order` on
+    the card, within gamma_depth sum|terms| of float64 sums, and within
+    (gamma_depth + gamma_n) sum|terms| of the float32 plain version (n a
+    bin's nonzeros); equal to itself on a second launch; with
+    PROBE_OUT_OF_RANGE indices out of the tile, equal to its emulation
+    and to the sums of the others; timed beside index_add_."""
+    nnz, sms = PROBE_NNZ, _sms(torch)
     r = torch.randint(0, coo.TILE[0], (nnz,), generator=g,
                       dtype=torch.int32, device=dev)
     c = torch.randint(0, coo.TILE[1], (nnz,), generator=g,
                       dtype=torch.int32, device=dev)
-    got = coo.coo_scatter(r, c, val)
-    ref = coo.coo_scatter_reference(r, c, val)
-    n = coo.coo_scatter_reference(r, c, torch.ones_like(val))
-    blocks = coo.scatter_blocks(nnz)
-    err = _bound_check("D scatter", got, ref,
-                       (_gamma(n + blocks) + _gamma(n)) * ref,
-                       tag="probes")
+
+    def gate(tag, r, c, v, keep=None):
+        n = r.numel()
+        plan = coo.scatter_plan(n, sms)
+        if coo.scatter_shape(n) != plan:
+            raise AssertionError("coo_scatter: the library's plan %s is not "
+                                 "the host's %s" % (coo.scatter_shape(n),
+                                                    plan))
+        got = coo.coo_scatter(r, c, v)
+        emu = coo.coo_scatter_in_order(r, c, v, plan)
+        if not torch.equal(got.view(torch.int32), emu.view(torch.int32)):
+            raise AssertionError(
+                "coo_scatter %s: %d bins differ from coo_scatter_in_order "
+                "(max %.3e)" % (tag, int((got != emu).sum()),
+                                float((got - emu).abs().max())))
+        if keep is not None:
+            r, c, v = r[keep], c[keep], v[keep]
+        ref64 = coo.coo_scatter_reference(r, c, v, dtype=torch.float64)
+        mag = coo.coo_scatter_reference(r, c, v.abs(), dtype=torch.float64)
+        count = coo.coo_scatter_reference(r, c, torch.ones_like(v),
+                                          dtype=torch.float64)
+        _bound_check("D %s f64" % tag, got.double(), ref64,
+                     _gamma(plan["depth"]) * mag, tag="probes")
+        err = _bound_check("D %s f32" % tag, got,
+                           coo.coo_scatter_reference(r, c, v),
+                           ((_gamma(plan["depth"]) + _gamma(count))
+                            * mag).float(), tag="probes")
+        log("[probes] D %s: %d nonzeros, equal to coo_scatter_in_order bit "
+            "for bit; plan (library = host) %s" % (tag, n, json.dumps(plan)))
+        return got, plan, err
+
+    got, plan, err = gate("scatter", r, c, val)
+    if not torch.equal(got.view(torch.int32),
+                       coo.coo_scatter(r, c, val).view(torch.int32)):
+        raise AssertionError("coo_scatter gave other sums on a second launch")
+    log("[probes] D scatter equal to itself on a second launch, bit for bit")
+    n = nnz - PROBE_RAGGED
+    gate("ragged", r[:n], c[:n], val[:n])
+    # some rows past 8, some columns past 128, some rows below 0
+    bad = torch.randperm(nnz, generator=g, device=dev)[:PROBE_OUT_OF_RANGE]
+    ro, co = r.clone(), c.clone()
+    third = PROBE_OUT_OF_RANGE // 3
+    ro[bad[:third]] += coo.TILE[0]
+    co[bad[third:2 * third]] += coo.TILE[1]
+    ro[bad[2 * third:]] = -1 - ro[bad[2 * third:]]
+    keep = torch.ones(nnz, dtype=torch.bool, device=dev)
+    keep[bad] = False
+    gate("out-of-range", ro, co, val, keep)
     flat = r.long() * coo.TILE[1] + c.long()
     tile = torch.zeros(coo.TILE[0] * coo.TILE[1], device=dev)
-    out["coo_scatter"] = _probe_times(
-        torch, "D scatter", dict(max_abs_err=err),
+    return _probe_times(
+        torch, "D scatter", dict(plan, max_abs_err=err),
         lambda: coo.coo_scatter(r, c, val),
         lambda: coo.coo_scatter_reference(r, c, val),
         lambda: tile.index_add_(0, flat, val), float(nnz),
         12.0 * nnz + 4.0 * tile.numel(), PEAK_F32_FLOPS,
-        kernels=("coo_scatter_kernel", "sum_rows_kernel"))
-    return out
+        kernels=("coo_scatter_kernel",), graph=True)
 
 
 def _probe_sass():
@@ -1232,7 +1325,8 @@ def _probe_sass():
         "coo_gather_kernelILi0E": "C through L2",
         "coo_gather_kernelILi1E": "C rows staged",
         "coo_gather_kernelILi2E": "C cols staged",
-        "transpose_kernel": "C cols transpose"}}
+        "transpose_kernel": "C cols transpose",
+        "coo_scatter_kernel": "D scatter"}}
     for lib, labels in names.items():
         fns, regs = sass.dump(library_path(lib))
         for fn, code in sorted(fns.items()):

@@ -19,6 +19,11 @@ Tolerances:
   (n = the nonzeros for the gathers, a bin's nonzeros for the scatter):
   gamma_n sum|terms|; the library baseline, float32 on both sides,
   2 gamma_n sum|terms|;
+- kernel D's order (`coo_scatter_in_order`, float32): bit for bit against
+  a loop that walks the order csrc/probe_coo.cu's header states; against
+  float64 sums within gamma_depth sum|terms| (Higham's bound for a tree
+  of that depth); against JAX's float32 sums, which carry their own
+  gamma_n, within (gamma_depth + gamma_n) sum|terms|;
 - the padded JAX layout against the port's: byte for byte.
 
 The CUDA kernels run only on a card; chip_smoke.py's `[probes]` phase
@@ -404,6 +409,137 @@ def test_coo_library_baseline_matches_jax(coo_probes):
     assert np.all(np.abs(got - want) <= 2 * _gamma(NNZ) * got)
 
 
+# --- kernel D's plan and order ----------------------------------------
+
+@pytest.mark.parametrize("nnz,sms", [
+    (1, SMS), (100, SMS), (127, 3), (4097, SMS), (4097, 2),
+    (4_194_304, SMS), (4_194_304 - 13, SMS), (1_000_003, 7)])
+def test_scatter_plan_tiles_the_nonzeros(nnz, sms):
+    """The warps' ranges tile [0, nnz) in order, each that holds
+    nonzeros starting on a 16-byte boundary, every block with work, at
+    most one block an SM; groups of ceil(sqrt(blocks)) cover the blocks;
+    the depth counts the adds a term can pass through."""
+    plan = tcoo.scatter_plan(nnz, sms)
+    per, warps, blocks = plan["per_warp"], plan["warps"], plan["blocks"]
+    assert plan["threads"] == 32 * warps == tcoo.TILE[0] * tcoo.TILE[1]
+    assert per % plan["vec"] == 0 and per >= 32 * plan["vec"]
+    assert 1 <= blocks <= sms
+    starts = [min(w * per, nnz) for w in range(blocks * warps)]
+    ends = [min(w * per + per, nnz) for w in range(blocks * warps)]
+    assert starts[0] == 0 and ends[-1] == nnz
+    assert all(a == b for a, b in zip(ends, starts[1:]))
+    assert all((s * 4) % 16 == 0 for s in starts if s < nnz)
+    assert (blocks - 1) * warps * per < nnz     # the last block has work
+    assert plan["steps"] == -(-per // (32 * plan["vec"]))
+    group, groups = plan["group"], plan["groups"]
+    assert (group - 1) ** 2 < blocks <= group ** 2
+    assert (groups - 1) * group < blocks <= groups * group
+    assert plan["depth"] == (31 + plan["vec"] * plan["steps"] + warps
+                             + group + groups)
+
+
+def test_scatter_plan_fills_the_card_at_the_probes_size():
+    plan = tcoo.scatter_plan(4_194_304, SMS)
+    assert (plan["blocks"], plan["per_warp"], plan["steps"], plan["group"],
+            plan["groups"], plan["depth"]) == (132, 996, 8, 12, 11, 118)
+
+
+def _scatter_walk(r, c, v, plan):
+    """The order csrc/probe_coo.cu's header states, one float32 add at a
+    time: warp w's steps, each step's vector elements e, the lanes of a
+    bin added in lane order into the warp's tile; the warps of a block
+    in order, the blocks of a group in order, the groups in order."""
+    f32 = np.float32
+    nnz, warps, per = len(r), plan["warps"], plan["per_warp"]
+    tiles = np.zeros((plan["blocks"] * warps, 1024), f32)
+    for w in range(plan["blocks"] * warps):
+        lo, hi = w * per, min(w * per + per, nnz)
+        for step in range(plan["steps"]):
+            for e in range(plan["vec"]):
+                bins = {}
+                for lane in range(32):
+                    m = lo + 128 * step + 4 * lane + e
+                    if m < hi and 0 <= r[m] < 8 and 0 <= c[m] < 128:
+                        bins.setdefault(r[m] * 128 + c[m], []).append(m)
+                for b, ms in bins.items():
+                    acc = f32(v[ms[0]])
+                    for m in ms[1:]:
+                        acc = f32(acc + v[m])
+                    tiles[w, b] = f32(tiles[w, b] + acc)
+    rows = np.zeros((plan["blocks"], 1024), f32)
+    for b in range(plan["blocks"]):
+        for w in range(warps):
+            rows[b] = rows[b] + tiles[b * warps + w]
+    out = np.zeros(1024, f32)
+    for g in range(plan["groups"]):
+        grow = np.zeros(1024, f32)
+        for b in range(g * plan["group"],
+                       min(g * plan["group"] + plan["group"],
+                           plan["blocks"])):
+            grow = grow + rows[b]
+        out = out + grow
+    return out.reshape(tcoo.TILE)
+
+
+@pytest.mark.parametrize("nnz,sms,bins", [
+    (1, 3, 4), (100, 3, 4), (5001, 2, 6), (9000, 3, 1024), (20011, 3, 8)])
+def test_scatter_in_order_is_the_stated_order(nnz, sms, bins):
+    """coo_scatter_in_order against the walk, bit for bit, with lanes
+    sharing bins (few bins), indices out of the tile, several blocks and
+    groups, and ragged ends."""
+    rng = np.random.RandomState(nnz)
+    if bins < 1024:
+        r = rng.randint(-1, 2, nnz).astype(np.int32)
+        c = rng.randint(0, bins // 2, nnz).astype(np.int32)
+        c[rng.rand(nnz) < 0.05] = 128
+    else:
+        r = rng.randint(-1, 9, nnz).astype(np.int32)
+        c = rng.randint(0, 130, nnz).astype(np.int32)
+    v = rng.standard_normal(nnz).astype(np.float32)
+    plan = tcoo.scatter_plan(nnz, sms)
+    got = tcoo.coo_scatter_in_order(*map(torch.from_numpy, (r, c, v)), plan)
+    assert got.dtype == torch.float32 and got.shape == tcoo.TILE
+    want = _scatter_walk(r, c, v, plan)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+
+
+def test_scatter_in_order_matches_jax(coo_probes):
+    """Kernel D's order on the JAX probe's inputs (P2, interpret mode):
+    within gamma_depth sum|terms| of float64 sums, and within
+    (gamma_depth + gamma_n) sum|terms| of JAX's float32 sums of a bin's n
+    terms. Every term is >= 0, so sum|terms| is the float64 sum."""
+    want = np.asarray(coo_probes.probe_scatter(NNZ))
+    rng = np.random.RandomState(0)
+    r = rng.randint(0, 8, size=(1, NNZ)).astype(np.int32)
+    c = rng.randint(0, 128, size=(1, NNZ)).astype(np.int32)
+    v = rng.rand(1, NNZ).astype(np.float32)
+    plan = tcoo.scatter_plan(NNZ, SMS)
+    got = tcoo.coo_scatter_in_order(*map(torch.from_numpy, (r, c, v)),
+                                    plan).double().numpy()
+    exact = tcoo.coo_scatter_reference(
+        *map(torch.from_numpy, (r, c, v)), dtype=torch.float64).numpy()
+    n = np.zeros(tcoo.TILE)
+    np.add.at(n, (r[0], c[0]), 1)
+    assert np.all(np.abs(got - exact) <= _gamma(plan["depth"]) * exact)
+    assert np.all(np.abs(got - want)
+                  <= (_gamma(plan["depth"]) + _gamma(n)) * exact)
+
+
+def test_scatter_plain_version_drops_indices_outside_the_tile():
+    """Indices outside the tile add nothing, on the CPU as on the card."""
+    r = torch.tensor([0, 8, -1, 7, 3], dtype=torch.int32)
+    c = torch.tensor([0, 5, 5, 128, 127], dtype=torch.int32)
+    v = torch.tensor([1.0, 2.0, 4.0, 8.0, 16.0])
+    got = tcoo.coo_scatter(r, c, v)
+    want = torch.zeros(tcoo.TILE, dtype=torch.float64)
+    want[0, 0], want[3, 127] = 1.0, 16.0
+    assert torch.equal(got, want)
+    plan = tcoo.scatter_plan(5, SMS)
+    assert torch.equal(tcoo.coo_scatter_in_order(r, c, v, plan),
+                       want.float())
+
+
 def test_coo_gather_layouts_agree():
     """The two layouts of W give the same sums (P1 against P3)."""
     rng = np.random.RandomState(5)
@@ -508,10 +644,18 @@ def test_entry_point_without_a_card_raises(monkeypatch, name):
                                        torch.zeros(3, K), torch.zeros(3, K)),
      ValueError),
     (lambda: nibbles.mm_plan(0, 16, K, "nibble_int", SMS, 1), ValueError),
+    (lambda: tcoo.scatter_plan(0, SMS), ValueError),
+    (lambda: tcoo.coo_scatter(torch.zeros(4, dtype=torch.int64),
+                              torch.zeros(4, dtype=torch.int32),
+                              torch.zeros(4)), TypeError),
+    (lambda: tcoo.coo_scatter_in_order(
+        *(torch.zeros(5000, dtype=torch.int32),) * 2, torch.zeros(5000),
+        tcoo.scatter_plan(4096, SMS)), ValueError),
 ], ids=["unpack-variant", "unpack-dtype", "mm-codec", "mm-rows",
         "mm-weight-dtype", "gather-index-dtype", "gather-width",
         "gather-layout", "scatter-lengths", "scatter-device",
-        "mm-control-cpu", "mm-plan-empty"])
+        "mm-control-cpu", "mm-plan-empty", "scatter-plan-empty",
+        "scatter-index-dtype", "scatter-plan-short"])
 def test_wrappers_refuse_what_the_kernels_do_not_take(call, error):
     with pytest.raises(error):
         call()

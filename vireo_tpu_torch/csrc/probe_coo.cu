@@ -35,16 +35,56 @@
 // the card's SMs, the occupancy and the number of nonzeros.
 // `vireo_probe_coo_gather_shape` reports the grid and the tree's depth.
 //
-// Kernel D, `coo_scatter`, replaces `_scatter_kernel` (:99, pl.pallas_call
-// in `probe_scatter` at :123): out[r_m, c_m] += v_m into one 8 x 128
-// float32 tile. Each block zeroes its own tile in shared memory, adds its
-// nonzeros into it with shared-memory atomicAdd (which the TPU could not
-// do: "Cannot store scalars to VMEM"), and writes it to one row of a
-// (blocks, 1024) buffer, which `sum_rows_kernel` adds in block order.
-// Within a block D's atomics add in no fixed order (a tile bin's sum is
-// one of its orders; chip_smoke.py bounds it by Higham's bound). What
-// bounds it: the bytes of r, c and v, 12 a nonzero, 50 MB at 4,194,304
-// nonzeros, 0.015 ms at 3.35 TB/s.
+// Kernel D, `coo_scatter_kernel`, replaces `_scatter_kernel` (:99,
+// pl.pallas_call in `probe_scatter` at :123): out[r_m, c_m] += v_m into
+// one 8 x 128 float32 tile, in one launch and in one fixed order, with no
+// atomics on the tile. The JAX kernel adds the nonzeros one by one in
+// grid order; 132 SMs cannot, so D fixes another order, stated here and
+// emulated on the host by probes/coo_pallas_probe.py::coo_scatter_in_order:
+//
+//   The plan (`vireo_probe_coo_scatter_shape`; its host copy is
+//   coo_pallas_probe.scatter_plan) gives warp w (w = 32 block + warp of
+//   `blocks` x 32) the nonzeros [w P, min(w P + P, nnz)), P = `per_warp`
+//   a multiple of 4. A warp walks its range in steps of 128: in step s
+//   lane l holds nonzeros w P + 128 s + 4 l + e, e = 0..3. For e = 0..3
+//   in turn (a round), the lanes whose nonzero lands in the same bin form
+//   a group; the group's lowest lane adds the group's values in lane
+//   order (its own, then each higher lane's) and adds that sum into its
+//   warp's own tile in shared memory. A bin of the block's row is 0 + its
+//   32 warps' entries in warp order; the rows of each `group` consecutive
+//   blocks are added in block order (from 0) into a group row, and out is
+//   0 + the `groups` group rows in group order. Each add is one float32
+//   add rounded to nearest, so the plan fixes every bit of out; a term
+//   passes through at most depth = 31 + 4 steps + 32 + group + groups
+//   adds (`steps` = ceil(P / 128)), which bounds the error: gamma_depth
+//   sum|terms| a bin (Higham).
+//
+// A round finds its groups cheaply: each lane writes its lane number into
+// a byte tag of its bin (a 1 KB tag array a warp) and reads it back; only
+// where a lane reads another's (about one round in three on random bins)
+// does one ballot a shared bin find that bin's lanes, whose values go to
+// the lowest by shuffles. (__match_any_sync on every round, or ten
+// ballots on the key's bits, give the same groups and took longer.)
+//
+// The second pass is folded in: each block writes its row into scratch
+// and takes a ticket of its group (atom.inc, release and acquire at the
+// card's scope); the group's last block to arrive adds the group's rows
+// into its group row and takes a ticket of the grid, and the last of
+// those writes out. Who adds depends on timing; what is added and in
+// which order does not. atom.inc wraps each ticket back to 0, so the
+// wrapper zeroes the tickets once and keeps them. Groups of
+// ceil(sqrt(blocks)) keep each fold at ~12 rows (48 KB from L2) where one
+// block folding 132 rows would read 540 KB alone.
+//
+// What bounds D: the bytes of r, c and v, 12 a nonzero, 50.3 MB at
+// 4,194,304 nonzeros, 0.0150 ms at 3.35 TB/s. One block of 1024 threads
+// an SM (32 tiles of 4 KB and 32 tag arrays of 1 KB: 160 KB of shared
+// memory), each warp a range read as 16-byte vectors, two steps loaded
+// ahead of the one it adds: 32 x 2 x 1.5 KB = 96 KB in flight an SM,
+// above the ~25 KB that 3.35 TB/s over 132 SMs needs at ~1 us of latency
+// (Little's law). The two folds after the last block's range, each a
+// ticket and a read of ~12 rows from L2, are latency the bytes do not
+// hide.
 //
 // Out-of-range indices add nothing.
 //
@@ -67,10 +107,14 @@ constexpr int kWarpStep = 32 / kLanes * kPerQuad;  // nonzeros a warp step
 constexpr int kShuffleLevels = 3;    // over the 8 quads of a warp
 constexpr int kRedBytes = kStagedThreads / 32 * kK * 4;  // the block sum
 
-constexpr int kThreads = 512;      // a block of D
-constexpr int kBlocksPerSm = 4;    // blocks of D a multiprocessor
 constexpr int kTileRows = 8, kTileCols = 128;
 constexpr int kTile = kTileRows * kTileCols;
+constexpr int kScatterThreads = kTile;  // a block of D: thread j, bin j
+constexpr int kScatterWarps = kScatterThreads / 32;
+constexpr int kVec = 4;                 // nonzeros a lane a step
+constexpr int kScatterStep = 32 * kVec; // nonzeros a warp a step
+// a tile (float) and a tag array (byte) a warp
+constexpr int kScatterSmem = kScatterWarps * kTile * 5;
 
 enum Stage { kNone = 0, kRows = 1, kCols = 2 };  // how C stages W
 
@@ -89,13 +133,34 @@ bool gather_staged(long long n_cell) {
   return n_cell > 0 && n_cell * kK * 4 + kRedBytes <= optin;
 }
 
-// Blocks of D: kBlocksPerSm a multiprocessor, never more than the
-// nonzeros need.
-long long scatter_grid(long long nnz) {
-  const long long sms = device_attr(cudaDevAttrMultiProcessorCount);
-  const long long full = sms * kBlocksPerSm;
-  const long long need = (nnz + kThreads - 1) / kThreads;
-  return need < full ? need : full;
+// Kernel D's plan for nnz nonzeros on `sms` SMs (the host's copy is
+// coo_pallas_probe.scatter_plan): out[0] blocks, out[1] threads a block,
+// out[2] warps a block, out[3] per_warp (the nonzeros a warp, a multiple
+// of kVec, at least one step), out[4] kVec, out[5] steps a warp, out[6]
+// blocks a group (ceil(sqrt(blocks))), out[7] groups, out[8] the depth
+// of the sums' tree.
+bool scatter_plan(long long nnz, long long sms, long long* out) {
+  if (nnz <= 0 || sms <= 0) return false;
+  const long long slots = sms * kScatterWarps;
+  long long per = (nnz + slots - 1) / slots;
+  per = (per + kVec - 1) / kVec * kVec;
+  if (per < kScatterStep) per = kScatterStep;
+  const long long span = (long long)kScatterWarps * per;
+  const long long blocks = (nnz + span - 1) / span;
+  long long group = 1;
+  while (group * group < blocks) ++group;
+  const long long groups = (blocks + group - 1) / group;
+  const long long steps = (per + kScatterStep - 1) / kScatterStep;
+  out[0] = blocks;
+  out[1] = kScatterThreads;
+  out[2] = kScatterWarps;
+  out[3] = per;
+  out[4] = kVec;
+  out[5] = steps;
+  out[6] = group;
+  out[7] = groups;
+  out[8] = 31 + kVec * steps + kScatterWarps + group + groups;
+  return true;
 }
 
 template <int kStage>
@@ -205,25 +270,162 @@ __global__ void transpose_kernel(const float* __restrict__ wt, int C,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    coo_scatter_kernel(const int* __restrict__ r, const int* __restrict__ c,
-                       const float* __restrict__ v, long long nnz,
-                       float* __restrict__ partials) {
-  __shared__ float tile[kTile];
-  const int tid = threadIdx.x;
-  for (int i = tid; i < kTile; i += kThreads) tile[i] = 0.f;
+// One step's nonzeros of a lane: a 16-byte vector of r, c and v each
+// where all four lie in the warp's range, else one by one; a slot past
+// the range has r = -1 (out of the tile: it adds nothing).
+struct Slot {
+  int r[kVec], c[kVec];
+  float v[kVec];
+};
+
+__device__ __forceinline__ void load_slot(const int* __restrict__ r,
+                                          const int* __restrict__ c,
+                                          const float* __restrict__ v,
+                                          long long m, long long end,
+                                          Slot& s) {
+  if (m + kVec <= end) {
+    const int4 a = __ldcs(reinterpret_cast<const int4*>(r + m));
+    const int4 b = __ldcs(reinterpret_cast<const int4*>(c + m));
+    const float4 x = __ldcs(reinterpret_cast<const float4*>(v + m));
+    s.r[0] = a.x, s.r[1] = a.y, s.r[2] = a.z, s.r[3] = a.w;
+    s.c[0] = b.x, s.c[1] = b.y, s.c[2] = b.z, s.c[3] = b.w;
+    s.v[0] = x.x, s.v[1] = x.y, s.v[2] = x.z, s.v[3] = x.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      const bool in = m + e < end;
+      s.r[e] = in ? r[m + e] : -1;
+      s.c[e] = in ? c[m + e] : 0;
+      s.v[e] = in ? v[m + e] : 0.f;
+    }
+  }
+}
+
+// One nonzero a lane into the warp's tile, in lane order. Each lane in
+// the tile writes its lane number into its bin's tag; a lane that reads
+// back another's shares its bin ("lost"). Where no lane lost (about two
+// rounds in three on random bins), every lane adds its value into its
+// own bin. Else, for each bin that a lane lost, one ballot finds the
+// bin's lanes; the lowest adds the others' values in lane order, and only
+// it adds into the tile. A lane out of the tile adds nothing.
+__device__ __forceinline__ void add_in_lane_order(float* tile,
+                                                  unsigned char* tag, int ri,
+                                                  int ci, float vi,
+                                                  int lane) {
+  const bool in = (unsigned)ri < (unsigned)kTileRows &&
+                  (unsigned)ci < (unsigned)kTileCols;
+  const int key = in ? ri * kTileCols + ci : 0;
+  if (in) tag[key] = (unsigned char)lane;
+  __syncwarp();
+  unsigned lost = __ballot_sync(0xFFFFFFFFu, in && tag[key] != lane);
+  float s = vi;
+  bool add = in;
+  while (lost) {
+    const int bin = __shfl_sync(0xFFFFFFFFu, key, __ffs(lost) - 1);
+    const unsigned group = __ballot_sync(0xFFFFFFFFu, in && key == bin);
+    const int lead = __ffs(group) - 1;
+    for (unsigned rest = group & (group - 1); rest; rest &= rest - 1) {
+      const float x = __shfl_sync(0xFFFFFFFFu, vi, __ffs(rest) - 1);
+      if (lane == lead) s += x;
+    }
+    if ((group >> lane & 1u) && lane != lead) add = false;
+    lost &= ~group;
+  }
+  if (add) tile[key] += s;
+  __syncwarp();
+}
+
+// True in the block that arrives last of `n` at `ticket`, which it leaves
+// at 0 (atom.inc wraps); the rows written before the call by every block
+// that arrived are visible to it (release and acquire at the card's
+// scope, the barrier carrying the block's other threads' writes).
+__device__ __forceinline__ bool last_to_arrive(unsigned* ticket,
+                                               unsigned n) {
+  static __shared__ bool last;
   __syncthreads();
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long m = (long long)blockIdx.x * kThreads + tid; m < nnz;
-       m += stride) {
-    const int ri = r[m], ci = c[m];
-    if ((unsigned)ri < (unsigned)kTileRows &&
-        (unsigned)ci < (unsigned)kTileCols)
-      atomicAdd(&tile[ri * kTileCols + ci], v[m]);
+  if (threadIdx.x == 0) {
+    unsigned old;
+    asm volatile("atom.acq_rel.gpu.global.inc.u32 %0, [%1], %2;"
+                 : "=r"(old)
+                 : "l"(ticket), "r"(n - 1)
+                 : "memory");
+    last = old == n - 1;
   }
   __syncthreads();
-  for (int i = tid; i < kTile; i += kThreads)
-    partials[(long long)blockIdx.x * kTile + i] = tile[i];
+  return last;
+}
+
+// 0 + rows row0 .. row0 + n - 1 of bin tid in order, read from L2 sixteen
+// at a time.
+__device__ __forceinline__ float fold_rows(const float* rows, long long row0,
+                                           int n, int tid) {
+  float acc = 0.f;
+  for (int b0 = 0; b0 < n; b0 += 16) {
+    float x[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      x[i] = b0 + i < n ? __ldcg(rows + (row0 + b0 + i) * kTile + tid) : 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      if (b0 + i < n) acc += x[i];
+  }
+  return acc;
+}
+
+// rows: (blocks + groups, kTile) float32 scratch, a row a block, then a
+// row a group; tickets: groups + 1 counters, 0 before the launch and
+// after it. Dynamic shared memory: kScatterSmem.
+__global__ void __launch_bounds__(kScatterThreads, 1)
+    coo_scatter_kernel(const int* __restrict__ r, const int* __restrict__ c,
+                       const float* __restrict__ v, long long nnz,
+                       long long per_warp, int group, int groups,
+                       float* __restrict__ rows, unsigned* tickets,
+                       float* __restrict__ out) {
+  extern __shared__ float4 tiles4[];
+  float* tiles = reinterpret_cast<float*>(tiles4);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  float* tile = tiles + warp * kTile;
+  unsigned char* tag =
+      reinterpret_cast<unsigned char*>(tiles + kScatterWarps * kTile) +
+      warp * kTile;
+  for (int i = lane; i < kTile / 4; i += 32)
+    tiles4[warp * (kTile / 4) + i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncwarp();
+
+  // the warp's range, two steps loaded ahead of the one it adds
+  const long long w0 =
+      ((long long)blockIdx.x * kScatterWarps + warp) * per_warp;
+  const long long w1 = w0 + per_warp < nnz ? w0 + per_warp : nnz;
+  const long long steps =
+      w0 < w1 ? (w1 - w0 + kScatterStep - 1) / kScatterStep : 0;
+  const long long m0 = w0 + kVec * lane;
+  Slot cur, next, after;
+  if (steps > 0) load_slot(r, c, v, m0, w1, cur);
+  if (steps > 1) load_slot(r, c, v, m0 + kScatterStep, w1, next);
+  for (long long st = 0; st < steps; ++st) {
+    if (st + 2 < steps)
+      load_slot(r, c, v, m0 + (st + 2) * kScatterStep, w1, after);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e)
+      add_in_lane_order(tile, tag, cur.r[e], cur.c[e], cur.v[e], lane);
+    cur = next;
+    next = after;
+  }
+  __syncthreads();
+
+  // the block's row: bin tid, its warps in order
+  float p = 0.f;
+#pragma unroll 8
+  for (int w = 0; w < kScatterWarps; ++w) p += tiles[w * kTile + tid];
+  rows[(long long)blockIdx.x * kTile + tid] = p;
+
+  const int g = blockIdx.x / group, first = g * group;
+  const int n = min(group, (int)gridDim.x - first);
+  if (!last_to_arrive(tickets + g, n)) return;
+  rows[((long long)gridDim.x + g) * kTile + tid] =
+      fold_rows(rows, first, n, tid);
+  if (!last_to_arrive(tickets + groups, groups)) return;
+  out[tid] = fold_rows(rows, gridDim.x, groups, tid);
 }
 
 // out[j] = sum over b of part[b, j], b in order.
@@ -241,6 +443,21 @@ cudaError_t sum_rows(const float* part, int rows, int width, float* out,
   sum_rows_kernel<<<(width + 255) / 256, 256, 0, s>>>(part, rows, width,
                                                       out);
   return cudaGetLastError();
+}
+
+// D's shared memory above 48 KB, asked once for each card.
+cudaError_t scatter_attributes() {
+  constexpr int kCards = 64;
+  static bool done[kCards];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kCards && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(coo_scatter_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kScatterSmem);
+  if (err == cudaSuccess && dev < kCards) done[dev] = true;
+  return err;
 }
 
 template <int kStage>
@@ -324,10 +541,11 @@ int vireo_probe_coo_gather_shape(long long nnz, int n_cell, int cols,
   return 0;
 }
 
-// The blocks of kernel D, and so the rows of its partial sums, for nnz
-// nonzeros.
-long long vireo_probe_coo_scatter_blocks(long long nnz) {
-  return scatter_grid(nnz);
+// Kernel D's plan for nnz nonzeros on the current card, into out[9]
+// (see scatter_plan). Returns 0, or cudaErrorInvalidValue.
+int vireo_probe_coo_scatter_shape(long long nnz, long long* out) {
+  const long long sms = device_attr(cudaDevAttrMultiProcessorCount);
+  return scatter_plan(nnz, sms, out) ? 0 : (int)cudaErrorInvalidValue;
 }
 
 // idx: nnz int32 < C; val: nnz float32; both 16-byte aligned. w: (C, 16)
@@ -368,22 +586,38 @@ int vireo_probe_coo_gather(const void* idx, const void* val, const void* w,
   return (int)sum_rows(part, (int)blocks, kK, (float*)out, s);
 }
 
-// r, c: nnz int32 (r < 8, c < 128); v: nnz float32; partials: (blocks,
-// 1024) float32 scratch, blocks = vireo_probe_coo_scatter_blocks(nnz);
-// out: the (8, 128) float32 tile.
+// r, c: nnz int32 (r < 8, c < 128; others add nothing); v: nnz float32;
+// all three 16-byte aligned. blocks, per_warp, group: a plan's (out[0],
+// out[3], out[6]; any plan that covers nnz gives the sums, that one their
+// order). rows: (rows_cap, 1024) float32 scratch, at least blocks +
+// ceil(blocks / group) rows; tickets: tickets_cap unsigned counters, at
+// least ceil(blocks / group) + 1, zero before the first launch (each
+// launch leaves them zero). Launches on one stream may share the scratch;
+// launches that may overlap need their own. out: the (8, 128) float32
+// tile.
 int vireo_probe_coo_scatter(const void* r, const void* c, const void* v,
-                            long long nnz, void* partials, long long blocks,
-                            void* out, void* stream) {
+                            long long nnz, long long blocks,
+                            long long per_warp, long long group, void* rows,
+                            long long rows_cap, void* tickets,
+                            long long tickets_cap, void* out,
+                            void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (nnz <= 0 || blocks != scatter_grid(nnz) || blocks <= 0 ||
-      blocks > INT_MAX)
+  if (nnz <= 0 || blocks <= 0 || blocks > INT_MAX || per_warp <= 0 ||
+      per_warp % kVec || group <= 0 || group > blocks ||
+      blocks * kScatterWarps * per_warp < nnz || ((uintptr_t)r & 15) ||
+      ((uintptr_t)c & 15) || ((uintptr_t)v & 15))
     return (int)cudaErrorInvalidValue;
-  coo_scatter_kernel<<<(int)blocks, kThreads, 0, s>>>(
-      (const int*)r, (const int*)c, (const float*)v, nnz, (float*)partials);
-  cudaError_t err = cudaGetLastError();
+  const long long groups = (blocks + group - 1) / group;
+  if (blocks + groups > rows_cap || groups + 1 > tickets_cap ||
+      rows == nullptr || tickets == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = scatter_attributes();
   if (err != cudaSuccess) return (int)err;
-  return (int)sum_rows((const float*)partials, (int)blocks, kTile,
-                       (float*)out, s);
+  coo_scatter_kernel<<<(int)blocks, kScatterThreads, kScatterSmem, s>>>(
+      (const int*)r, (const int*)c, (const float*)v, nnz, per_warp,
+      (int)group, (int)groups, (float*)rows, (unsigned*)tickets,
+      (float*)out);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -23,11 +23,13 @@ def on_cpu(name, t):
     return False
 
 
-def launch(name, fn, args, device, error_string):
+def launch(name, fn, args, device, error_string, stream=None):
     """Call the C entry point fn(*args, stream) on the device's current
-    stream; raise on a nonzero CUDA error code (error_string names it)."""
+    stream (or on `stream`, a handle the caller took from it); raise on a
+    nonzero CUDA error code (error_string names it)."""
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+        if stream is None:
+            stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError("%s kernel launch failed: %s (code %d)"

@@ -14,16 +14,19 @@ TPU all three failed to compile (coo_pallas_probe_result.json). Here:
   scratch); four lanes a nonzero, eight nonzeros a quad of lanes in
   flight (`gather_shape` reports the grid and its sums' depth);
 - D, `coo_scatter(r, c, v)`: out[r_m, c_m] += v_m into one (8, 128)
-  tile (P2), by shared-memory atomics a block;
+  tile (P2), in one launch and one fixed order: each warp a contiguous
+  range into a tile of its own, the lanes of a bin added in lane order,
+  the warps, then the blocks (in groups) in order, no atomics on the tile
+  (`scatter_plan` fixes the order, `coo_scatter_in_order` computes it on
+  the host);
 - `take_sum(idx, val, w)`: the probe's own library baseline
   (`probe_xla_take`), `index_select` and a weighted sum.
 
 For tensors on a card C and D launch their kernels or raise; for tensors
 on the CPU they run their plain versions (`index_select` and a weighted
 sum; `index_put_(..., accumulate=True)`) in float64. Both kernels sum in
-a fixed order (a second pass adds the blocks' partial sums in order);
-D's atomics add within a block in no fixed order. `LAUNCHES` counts each
-kernel's launches, C's by layout and by where W is read from
+a fixed order, so a second launch gives the same bits. `LAUNCHES` counts
+each kernel's launches, C's by layout and by where W is read from
 (`coo_gather_rows`, `coo_gather_rows_smem`, ...).
 
     python -m vireo_tpu_torch.probes.coo_pallas_probe   # PB_NNZ, PB_CELLS
@@ -36,6 +39,7 @@ a nonzero, and the device every line ran on.
 import ctypes
 import functools
 import json
+import math
 import os
 import time
 
@@ -49,7 +53,8 @@ from . import device_label
 
 __all__ = ["K", "BLK", "LAYOUTS", "TILE", "LAUNCHES", "coo_gather",
            "coo_gather_reference", "coo_scatter", "coo_scatter_reference",
-           "take_sum", "gather_shape", "scatter_blocks",
+           "coo_scatter_in_order", "take_sum", "gather_shape",
+           "scatter_plan", "scatter_shape",
            "timed", "probe_xla_take",
            "probe_gather", "probe_scatter", "probe_lane_gather", "main"]
 
@@ -75,13 +80,14 @@ def _library():
         lib.vireo_probe_coo_gather_shape.argtypes = [
             ll, i, i, ctypes.POINTER(ll)]
         lib.vireo_probe_coo_gather_shape.restype = i
-        lib.vireo_probe_coo_scatter_blocks.argtypes = [ll]
-        lib.vireo_probe_coo_scatter_blocks.restype = ll
+        lib.vireo_probe_coo_scatter_shape.argtypes = [ll, ctypes.POINTER(ll)]
+        lib.vireo_probe_coo_scatter_shape.restype = i
         lib.vireo_probe_coo_gather.argtypes = [ptr, ptr, ptr, ll, i, i, i,
                                                ptr, ptr, ll, ptr, ptr]
         lib.vireo_probe_coo_gather.restype = i
-        lib.vireo_probe_coo_scatter.argtypes = [ptr, ptr, ptr, ll, ptr, ll,
-                                                ptr, ptr]
+        lib.vireo_probe_coo_scatter.argtypes = [ptr, ptr, ptr, ll, ll, ll,
+                                                ll, ptr, ll, ptr, ll, ptr,
+                                                ptr]
         lib.vireo_probe_coo_scatter.restype = i
         lib.vireo_probe_coo_error_string.argtypes = [i]
         lib.vireo_probe_coo_error_string.restype = ctypes.c_char_p
@@ -159,9 +165,73 @@ def _gather_shape(nnz, n_cell, layout, device):
     return dict(zip(_SHAPE_KEYS, out))
 
 
-def scatter_blocks(nnz):
-    """Kernel D's blocks, and so the rows of its partial sums."""
-    return int(_library().vireo_probe_coo_scatter_blocks(int(nnz)))
+# Kernel D: threads a block (thread j adds bin j), warps a block, and
+# nonzeros a lane and a warp in one step (a 16-byte vector a lane)
+SCATTER_THREADS = TILE[0] * TILE[1]
+SCATTER_WARPS = SCATTER_THREADS // 32
+SCATTER_VEC = 4
+SCATTER_STEP = 32 * SCATTER_VEC
+# the fields of kernel D's plan, in the C entry point's order
+_PLAN_KEYS = ("blocks", "threads", "warps", "per_warp", "vec", "steps",
+              "group", "groups", "depth")
+
+
+def scatter_plan(nnz, sms):
+    """Kernel D's plan for nnz nonzeros on `sms` SMs (the host's copy of
+    csrc/probe_coo.cu's `scatter_plan`): one block of 1024 threads an SM
+    at most; warp w of the `blocks` x `warps` takes the nonzeros [w P,
+    min(w P + P, nnz)), P = `per_warp` (a multiple of `vec`, at least one
+    step of 128) in `steps` steps; the blocks' rows are added in groups
+    of `group` (ceil(sqrt(blocks))), `groups` of them; a term passes
+    through at most `depth` float32 adds."""
+    nnz, sms = int(nnz), int(sms)
+    if nnz <= 0 or sms <= 0:
+        raise ValueError("coo_scatter plan: %d nonzeros on %d SMs"
+                         % (nnz, sms))
+    per = -(-nnz // (sms * SCATTER_WARPS))
+    per = max(-(-per // SCATTER_VEC) * SCATTER_VEC, SCATTER_STEP)
+    blocks = -(-nnz // (SCATTER_WARPS * per))
+    group = math.isqrt(blocks - 1) + 1
+    groups = -(-blocks // group)
+    steps = -(-per // SCATTER_STEP)
+    return dict(blocks=blocks, threads=SCATTER_THREADS, warps=SCATTER_WARPS,
+                per_warp=per, vec=SCATTER_VEC, steps=steps, group=group,
+                groups=groups, depth=31 + SCATTER_VEC * steps
+                + SCATTER_WARPS + group + groups)
+
+
+def scatter_shape(nnz):
+    """Kernel D's plan as the library makes it on the current card (the
+    wrapper uses `scatter_plan` on the card's SMs; chip_smoke holds the
+    two equal)."""
+    out = (ctypes.c_longlong * len(_PLAN_KEYS))()
+    err = _library().vireo_probe_coo_scatter_shape(int(nnz), out)
+    if err:
+        raise RuntimeError("coo_scatter: no plan for %d nonzeros (error %d)"
+                           % (nnz, err))
+    return dict(zip(_PLAN_KEYS, out))
+
+
+@functools.lru_cache(maxsize=64)
+def _card_scatter_plan(nnz, device):
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return scatter_plan(nnz, sms)
+
+
+# kernel D's scratch on each (device, stream): the blocks' and groups'
+# rows, and the tickets (zeroed once; each launch leaves them zero)
+_SCATTER_SCRATCH = {}
+
+
+def _scatter_scratch(device, stream):
+    key = (device.index, stream)
+    if key not in _SCATTER_SCRATCH:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _SCATTER_SCRATCH[key] = (
+            torch.empty((2 * sms, SCATTER_THREADS), dtype=torch.float32,
+                        device=device),
+            torch.zeros(sms + 1, dtype=torch.int32, device=device))
+    return _SCATTER_SCRATCH[key]
 
 
 def _aligned(x):
@@ -205,51 +275,133 @@ def coo_gather(idx, val, w, layout="rows"):
 
 
 def _check_scatter(r, c, v):
-    r, c = _flat("coo_scatter", r, torch.int32), _flat("coo_scatter", c,
-                                                       torch.int32)
-    v = v.reshape(-1)
-    if not v.is_floating_point() or not r.numel() == c.numel() == v.numel():
+    """The nonzeros of r, c, v (the kernel reads them flat), or raise."""
+    for x in (r, c):
+        if x.dtype != torch.int32:
+            raise TypeError("coo_scatter takes int32 indices, got %s"
+                            % x.dtype)
+    n = r.numel()
+    if not v.is_floating_point() or not n == c.numel() == v.numel():
         raise ValueError("coo_scatter: %d rows, %d columns and %d float "
-                         "values" % (r.numel(), c.numel(), v.numel()))
-    if not r.numel():
+                         "values" % (n, c.numel(), v.numel()))
+    if not n:
         raise ValueError("coo_scatter: no nonzeros")
-    for x in (c, v):
-        if x.device != r.device:
-            raise ValueError("coo_scatter: operands on %s and %s"
-                             % (r.device, x.device))
-    return r, c, v
+    if c.device != r.device or v.device != r.device:
+        raise ValueError("coo_scatter: operands on %s, %s and %s"
+                         % (r.device, c.device, v.device))
+    return n
+
+
+def _in_tile(r, c):
+    return (r >= 0) & (r < TILE[0]) & (c >= 0) & (c < TILE[1])
 
 
 def coo_scatter_reference(r, c, v, dtype=None):
     """Plain version of kernel D in `dtype` (the device's working type by
-    default): the (8, 128) tile of the sums of v at (r, c)."""
-    r, c, v = _check_scatter(r, c, v)
+    default): the (8, 128) tile of the sums of v at (r, c); indices
+    outside the tile add nothing."""
+    _check_scatter(r, c, v)
+    r, c, v = r.reshape(-1), c.reshape(-1), v.reshape(-1)
     dtype = dtype or default_dtype(r.device)
+    keep = _in_tile(r, c)
     out = torch.zeros(TILE, dtype=dtype, device=r.device)
-    return out.index_put_((r.long(), c.long()), v.to(dtype),
-                          accumulate=True)
+    return out.index_put_((r[keep].long(), c[keep].long()),
+                          v[keep].to(dtype), accumulate=True)
+
+
+def coo_scatter_in_order(r, c, v, plan):
+    """Kernel D's sums in its own order (csrc/probe_coo.cu's header) under
+    `plan` (`scatter_plan`), in float32, on r's device: the card's (8,
+    128) tile bit for bit. Each step below adds one float32 term at a
+    time, vectorised over the warps, rounds or bins it leaves apart."""
+    nnz = _check_scatter(r, c, v)
+    r, c, v = r.reshape(-1), c.reshape(-1), v.reshape(-1)
+    dev = r.device
+    lanes, vec, n_tile = 32, plan["vec"], SCATTER_THREADS
+    per, steps = plan["per_warp"], plan["steps"]
+    blocks, warps = plan["blocks"], plan["warps"]
+    group, groups = plan["group"], plan["groups"]
+    if blocks * warps * per < nnz:
+        raise ValueError("coo_scatter plan covers %d of %d nonzeros"
+                         % (blocks * warps * per, nnz))
+    # each nonzero's slot: warp, round (step, vector element), lane; an
+    # empty slot or one out of the tile keys a bin of its own past it
+    rounds = steps * vec
+    m = torch.arange(nnz, device=dev)
+    w, o = m // per, m % per
+    t = (o // (lanes * vec)) * vec + o % vec
+    lane = (o % (lanes * vec)) // vec
+    lane_ids = torch.arange(lanes, device=dev)
+    key = (n_tile + lane_ids).repeat(blocks * warps * rounds, 1)
+    val = torch.zeros((blocks * warps * rounds, lanes), dtype=torch.float32,
+                      device=dev)
+    row = w * rounds + t
+    key[row, lane] = torch.where(_in_tile(r, c), r.long() * TILE[1] + c,
+                                 n_tile + lane)
+    val[row, lane] = v.to(torch.float32)
+    # each lane's group leader: the lowest lane of its bin
+    first = lane_ids.repeat(key.shape[0], 1)
+    for ln in range(1, lanes):
+        same = key[:, :ln] == key[:, ln:ln + 1]
+        first[:, ln] = torch.where(same.any(1), same.byte().argmax(1), ln)
+    # each group's sum at its leader: the lanes' values in lane order
+    sums = torch.zeros_like(val)
+    at = torch.arange(key.shape[0], device=dev)
+    for ln in range(lanes):
+        sums[at, first[:, ln]] = sums[at, first[:, ln]] + val[:, ln]
+    lead = (first == lane_ids) & (key < n_tile)
+    # into each warp's tile, round by round (the bins of one round's
+    # leaders differ)
+    tiles = torch.zeros(blocks * warps * n_tile, dtype=torch.float32,
+                        device=dev)
+    key, sums, lead = (x.view(blocks * warps, rounds, lanes)
+                       for x in (key, sums, lead))
+    for rd in range(rounds):
+        wi, li = lead[:, rd].nonzero(as_tuple=True)
+        flat = wi * n_tile + key[wi, rd, li]
+        tiles[flat] = tiles[flat] + sums[wi, rd, li]
+    # the warps in order, the blocks of each group in order, the groups
+    tiles = tiles.view(blocks, warps, n_tile)
+    block_rows = torch.zeros((blocks, n_tile), dtype=torch.float32,
+                             device=dev)
+    for wp in range(warps):
+        block_rows = block_rows + tiles[:, wp]
+    group_rows = torch.zeros((groups, n_tile), dtype=torch.float32,
+                             device=dev)
+    starts = torch.arange(groups, device=dev) * group
+    for b in range(group):
+        have = starts + b < blocks
+        group_rows[have] = group_rows[have] + block_rows[(starts + b)[have]]
+    out = torch.zeros(n_tile, dtype=torch.float32, device=dev)
+    for g in range(groups):
+        out = out + group_rows[g]
+    return out.view(TILE)
 
 
 def coo_scatter(r, c, v):
     """Kernel D: the (8, 128) tile of the sums of v at (r, c) (int32,
-    r < 8, c < 128; others add nothing on a card). CPU tensors run the
-    plain version in float64; CUDA tensors launch the kernel (float32 v)
-    or raise."""
-    r, c, v = _check_scatter(r, c, v)
+    r < 8, c < 128; others add nothing). CPU tensors run the plain
+    version in float64; CUDA tensors launch the kernel (float32 v), which
+    sums in `coo_scatter_in_order`'s order under the card's
+    `scatter_plan`, or raise. Calls on one stream share the kernel's
+    scratch, so calls that may overlap go on different streams."""
+    nnz = _check_scatter(r, c, v)
     if on_cpu("coo_scatter", r):
         return coo_scatter_reference(r, c, v)
     if v.dtype != torch.float32:
         raise TypeError("coo_scatter takes float32 values, got %s" % v.dtype)
-    r, c, v = r.contiguous(), c.contiguous(), v.contiguous()
+    r, c, v = _aligned(r), _aligned(c), _aligned(v)
+    dev = r.device
+    plan = _card_scatter_plan(nnz, dev.index)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rows, tickets = _scatter_scratch(dev, stream)
+    out = torch.empty(TILE, dtype=torch.float32, device=dev)
     lib = _library()
-    blocks = scatter_blocks(r.numel())
-    part = torch.empty((blocks, TILE[0] * TILE[1]), dtype=torch.float32,
-                       device=r.device)
-    out = torch.empty(TILE, dtype=torch.float32, device=r.device)
     launch("coo_scatter", lib.vireo_probe_coo_scatter,
-           (r.data_ptr(), c.data_ptr(), v.data_ptr(), r.numel(),
-            part.data_ptr(), blocks, out.data_ptr()), r.device,
-           lib.vireo_probe_coo_error_string)
+           (r.data_ptr(), c.data_ptr(), v.data_ptr(), nnz, plan["blocks"],
+            plan["per_warp"], plan["group"], rows.data_ptr(), rows.shape[0],
+            tickets.data_ptr(), tickets.numel(), out.data_ptr()), dev,
+           lib.vireo_probe_coo_error_string, stream)
     LAUNCHES["coo_scatter"] += 1
     return out
 
