@@ -7,10 +7,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. environment: torch, CUDA and nvcc versions, the card's name and power
    limit; there is no CPU path;
-2. build: the CUDA kernels, K1 (csrc/fused_estep.cu), K2/K3
-   (csrc/packed_counts.cu) and the probes' A/B (csrc/probe_nibbles.cu)
-   and C/D (csrc/probe_coo.cu), from the sources in the checkout, one
-   nvcc for each, started together;
+2. build: the CUDA kernels, K0 (csrc/dense_counts.cu), K1
+   (csrc/fused_estep.cu), K2/K3 (csrc/packed_counts.cu) and the probes'
+   A/B (csrc/probe_nibbles.cu) and C/D (csrc/probe_coo.cu), from the
+   sources in the checkout, one nvcc for each, started together;
 3. K1 against its plain PyTorch version on the card, at the slice's
    shapes (two edge shapes, one with K above 256 and an unaligned C;
    the fit over 8192 cells and the fused fit's iteration on the main
@@ -30,6 +30,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    as close as one); both times, each kernel's bound and achieved
    TFLOP/s, and as the library call one cuBLAS float32 torch.matmul on
    the counts unpacked ahead of the timing, where they fit the card;
+4a. `[k0]`: K0, the dense rung's two contractions on int8 counts
+   (DenseCounts.suff_stats and .cell_loglik, reached through their
+   dispatch), against their plain versions at the warm restarts' and
+   the refit's shapes on the main pool's (30000 x 100000 counts in
+   [0, 127] drawn on the card; N = 320 and 16) and at an edge shape (an
+   odd C, also as a cell_slice view that starts at an odd column): bit
+   for bit on integer weights, on a second launch, and on weights that
+   need all three bf16 terms (on the counts halved, K0_SPLIT_NNZ), with
+   the controls of phase 4; within phase 4's bound on float weights and
+   its error against float64 sums; at the two main shapes as a single
+   call in turns with the plain version, 20 back to back and from
+   torch.profiler, beside the bound and, as the library call, cuBLAS
+   bf16 on the counts converted in the call by the weights' first bf16
+   term (lower precision);
 4b. `[probes]`: the kernels of the probes of benchmarks/
    (vireo_tpu_torch/probes/) against their plain versions: A
    (nibble_unpack) in its three variants bit for bit at the probe's 256
@@ -73,11 +87,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. the full-size main path on the dense rung: a seeded synthetic pool
    of 30000 variants x 100000 cells x 16 donors with 8% doublets
    through `vireo_wrap(n_init=20, random_seed=0)` (its seeded inits
-   regenerated on the card, as in phase 5), with K1's launch
-   count over that run, phase times, peak memory and accuracy against
-   the simulation's truth;
+   regenerated on the card, as in phase 5), with K0's and K1's launch
+   counts over that run (each must be at least 1), phase times, peak
+   memory and accuracy against the simulation's truth;
 8. the same pool and call on the packed rung, chosen by the ladder under
-   VIREO_DENSE_BUDGET_GB=4: K2's and K3's launch counts (and no K1),
+   VIREO_DENSE_BUDGET_GB=4: K2's and K3's launch counts (and no K0 or K1),
    phase times, peak memory, accuracy, and agreement with the dense
    run's calls; then both runs again under torch.profiler: each rung's
    device time by kernel and the device's idle share;
@@ -114,7 +128,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    extra-donor and superset branches, then the int8-hybrid,
    packed-hybrid and COO rungs of a heavy-tailed pool, with the ambient
    phase (each rung's contractions also run twice and must give the
-   same sums bit for bit), then a 23-donor pool on the dense rung,
+   same sums bit for bit; the int8-hybrid base must launch both of K0's
+   kernels), then a 23-donor pool on the dense rung,
    whose doublet space (K = 276 columns) goes through K1; the BMM on
    the dense and packed rungs, a seeded sweep_n_donor over K = 2..6 and
    a sweep_n_clone, and VireoBulk with LikRatio_test;
@@ -128,8 +143,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 16. `[mesh_nccl]`: this process joins an NCCL world of one rank and runs
    phase 7's call on a cells mesh (parallel/mesh.py): its ID_prob,
    LB_list, doublet outputs and every fit's iterations equal phase 7's
-   bit for bit (an all-reduce over one rank is exact); K1's launches,
-   the phases and the peak memory;
+   bit for bit (an all-reduce over one rank is exact); K0's (at least 1
+   each, on the rank's block) and K1's launches, the phases and the
+   peak memory;
 17. `[mesh_cli]`: `python -m torch.distributed.run --standalone
    --nproc-per-node 2 -m vireo_tpu_torch.cli.vireo_cli -c <phase 12's
    folder> -N 16 --randSeed 0 --noPlot --nInit 20 --mesh 1x2 --timing`:
@@ -261,6 +277,30 @@ K23_SHAPES = (
     ("doublet", 30000, 100000, 136, ("suff_stats", "cell_loglik")),
     ("capacity", 100000, 300000, 16, ("suff_stats", "cell_loglik")),
 )
+# --- K0 (the dense rung's int8 contractions, csrc/dense_counts.cu) ------
+# label, V, C, N: warm and refit at the main pool's shape (the EM fit's
+# N = 20 x 16 and 16), and an edge shape with an odd C, run on a
+# contiguous pool and on a cell_slice view of a pool K0_VIEW_START cells
+# wider that starts at that (odd) column and ends at its parent's last
+# one (rows neither 16-byte aligned nor contiguous, the last row's last
+# cell the parent's last byte). Counts uniform in [0, 127], every value
+# an int8 count takes. The tolerances are K2's and K3's: exact on
+# integer weights (sum|terms| below 2^24, checked on the data), Higham's
+# bound against the plain version on float weights, three terms
+# K0_TERMS_GAIN times as close to float64 sums as one; bit for bit on a
+# second launch.
+K0_SHAPES = (
+    ("edge", 1001, 1999, 21),
+    ("warm", 30000, 100000, 320),
+    ("refit", 30000, 100000, 16),
+)
+K0_VIEW_START = 7
+K0_TERMS_GAIN = 2.0
+# The exact three-term check needs weights of 18 significant bits (the
+# SPLIT_NNZ note), and a count above 63 times such a weight has more bits
+# than float32's 24: so K0's check runs on the pool's counts halved (0 to
+# 63), one nonzero a column, each output one product below 2^24.
+K0_SPLIT_NNZ = 1
 # --- the probes of benchmarks/ (vireo_tpu_torch/probes/): kernels A-D ---
 # A (nibble_unpack) bit for bit at the probe's (256, 512) bytes and at
 # the main pool's packed AD, 30000 x 50000 bytes, timed there; B
@@ -432,17 +472,17 @@ def phase_environment(torch):
 
 
 def phase_build():
-    """The four kernel libraries, their nvcc runs started together."""
+    """The five kernel libraries, their nvcc runs started together."""
     from concurrent.futures import ThreadPoolExecutor
-    from vireo_tpu_torch.ops import fused_em, packed
+    from vireo_tpu_torch.ops import counts, fused_em, packed
     from vireo_tpu_torch.probes import coo_pallas_probe, nibbles
     t0 = time.perf_counter()
-    libs = (fused_em, packed, nibbles, coo_pallas_probe)
+    libs = (counts, fused_em, packed, nibbles, coo_pallas_probe)
     with ThreadPoolExecutor(len(libs)) as pool:
         for f in [pool.submit(m._library) for m in libs]:
             f.result()
-    log("[build] K1, K2/K3 and the probes' A/B and C/D built and loaded in "
-        "%.2f s" % (time.perf_counter() - t0))
+    log("[build] K0, K1, K2/K3 and the probes' A/B and C/D built and loaded "
+        "in %.2f s" % (time.perf_counter() - t0))
 
 
 def _k1_inputs(torch, V, C, K, seed, device):
@@ -529,7 +569,7 @@ def _kernel_ms(torch, fn, names, reps=3):
 
 def phase_k1(torch):
     from vireo_tpu_torch.ops import fused_em
-    from vireo_tpu_torch.ops.counts import DenseCounts
+    from vireo_tpu_torch.ops.counts import suff_stats_reference
     dev = torch.device("cuda")
     results = {}
     for label, shape, timed in K1_SHAPES:
@@ -548,7 +588,7 @@ def phase_k1(torch):
         self_id = torch.softmax(ll + args[4].float(), dim=-1)
         _check("id_prob (own loglik)", idp, self_id, 0.0, ID_SELF_ATOL)
         idb = idp[:, :Ks].to(torch.bfloat16).float()
-        own = DenseCounts(args[0], args[1]).suff_stats(idb)
+        own = suff_stats_reference(args[0], args[1], idb)
         for nm, got, ref in (("S1 (own id)", S1, own[0]),
                              ("SS (own id)", SS, own[1])):
             _check(nm, got, ref, S_RTOL,
@@ -657,9 +697,10 @@ def _k23_weights(torch, name, V, C, N, g, device, exact):
     return draw(V, -1.0, 4.0), draw(V, -4.01, -0.01)
 
 
-def _split_weights(torch, C, N, g, device):
-    """K2's weights for the exact check of its three terms (SPLIT_NNZ)."""
-    shape = (SPLIT_NNZ, N)
+def _split_weights(torch, C, N, g, device, nnz=SPLIT_NNZ):
+    """K2's weights for the exact check of its three terms (SPLIT_NNZ; K0
+    K0_SPLIT_NNZ): `nnz` nonzeros a column."""
+    shape = (nnz, N)
     m = 2 * torch.randint(2 ** 16, 2 ** 17, shape, generator=g,
                           device=device) + 1
     sign = 2 * torch.randint(0, 2, shape, generator=g, device=device) - 1
@@ -678,12 +719,12 @@ def _fewer_terms(torch, W):
     return {1: hi.float(), 2: hi.float() + mid.float()}
 
 
-def _split_weights_of(torch, name, V, C, N, g, device):
+def _split_weights_of(torch, name, V, C, N, g, device, nnz=SPLIT_NNZ):
     """The exact three-term check's weights: (W,) for K2, (Wa, Wd) for K3
-    with SPLIT_NNZ nonzeros a column across the two together."""
+    with `nnz` nonzeros a column across the two together."""
     if name == "suff_stats":
-        return (_split_weights(torch, C, N, g, device),)
-    W = _split_weights(torch, 2 * V, N, g, device)
+        return (_split_weights(torch, C, N, g, device, nnz),)
+    W = _split_weights(torch, 2 * V, N, g, device, nnz)
     return W[:V].contiguous(), W[V:].contiguous()
 
 
@@ -692,11 +733,12 @@ def _cut_terms(torch, w, terms):
     return tuple(_fewer_terms(torch, x)[terms] for x in w)
 
 
-def _split_check(torch, name, kern, plain, pc, N, g, dev):
+def _split_check(torch, name, kern, plain, pc, N, g, dev, nnz=SPLIT_NNZ,
+                 tag="k23"):
     """The kernel exactly equal to its plain version on weights that need
     all three terms; the plain version on the same weights cut to one or
     two terms must differ, or the check could not see a lost term."""
-    w = _split_weights_of(torch, name, pc.n_var, pc.n_cell, N, g, dev)
+    w = _split_weights_of(torch, name, pc.n_var, pc.n_cell, N, g, dev, nnz)
     got, ref = kern(pc, *w), plain(pc, *w)
     for gt, rf in zip(got, ref):
         if not torch.equal(gt, rf):
@@ -711,17 +753,20 @@ def _split_check(torch, name, kern, plain, pc, N, g, dev):
             raise AssertionError("the %d-term control equals the three-term "
                                  "sums: the check cannot see a lost term"
                                  % terms)
-    log("[k23]   three-term integer weights: equal to the plain version; "
+    log("[%s]   three-term integer weights: equal to the plain version; "
         "controls: with %d and %d of %d outputs the one- and two-term sums "
-        "differ" % (differ[1], differ[2], sum(x.numel() for x in ref)))
+        "differ" % (tag, differ[1], differ[2], sum(x.numel() for x in ref)))
 
 
-def _term_errors(torch, name, kern, plain, pc, w, got):
+def _term_errors(torch, name, kern, plain, pc, w, got, label=None,
+                 gain=None, tag="k23"):
     """Max |error| of the outputs against float64 sums, for the plain
     version (float32 on the CUDA cores), the kernel (three terms) and the
-    kernel on the weights cut to one and two terms."""
-    label, gain = (("K2", K2_TERMS_GAIN) if name == "suff_stats"
-                   else ("K3", K3_TERMS_GAIN))
+    kernel on the weights cut to one and two terms; K2 or K3 (by `name`)
+    unless `label` and `gain` say which kernel and gate."""
+    if label is None:
+        label, gain = (("K2", K2_TERMS_GAIN) if name == "suff_stats"
+                       else ("K3", K3_TERMS_GAIN))
     exact = plain(pc, *(x.double() for x in w))
 
     def err(out):
@@ -731,8 +776,8 @@ def _term_errors(torch, name, kern, plain, pc, w, got):
     for terms in (1, 2):
         errs["%d term%s" % (terms, "s" if terms > 1 else "")] = err(
             kern(pc, *_cut_terms(torch, w, terms)))
-    log("[k23]   %s float max_abs_err against float64 sums (max|out| "
-        "%.3e): %s" % (label, max(float(x.abs().max()) for x in exact),
+    log("[%s]   %s float max_abs_err against float64 sums (max|out| "
+        "%.3e): %s" % (tag, label, max(float(x.abs().max()) for x in exact),
                        ", ".join("%s %.3e" % kv for kv in errs.items())))
     if errs["3 terms"] * gain > errs["1 term"]:
         raise AssertionError("%s's three terms are not %g times as close to "
@@ -805,16 +850,17 @@ def _k23_calls():
     return kern, plain
 
 
-def _float_check(torch, name, kern, plain, pc, w):
+def _float_check(torch, name, kern, plain, pc, w, tag="k23"):
     """The kernel on float weights within Higham's bound of its plain
     version (the tolerance above K2_TERMS_GAIN); its max |error|."""
-    V, C = pc.shape
+    V, C = pc.n_var, pc.n_cell
     got = kern(pc, *w)
     ref = plain(pc, *w)
     mag = plain(pc, *(x.abs() for x in w))
     sides = (3 * C, C) if name == "suff_stats" else (6 * V, 2 * V)
     gamma = sum(n * F32_UNIT / (1 - n * F32_UNIT) for n in sides)
-    return max(_bound_check("%s[%d] float" % (name, i), gt, rf, gamma * m)
+    return max(_bound_check("%s[%d] float" % (name, i), gt, rf, gamma * m,
+                            tag)
                for i, (gt, rf, m) in enumerate(zip(got, ref, mag))), got
 
 
@@ -926,6 +972,147 @@ def _bound_check(name, got, ref, bound, tag="k23"):
     return float(err.max())
 
 
+def _k0_inputs(torch, V, C, seed, device, start=0):
+    """DenseCounts of int8 counts uniform in [0, 127], drawn in row blocks
+    on the card; with `start`, cells [start, start + C) of a pool of
+    start + C cells (`cell_slice`, a strided view)."""
+    from vireo_tpu_torch.ops.counts import DenseCounts
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    mats = []
+    for _ in range(2):
+        x = torch.empty((V, start + C), dtype=torch.int8, device=device)
+        for r0 in range(0, V, 4096):
+            r1 = min(r0 + 4096, V)
+            x[r0:r1] = torch.randint(0, 128, (r1 - r0, start + C),
+                                     generator=g, dtype=torch.int8,
+                                     device=device)
+        mats.append(x)
+    dc = DenseCounts(*mats)
+    return dc.cell_slice(start, start + C) if start else dc
+
+
+def _k0_calls():
+    """(kernel, plain) calls of K0 on a DenseCounts, by name; each
+    returns a tuple of outputs. The kernel is reached as the model
+    reaches it, through DenseCounts' dispatch on int8 counts."""
+    from vireo_tpu_torch.ops import counts
+    kern = {"suff_stats": lambda dc, *w: dc.suff_stats(*w),
+            "cell_loglik": lambda dc, *w: (dc.cell_loglik(*w),)}
+    plain = {"suff_stats": lambda dc, *w: counts.suff_stats_reference(
+                 dc.ad, dc.dp, *w),
+             "cell_loglik": lambda dc, *w: (counts.cell_loglik_reference(
+                 dc.ad, dc.dp, *w),)}
+    return kern, plain
+
+
+def _k0_library(torch, name, X8, w):
+    """One PyTorch call computing K0's function: cuBLAS bf16 on the counts
+    [AD; DP] converted to bf16 in the call, by the weights rounded to one
+    bf16 term (lower precision than K0's three)."""
+    if name == "suff_stats":
+        wb = w[0].to(torch.bfloat16)
+        return lambda: torch.matmul(X8.to(torch.bfloat16), wb)
+    wb = torch.cat(w).to(torch.bfloat16)
+    return lambda: torch.matmul(X8.to(torch.bfloat16).t(), wb)
+
+
+def phase_k0(torch):
+    """K0 against its plain versions at K0_SHAPES, with the checks and
+    times of K0_SHAPES' note."""
+    from vireo_tpu_torch.ops import counts
+    from vireo_tpu_torch.ops.counts import DenseCounts
+    dev = torch.device("cuda")
+    kern, plain = _k0_calls()
+    results = {}
+    dc = None
+    for label, V, C, N in K0_SHAPES:
+        if dc is None or (dc.n_var, dc.n_cell) != (V, C):
+            dc = None
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            pools = [(label, _k0_inputs(torch, V, C, V + C, dev))]
+            if label == "edge":
+                pools.append(("edge view", _k0_inputs(
+                    torch, V, C, V + C + 1, dev, start=K0_VIEW_START)))
+            torch.cuda.synchronize()
+            log("[k0] %d x %d int8 counts drawn on the card in %.2f s%s"
+                % (V, C, time.perf_counter() - t0,
+                   "" if label != "edge" else "; the view: cells [%d, %d) "
+                   "of %d, row pitch %d bytes" % (
+                       K0_VIEW_START, K0_VIEW_START + C, K0_VIEW_START + C,
+                       pools[1][1].ad.stride(0))))
+            dc = pools[0][1]
+        else:
+            pools = [(label, dc)]
+        g = torch.Generator(device=dev)
+        g.manual_seed(V + C + N)
+        for tag, pc in pools:
+            half = DenseCounts(pc.ad >> 1, pc.dp >> 1)
+            for name in ("suff_stats", "cell_loglik"):
+                log("[k0] %s %s V=%d C=%d N=%d" % (tag, name, V, C, N))
+                w = _k23_weights(torch, name, V, C, N, g, dev, exact=True)
+                top = max(float(x.max()) for x in plain[name](
+                    pc, *(x.abs() for x in w)))
+                if top >= 2.0 ** 24:
+                    raise AssertionError("K0 %s integer weights: sum|terms| "
+                                         "%.0f is not exact in float32"
+                                         % (name, top))
+                for gt, rf in zip(kern[name](pc, *w), plain[name](pc, *w)):
+                    if not torch.equal(gt, rf):
+                        raise AssertionError(
+                            "K0 %s on integer weights differs from its "
+                            "plain version by %.3e"
+                            % (name, float((gt - rf).abs().max())))
+                log("[k0]   integer weights: equal to the plain version "
+                    "(largest sum|terms| %.0f, exact below 2^24)" % top)
+                _split_check(torch, name, kern[name], plain[name], half, N,
+                             g, dev, nnz=K0_SPLIT_NNZ, tag="k0")
+                w = _k23_weights(torch, name, V, C, N, g, dev, exact=False)
+                err, got = _float_check(torch, name, kern[name],
+                                        plain[name], pc, w, tag="k0")
+                if not all(torch.equal(a, b)
+                           for a, b in zip(got, kern[name](pc, *w))):
+                    raise AssertionError("K0 %s gave other sums on a second "
+                                         "launch" % name)
+                log("[k0]   a second launch: equal bit for bit")
+                res = dict(max_abs_err=err)
+                res["err_vs_f64"] = _term_errors(
+                    torch, name, kern[name], plain[name], pc, w, got,
+                    label="K0 " + name, gain=K0_TERMS_GAIN, tag="k0")
+                del got
+                if not tag.startswith("edge"):
+                    X8 = torch.cat([pc.ad, pc.dp])
+                    lib = _k0_library(torch, name, X8, w)
+                    lib_err = max(float((a.float() - b).abs().max())
+                                  for a, b in zip(
+                        torch.split(lib(), V) if name == "suff_stats"
+                        else (lib(),), plain[name](pc, *w)))
+                    log("[k0]   library call: cuBLAS bf16 on the counts "
+                        "converted to bf16 in the call, by W rounded to "
+                        "one bf16 term (lower precision than K0's three); "
+                        "max |diff| from the plain version %.3e" % lib_err)
+                    # 2 x 2 V C N flops a term, three bf16 terms; the int8
+                    # counts, the float32 weights and outputs once (4 C N
+                    # + 8 V N bytes for either contraction)
+                    _probe_times(
+                        torch, "K0 %s N=%d" % (name, N), res,
+                        lambda: kern[name](pc, *w),
+                        lambda: plain[name](pc, *w), lib,
+                        3 * 2.0 * 2 * V * C * N,
+                        2.0 * V * C + 4.0 * C * N + 8.0 * V * N,
+                        kernels=("rows_kernel" if name == "suff_stats"
+                                 else "loglik_kernel",), phase="k0")
+                    del X8, lib
+                results[(tag, name)] = res
+                del w
+                torch.cuda.empty_cache()
+            del half
+    del dc, pools
+    torch.cuda.empty_cache()
+    return results
+
+
 def _sms(torch):
     return torch.cuda.get_device_properties(0).multi_processor_count
 
@@ -958,7 +1145,8 @@ def _graph_ms(torch, kern):
 
 
 def _probe_times(torch, tag, res, kern, plain, library, flops, nbytes,
-                 peak=PEAK_BF16_FLOPS, kernels=(), graph=False):
+                 peak=PEAK_BF16_FLOPS, kernels=(), graph=False,
+                 phase="probes"):
     """Kernel and plain version in turns, the library call (None where
     there is none) and the bound, into res; the kernel's calls back to
     back, with `graph` also inside a CUDA graph (`_graph_ms`), and the
@@ -979,11 +1167,11 @@ def _probe_times(torch, tag, res, kern, plain, library, flops, nbytes,
     res["device_by_kernel"] = by_name
     res["device_ms"] = (None if None in by_name.values()
                         else sum(by_name.values()))
-    log("[probes]   %s median ms: kernel %.4f  plain %.4f  library %s "
+    log("[%s]   %s median ms: kernel %.4f  plain %.4f  library %s "
         "(CUDA events, %d runs each); bound %.4f ms (%s): the kernel at "
         "%.1f%% of it; %d calls back to back %.4f ms a call%s; device "
         "time of its kernels (torch.profiler) %s"
-        % (tag, res["ms"], res["plain_ms"],
+        % (phase, tag, res["ms"], res["plain_ms"],
            "none" if library is None else "%.4f" % res["library_ms"], nrun,
            res["bound_ms"], res["bound_by"],
            100.0 * res["bound_ms"] / res["ms"], PROBE_STREAM,
@@ -1618,17 +1806,25 @@ def phase_cli_full(torch, d, cell):
 
 
 def _reset_launches():
-    from vireo_tpu_torch.ops import fused_em, packed
+    from vireo_tpu_torch.ops import counts, fused_em, packed
     fused_em.LAUNCHES = 0
-    for counts in (packed.LAUNCHES,) + _probe_counters():
-        for key in counts:
-            counts[key] = 0
+    for launches in (counts.LAUNCHES, packed.LAUNCHES) + _probe_counters():
+        for key in launches:
+            launches[key] = 0
 
 
 def _launches():
-    from vireo_tpu_torch.ops import fused_em, packed
+    """K1's, K2's, K3's and K0's two kernels' launches (K0 by its
+    wrappers' names, dense_suff_stats and dense_cell_loglik)."""
+    from vireo_tpu_torch.ops import counts, fused_em, packed
     return dict(K1=fused_em.LAUNCHES, K2=packed.LAUNCHES["suff_stats"],
-                K3=packed.LAUNCHES["cell_loglik"])
+                K3=packed.LAUNCHES["cell_loglik"], **counts.LAUNCHES)
+
+
+def _k0_launched(launches):
+    """Whether both of K0's kernels were launched."""
+    return min(launches["dense_suff_stats"],
+               launches["dense_cell_loglik"]) > 0
 
 
 def _probe_counters():
@@ -1711,10 +1907,11 @@ def _run_main(torch, d, tag):
 
 
 def phase_main_path(torch, d):
-    """The dense rung: K1 in the doublet phase."""
+    """The dense rung: K0 in every iteration, K1 in the doublet phase."""
     res, launches, fits = _run_main(torch, d, "main")
-    if launches["K1"] < 1:
-        raise AssertionError("the main path did not launch K1")
+    if launches["K1"] < 1 or not _k0_launched(launches):
+        raise AssertionError("the main path did not launch K1 and both of "
+                             "K0's kernels: %s" % json.dumps(launches))
     return res, launches, fits
 
 
@@ -1741,7 +1938,8 @@ def _dense_budget(gb):
 def phase_packed_main_path(torch, d, dense_res):
     """The same pool and call on the packed rung, which the ladder picks
     under VIREO_DENSE_BUDGET_GB=PACKED_BUDGET_GB (set for this call
-    only): K2 and K3 in every iteration and the doublet phase, no K1."""
+    only): K2 and K3 in every iteration and the doublet phase, no K1 and
+    no K0."""
     from vireo_tpu_torch.ops import counts
     V, C = MAIN["n_var"], MAIN["n_cell"]
     with _dense_budget(PACKED_BUDGET_GB):
@@ -1754,9 +1952,11 @@ def phase_packed_main_path(torch, d, dense_res):
         if rung != "packed":
             raise AssertionError("the main pool is not on the packed rung")
         res, launches, fits = _run_main(torch, d, "packed")
-    if launches["K2"] < 1 or launches["K3"] < 1 or launches["K1"] != 0:
+    if launches["K2"] < 1 or launches["K3"] < 1 or launches["K1"] != 0 or \
+            launches["dense_suff_stats"] or launches["dense_cell_loglik"]:
         raise AssertionError("the packed path launched %s; it must launch "
-                             "K2 and K3 and not K1" % json.dumps(launches))
+                             "K2 and K3 and neither K1 nor K0"
+                             % json.dumps(launches))
     agree = _matched_agreement(res["ID_prob"], dense_res["ID_prob"])
     log("[packed] argmax agreement with the dense run %.5f after label "
         "matching; LB_doublet %.6e vs dense %.6e"
@@ -1852,7 +2052,8 @@ def phase_small_rungs(torch):
     vireo_wrap prebuilt), against the dense rung on the CPU (float64):
     the same calls up to the donors' labels, and the ELBO to
     RUNG_ELBO_RTOL; and each rung's contractions, run twice, give the
-    same sums bit for bit."""
+    same sums bit for bit. The int8-hybrid rung's base is an int8
+    DenseCounts, whose contractions must launch both of K0's kernels."""
     from vireo_tpu_torch.ops import counts
     from vireo_tpu_torch.sim.synth import synth_pool_counts
     from vireo_tpu_torch.engine.wrap import vireo_wrap
@@ -1885,8 +2086,14 @@ def phase_small_rungs(torch):
         c = counts.counts_from_scipy(AD, DP, device=torch.device("cuda"),
                                      dense_budget=budget)
         _check_repeatable(torch, rung, c)
+        _reset_launches()
         gpu = vireo_wrap(c, n_donor=K, n_init=5, random_seed=2,
                          verbose=False, check_ambient=True)
+        launches = _launches()
+        log("[rungs] %s launches %s" % (rung, json.dumps(launches)))
+        if rung == "int8-hybrid" and not _k0_launched(launches):
+            raise AssertionError("the int8-hybrid rung's base did not "
+                                 "launch both of K0's kernels")
         # doublet cells split their small singlet mass between two
         # donors almost evenly, so their singlet argmax is a near tie
         # that float32 and float64 may break apart: the calls compared
@@ -2211,7 +2418,7 @@ def phase_donor_modes(torch, counts, d):
 
 def phase_known_packed(torch, d, dense_known):
     """The known mode with the ambient phase on the packed rung (K2, K3;
-    no K1), placed under VIREO_DENSE_BUDGET_GB=PACKED_BUDGET_GB. Each fit
+    no K0 or K1), placed under VIREO_DENSE_BUDGET_GB=PACKED_BUDGET_GB. Each fit
     iteration launches K2 and K3 once; the doublet phase K3 (its
     log-likelihood) and K2 + K3 (the genotype refresh); the ambient
     phase's SNP gate K2 once (PR 5, without the ambient phase: K2 15 =
@@ -2228,7 +2435,8 @@ def phase_known_packed(torch, d, dense_known):
     res, launches, _, own, fits, _ = _run_mode(torch, packed, d,
                                                "known (packed)", kw)
     fit_iters = sum(max(f) for f in fits)
-    want = dict(K1=0, K2=fit_iters + 2, K3=fit_iters + 2)
+    want = dict(K1=0, K2=fit_iters + 2, K3=fit_iters + 2,
+                dense_suff_stats=0, dense_cell_loglik=0)
     log("[modes] known (packed): launches %s, expected %s (%d fit "
         "iterations; doublet K2 1, K3 2; ambient gate K2 1)"
         % (json.dumps(launches), json.dumps(want), fit_iters))
@@ -2639,7 +2847,8 @@ def _main_record(res, fits):
 def phase_mesh_nccl(torch, d, main7):
     """Phase 7's call on a cells mesh of this one process, in an NCCL
     world of one rank: every output and fit equal to phase 7's bit for
-    bit, K1 launched; the process group is destroyed after."""
+    bit, K1 and both of K0's kernels launched on the rank's block; the
+    process group is destroyed after."""
     import torch.distributed as dist
     from vireo_tpu_torch.engine.wrap import vireo_wrap
     from vireo_tpu_torch.parallel.mesh import (initialize_distributed,
@@ -2677,9 +2886,11 @@ def phase_mesh_nccl(torch, d, main7):
     log("[mesh_nccl] vireo_wrap wall %.3f s, peak device memory %.3f GiB, "
         "launches %s; equal to phase 7 bit for bit: %s"
         % (wall, peak / 2**30, json.dumps(launches), json.dumps(same)))
-    if not all(same.values()) or launches["K1"] < 1:
+    if not all(same.values()) or launches["K1"] < 1 or \
+            not _k0_launched(launches):
         raise AssertionError("the one-rank NCCL mesh run differs from the "
-                             "run without a mesh")
+                             "run without a mesh, or did not launch K1 and "
+                             "K0")
     return launches
 
 
@@ -2868,7 +3079,9 @@ def phase_mesh_packed(d, cell, packed_launches, packed8):
     fits, fits8 = root["fits"], packed8["fits"]
     refit, refit8 = (sum(f[0] for f in x[1:]) for x in (fits, fits8))
     want = max(fits[0]) + refit + 1
-    counted = all(rec["launches"] == {"K1": 0, "K2": want, "K3": want + 1}
+    counted = all(rec["launches"] == {"K1": 0, "K2": want, "K3": want + 1,
+                                      "dense_suff_stats": 0,
+                                      "dense_cell_loglik": 0}
                   and rec["fits"] == fits for rec in recs)
     warm8 = packed_launches["K2"] - refit8 - 1
     lb, lb8 = float(np.max(root["LB_list"])), float(np.max(packed8["LB_list"]))
@@ -2936,6 +3149,7 @@ def main():
     phase_build()
     k1 = phase_k1(torch)
     k23 = phase_k23(torch)
+    k0 = phase_k0(torch)
     probes, probe_launches = phase_probes(torch)
     phase_mt(torch)
     d = _main_pool()
@@ -2972,8 +3186,9 @@ def main():
 
     # each kernel at its main-path shape, with the launches of the run of
     # its path: K1 at the doublet phase's (vireo_wrap on the dense rung),
-    # and at the fused fit's with that fit's launches; K2 and K3 at the
-    # warm restarts' (N = 20 x 16; vireo_wrap on the packed rung)
+    # and at the fused fit's with that fit's launches; K0 (vireo_wrap on
+    # the dense rung), K2 and K3 (on the packed rung) at the warm
+    # restarts' (N = 20 x 16)
     table = [
         ("fused_estep_stats", "vireo_tpu_torch/csrc/fused_estep.cu",
          "vireo_tpu/ops/pallas_em.py:145", "vireo_wrap dense",
@@ -2987,7 +3202,10 @@ def main():
         ("packed_cell_loglik", "vireo_tpu_torch/csrc/packed_counts.cu",
          "vireo_tpu/ops/packed.py:195", "vireo_wrap packed",
          packed_launches["K3"], k23[("warm", "cell_loglik")]),
-    ]
+    ] + [("dense_" + name, "vireo_tpu_torch/csrc/dense_counts.cu",
+          "vireo_tpu/ops/counts.py:78, :87 (XLA dots)", "vireo_wrap dense",
+          dense_launches["dense_" + name], k0[("warm", name)])
+         for name in ("suff_stats", "cell_loglik")]
     # the probes' kernels: their launches in the runs of the probes' entry
     # points; beside them their launches in the two vireo_wrap runs (0:
     # they lie on no path of vireo_wrap)

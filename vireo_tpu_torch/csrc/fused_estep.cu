@@ -140,9 +140,9 @@ __global__ void __launch_bounds__(kBlockThreads, 1) estep_kernel(
     if (tid == 0)
       load_b<2, S::BN, kVarK>(st, &wt_map, &b_full[f % S::STAGES],
                               (f / nkb) * S::BN, v0);
-    load_byte_rows<kVarK, kCellBlock>(st + S::B_BYTES, ad, v0, V, C, c0);
+    load_byte_rows<kVarK, kCellBlock>(st + S::B_BYTES, ad, v0, V, C, C, c0);
     load_byte_rows<kVarK, kCellBlock>(st + S::B_BYTES + kVarK * S::A_PITCH,
-                                      dp, v0, V, C, c0);
+                                      dp, v0, V, C, C, c0);
   };
 
   float acc[BN / 2];

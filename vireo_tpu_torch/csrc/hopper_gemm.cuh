@@ -1,6 +1,6 @@
 // Building blocks shared by the tensor-core kernels K1 (fused_estep.cu),
-// K2 and K3 (packed_counts.cu), and the probes' kernel B
-// (probe_nibbles.cu), on Hopper (sm_90a):
+// K2 and K3 (packed_counts.cu), K0 (dense_counts.cu) and the probes'
+// kernel B (probe_nibbles.cu), on Hopper (sm_90a):
 //
 // - a ring of shared-memory stages filled by bulk tensor copies (TMA)
 //   for B, with one mbarrier a stage, and by 16-byte cp.async copies for
@@ -9,11 +9,15 @@
 //   accumulators) with A in registers and B in shared memory, read
 //   through a matrix descriptor;
 // - A fragments built in registers from count bytes, K-major (`pair`:
-//   K2, K1's statistics) or M-major (`mmajor_frag`: K1's E-step, K3);
+//   K2, K0's and K1's statistics) or M-major (`mmajor_frag`: K1's
+//   E-step, K3, K0's loglik);
 // - `rows_kernel`, the contraction OUT_m = A_m . sum_p B_p for the two
 //   count matrices m = AD, DP held as byte rows (packed nibbles for K2,
-//   int8 for K1's statistics), which is both K2 and the second kernel
-//   of K1;
+//   int8 for K0's suff_stats and K1's statistics), which is K2, K0's
+//   suff_stats and the second kernel of K1;
+// - `loglik_kernel`, OUT = AD^T . sum_p B_p + DP^T . sum_p B_{3+p} over
+//   the same byte rows, cells as M: K3 (nibbles) and K0's cell_loglik
+//   (int8);
 // - for the packed-matmul probe (kernel B, probe_nibbles.cu): a 2-D
 //   tensor map over a byte matrix, barriers that count several
 //   arrivals, and 2-D bulk tensor copies.
@@ -479,7 +483,7 @@ struct Nibbles {
   }
 };
 
-// int8 counts in [0, 127] (K1): one cell a byte.
+// int8 counts in [0, 127] (K0, K1): one cell a byte.
 struct Int8 {
   static constexpr int kCellsPerByte = 1;
   __device__ static __forceinline__ uint32_t pair(const uint8_t* row,
@@ -496,7 +500,8 @@ struct Int8 {
   }
 };
 
-// The A fragment of one k16 step when A is M-major (K1's E-step, K3):
+// The A fragment of one k16 step when A is M-major (K1's E-step,
+// loglik_kernel):
 // the counts are rows of k values (variants) with the M rows (cells)
 // contiguous, staged in shared memory. A warp's fragment rows g and
 // g + 8 are two adjacent cells, 2i and 2i + 1, held by one byte (packed)
@@ -511,24 +516,28 @@ __device__ __forceinline__ void mmajor_frag(uint32_t (&a)[4],
 }
 
 // Copies bytes [j0, j0 + NBYTES) of rows row0 .. row0 + ROWS - 1 of a
-// (n_rows, row_bytes) byte matrix into shared rows of pitch NBYTES + 16,
-// as the file note says. Returns nothing; the caller commits.
+// byte matrix of n_rows rows, `pitch` bytes apart, each holding
+// `row_len` bytes, into shared rows of pitch NBYTES + 16, as the file
+// note says. Nothing past a row's row_len bytes is read, so rows may be
+// a view of wider ones (a cell range of a dense matrix). Returns
+// nothing; the caller commits.
 template <int ROWS, int NBYTES>
 __device__ __forceinline__ void load_byte_rows(uint8_t* dst,
                                                const uint8_t* src,
                                                long long row0,
                                                long long n_rows,
-                                               long long row_bytes,
+                                               long long pitch,
+                                               long long row_len,
                                                long long j0) {
   constexpr int kChunks = NBYTES / 16 + 1;
   constexpr int kPitch = NBYTES + 16;
-  const long long j1 = (j0 + NBYTES < row_bytes) ? j0 + NBYTES : row_bytes;
+  const long long j1 = (j0 + NBYTES < row_len) ? j0 + NBYTES : row_len;
   for (int i = threadIdx.x; i < ROWS * kChunks; i += kBlockThreads) {
     const int r = i / kChunks, q = i % kChunks;
     const long long row = row0 + r;
     if (row >= n_rows || j0 >= j1) continue;
-    const uintptr_t start = (uintptr_t)(src + row * row_bytes + j0);
-    const uintptr_t end = (uintptr_t)(src + row * row_bytes + j1);
+    const uintptr_t start = (uintptr_t)(src + row * pitch + j0);
+    const uintptr_t end = (uintptr_t)(src + row * pitch + j1);
     const uintptr_t chunk = (start & ~(uintptr_t)15) + 16 * q;
     if (chunk >= end) continue;
     cp_async16(dst + r * kPitch + 16 * q, (const void*)chunk);
@@ -661,6 +670,11 @@ __device__ __forceinline__ uint64_t b_desc(const uint8_t* stage, int p,
 // range and different column tiles are adjacent in the grid; all blocks
 // start at k = 0 and move at one pace, so the blocks in flight read the
 // same B rows and B's traffic comes from L2.
+//
+// The count rows are `row_bytes` apart. Unless kPitched, they are also
+// row_bytes long; with kPitched (K0, whose rows may be a cell range of a
+// wider dense matrix) a row holds only the bytes of its k_len cells, and
+// nothing past them is read.
 template <class Codec, int PLANES, int BN_>
 struct RowsShape {
   static constexpr int BN = BN_;
@@ -676,7 +690,7 @@ struct RowsShape {
   static_assert(STAGE % kSmemAlign == 0, "stages keep the alignment");
 };
 
-template <class Codec, int PLANES, int BN>
+template <class Codec, int PLANES, int BN, bool kPitched = false>
 __global__ void __launch_bounds__(kBlockThreads, 1)
     rows_kernel(const uint8_t* __restrict__ a0,
                 const uint8_t* __restrict__ a1, long long row_bytes,
@@ -696,6 +710,9 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   const long long row0 = (long long)(blockIdx.x / n_tiles) * kBlockRows;
   const int n0 = (blockIdx.x % n_tiles) * S::BN;
   const int nkb = (int)((k_len + S::BK - 1) / S::BK);
+  const long long row_len =
+      kPitched ? (k_len + Codec::kCellsPerByte - 1) / Codec::kCellsPerByte
+               : row_bytes;
 
   auto stage = [&](int i) { return smem + (size_t)i * S::STAGE; };
   // B by TMA (one thread), A by every thread's cp.async
@@ -706,10 +723,10 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
                                    t * S::BK);
     const long long j0 = (long long)t * S::BKB;
     load_byte_rows<kBlockRows, S::BKB>(st + S::B_BYTES, a0, row0, n_rows,
-                                       row_bytes, j0);
+                                       row_bytes, row_len, j0);
     load_byte_rows<kBlockRows, S::BKB>(
         st + S::B_BYTES + kBlockRows * S::A_PITCH, a1, row0, n_rows,
-        row_bytes, j0);
+        row_bytes, row_len, j0);
   };
 
   // part: one k-block's sums, formed by the tensor cores; acc: the sums
@@ -808,14 +825,14 @@ inline int pick_tile(int N, int max_bn, int unit = 32) {
 }
 
 // b: PLANES x N x ld bf16, B's k values k_len of each row (see encode_b).
-template <class Codec, int PLANES, int BN>
+template <class Codec, int PLANES, int BN, bool kPitched = false>
 cudaError_t launch_rows(const uint8_t* a0, const uint8_t* a1,
                         long long row_bytes, int n_rows, const void* b,
                         long long ld, long long k_len, float* out0,
                         float* out1, long long ld_out, int N,
                         cudaStream_t s) {
   using Sh = RowsShape<Codec, PLANES, BN>;
-  auto kernel = rows_kernel<Codec, PLANES, BN>;
+  auto kernel = rows_kernel<Codec, PLANES, BN, kPitched>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sh::SMEM);
   if (err != cudaSuccess) return err;
@@ -825,6 +842,7 @@ cudaError_t launch_rows(const uint8_t* a0, const uint8_t* a1,
   CUtensorMap b_map;
   if (blocks <= 0 || blocks > 0x7FFFFFFF || k_len <= 0 ||
       k_len > 0x7FFFFFFF - Sh::BK ||
+      (kPitched && row_bytes * Codec::kCellsPerByte < k_len) ||
       !encode_b(&b_map, b, PLANES, N, k_len, ld, Sh::BN))
     return cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, kBlockThreads, Sh::SMEM, s>>>(
@@ -834,7 +852,7 @@ cudaError_t launch_rows(const uint8_t* a0, const uint8_t* a1,
 }
 
 // Dispatch on the tile pick_tile(N, kRowsMaxTile, 16) gives.
-template <class Codec, int PLANES>
+template <class Codec, int PLANES, bool kPitched = false>
 cudaError_t launch_rows_any(const uint8_t* a0, const uint8_t* a1,
                             long long row_bytes, int n_rows, const void* b,
                             long long ld, long long k_len, float* out0,
@@ -843,13 +861,238 @@ cudaError_t launch_rows_any(const uint8_t* a0, const uint8_t* a1,
   switch (pick_tile(N, kRowsMaxTile, 16)) {
 #define HOPPER_ROWS(BN)                                                   \
   case BN:                                                                \
-    return launch_rows<Codec, PLANES, BN>(a0, a1, row_bytes, n_rows, b,   \
-                                          ld, k_len, out0, out1, ld_out,  \
-                                          N, s);
+    return launch_rows<Codec, PLANES, BN, kPitched>(                      \
+        a0, a1, row_bytes, n_rows, b, ld, k_len, out0, out1, ld_out, N, s);
     HOPPER_ROWS(16) HOPPER_ROWS(32) HOPPER_ROWS(48) HOPPER_ROWS(64)
     HOPPER_ROWS(80)
   }
 #undef HOPPER_ROWS
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------
+// loglik_kernel: OUT[c, n] = sum_v A_0[v, c] sum_p B_p[n, v]
+//                          + A_1[v, c] sum_p B_{3+p}[n, v]
+// for the two count matrices (A_0 = AD, A_1 = DP; B: the three bf16
+// terms of Wa^T, then of Wd^T), cells c of C as M, the variants v of V
+// contracted: K3 (packed nibbles) and K0's cell_loglik (int8).
+//
+// The counts are row-major with the cells contiguous, so A = counts^T
+// is M-major: A is built in registers from a staged tile of 64 variants
+// x the block's bytes (`mmajor_frag`). A warp's fragment rows g and
+// g + 8 are two adjacent cells 2i and 2i + 1 (one nibble byte, or two
+// int8 bytes), and each register pairs one cell of two variant rows.
+// A block owns MT m64 tiles of cells a warpgroup (128 MT cells) and BN
+// columns, and walks the variants in k-blocks of 64 through a ring of
+// stages, B by TMA and the counts by cp.async. Each k-block is summed in
+// fresh accumulators (24 MMAs a tile: 4 k16 steps x 2 matrices x 3
+// terms) and added to float32 sums on the CUDA cores (see kRowsMaxTile).
+// The tiles' MMAs are committed as MT groups, so a tile's fragments are
+// built, and the last one's sums added, while another's MMAs run.
+// Registers bound the tile: two accumulator sets of BN / 2 floats for
+// each of the MT tiles, and the tiles' A fragments, 2 x 32 a tile.
+//
+// The count rows are `row_bytes` apart; as for rows_kernel, with
+// kPitched a row holds only the bytes of its C cells and nothing past
+// them is read, else it is row_bytes long. No atomics: each output
+// element belongs to one thread of one block and is summed in a fixed
+// order. Cells past C (an odd C's padding nibble, the bytes past the
+// last cell) are not stored.
+constexpr int kLoglikMaxTile = 64;  // widest column tile
+constexpr int kLoglikPlanes = 6;    // three terms each of Wa^T and Wd^T
+
+template <class Codec, int MT_, int BN_>
+struct LoglikShape {
+  static constexpr int MT = MT_;                       // m64 tiles a warpgroup
+  static constexpr int BN = BN_;
+  static constexpr int BK = kKBlock;                   // variants a k-block
+  static constexpr int CELLS = kBlockRows * MT;        // cells a block
+  static constexpr int BYTES = CELLS / Codec::kCellsPerByte;  // bytes a row
+  static constexpr int A_PITCH = BYTES + 16;
+  static constexpr int B_BYTES = kLoglikPlanes * BK * BN * 2;
+  static constexpr int A_BYTES = 2 * BK * A_PITCH;
+  static constexpr int STAGE = B_BYTES + A_BYTES;
+  static constexpr int STAGES = ring_depth(STAGE);
+  static constexpr size_t SMEM = (size_t)STAGES * STAGE + kSmemAlign;
+  static_assert(STAGES >= 2, "a ring needs two stages");
+  static_assert(STAGE % kSmemAlign == 0, "stages keep the alignment");
+};
+
+template <class Codec, int MT, int BN, bool kPitched>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    loglik_kernel(const uint8_t* __restrict__ ad,
+                  const uint8_t* __restrict__ dp, long long row_bytes,
+                  int V, long long C,
+                  const __grid_constant__ CUtensorMap b_map,
+                  float* __restrict__ out, int N, int n_tiles) {
+  using S = LoglikShape<Codec, MT, BN>;
+  // bytes from a thread's first cell pair of a tile to the next's
+  constexpr int kPairBytes = 2 / Codec::kCellsPerByte;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  __shared__ uint64_t b_full[S::STAGES];
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const long long j0 = (long long)(blockIdx.x / n_tiles) * S::BYTES;
+  const int n0 = (blockIdx.x % n_tiles) * S::BN;
+  const int nkb = (V + S::BK - 1) / S::BK;
+  const long long row_len =
+      kPitched ? (C + Codec::kCellsPerByte - 1) / Codec::kCellsPerByte
+               : row_bytes;
+
+  auto stage = [&](int i) { return smem + (size_t)i * S::STAGE; };
+  // B by TMA (one thread), the counts by every thread's cp.async
+  auto load = [&](int t) {
+    uint8_t* st = stage(t % S::STAGES);
+    const long long v0 = (long long)t * S::BK;
+    if (tid == 0)
+      load_b<kLoglikPlanes, S::BN, S::BK>(st, &b_map, &b_full[t % S::STAGES],
+                                          n0, (int)v0);
+    load_byte_rows<S::BK, S::BYTES>(st + S::B_BYTES, ad, v0, V, row_bytes,
+                                    row_len, j0);
+    load_byte_rows<S::BK, S::BYTES>(st + S::B_BYTES + S::BK * S::A_PITCH, dp,
+                                    v0, V, row_bytes, row_len, j0);
+  };
+
+  // part: one k-block's sums, formed by the tensor cores; acc: the sums
+  // over all k-blocks, added to in float32 on the CUDA cores
+  float acc[MT][BN / 2], part[MT][BN / 2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[mt][i] = part[mt][i] = 0.f;
+
+  if (tid == 0)
+    for (int i = 0; i < S::STAGES; ++i) mbar_init(&b_full[i]);
+  __syncthreads();
+#pragma unroll
+  for (int t = 0; t < S::STAGES - 1; ++t) {
+    if (t < nkb) load(t);
+    cp_async_commit();
+  }
+
+  // the byte, within the block's, that holds the first of this thread's
+  // two cells of tile mt (fragment rows g and g + 8: cells 2i and 2i + 1)
+  auto cell_byte = [&](int mt) {
+    return ((wg * MT + mt) * 32 + warp * 8 + g) * kPairBytes;
+  };
+
+  for (int t = 0; t < nkb; ++t) {
+    cp_async_wait<S::STAGES - 2>();
+    __syncthreads();
+    mbar_wait(&b_full[t % S::STAGES], (t / S::STAGES) & 1);
+
+    const uint8_t* st = stage(t % S::STAGES);
+    const long long v0 = (long long)t * S::BK;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      uint32_t frag[2][S::BK / 16][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const uint8_t* src = m ? dp : ad;
+        const uint8_t* base = st + S::B_BYTES + m * S::BK * S::A_PITCH;
+#pragma unroll
+        for (int s = 0; s < S::BK / 16; ++s) {
+          const uint8_t* p[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            // variants 16s + 2c, +1, +8, +9 of the k-block
+            const int r = 16 * s + 2 * c + (q & 1) + 8 * (q >> 1);
+            p[q] = byte_row(base + r * S::A_PITCH, src, v0 + r, row_bytes,
+                            j0) +
+                   cell_byte(mt);
+          }
+          mmajor_frag<Codec>(frag[m][s], p);
+        }
+      }
+      fence_regs(part[mt]);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < S::BK / 16; ++s)
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int p = 0; p < 3; ++p) {
+            const int more = s > 0 || m > 0 || p > 0;  // the first sets part
+            wgmma_rs<BN>(part[mt], frag[m][s],
+                         b_desc<BN, S::BK>(st, 3 * m + p, s), more);
+          }
+      wgmma_commit();
+    }
+    // the slot of k-block t - 1, which every warpgroup has finished
+    if (t + S::STAGES - 1 < nkb) load(t + S::STAGES - 1);
+    cp_async_commit();
+    // each tile's sums are added once its group is done, the last tile's
+    // MMAs still running while the others' are added
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      if (mt + 1 < MT)
+        wgmma_wait<MT - 1>();
+      else
+        wgmma_wait<0>();
+      fence_regs(part[mt]);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[mt][i] += part[mt][i];
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const long long cell = Codec::kCellsPerByte * (j0 + cell_byte(mt));
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      const long long cl = cell + ((i >> 1) & 1);
+      const int n = n0 + 8 * (i >> 2) + 2 * c + (i & 1);
+      if (cl < C && n < N) out[cl * N + n] = acc[mt][i];
+    }
+  }
+}
+
+// b: (6, N, ldv) bf16, the variants of each row contiguous (see
+// encode_b). Rows of the counts `row_bytes` apart, each at least the
+// bytes of C cells (exactly those unless kPitched).
+template <class Codec, int MT, int BN, bool kPitched>
+cudaError_t launch_loglik(const uint8_t* ad, const uint8_t* dp,
+                          long long row_bytes, int V, long long C,
+                          const void* b, long long ldv, float* out, int N,
+                          cudaStream_t s) {
+  using Sh = LoglikShape<Codec, MT, BN>;
+  auto kernel = loglik_kernel<Codec, MT, BN, kPitched>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sh::SMEM);
+  if (err != cudaSuccess) return err;
+  const long long row_len =
+      (C + Codec::kCellsPerByte - 1) / Codec::kCellsPerByte;
+  const long long n_tiles = (N + Sh::BN - 1) / Sh::BN;
+  const long long blocks = n_tiles * ((row_len + Sh::BYTES - 1) / Sh::BYTES);
+  CUtensorMap b_map;
+  if (blocks <= 0 || blocks > 0x7FFFFFFF || V > 0x7FFFFFFF - Sh::BK ||
+      (kPitched ? row_bytes < row_len : row_bytes != row_len) ||
+      !encode_b(&b_map, b, kLoglikPlanes, N, V, ldv, Sh::BN))
+    return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kBlockThreads, Sh::SMEM, s>>>(
+      ad, dp, row_bytes, V, C, b_map, out, N, (int)n_tiles);
+  return cudaGetLastError();
+}
+
+// Dispatch on the tile pick_tile(N, kLoglikMaxTile, 16) gives.
+template <class Codec, int MT, bool kPitched>
+cudaError_t launch_loglik_any(const uint8_t* ad, const uint8_t* dp,
+                              long long row_bytes, int V, long long C,
+                              const void* b, long long ldv, float* out,
+                              int N, cudaStream_t s) {
+  switch (pick_tile(N, kLoglikMaxTile, 16)) {
+#define HOPPER_LOGLIK(BN)                                                 \
+  case BN:                                                                \
+    return launch_loglik<Codec, MT, BN, kPitched>(ad, dp, row_bytes, V, C, \
+                                                  b, ldv, out, N, s);
+    HOPPER_LOGLIK(16) HOPPER_LOGLIK(32) HOPPER_LOGLIK(48) HOPPER_LOGLIK(64)
+  }
+#undef HOPPER_LOGLIK
   return cudaErrorInvalidValue;
 }
 

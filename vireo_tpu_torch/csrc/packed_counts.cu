@@ -89,6 +89,10 @@
 // 128-cell design (one tile a warpgroup, up to 80 columns, as K2) was
 // within ~5% of this one either way: faster at N = 16, slower at warm.
 //
+// The kernel is `hopper::loglik_kernel` (hopper_gemm.cuh) with the
+// nibble codec and kLoglikTiles tiles; K0 (dense_counts.cu) runs the
+// same kernel on int8 rows.
+//
 // No atomics: each output element belongs to one thread of one block and
 // is summed in a fixed order, so results do not change between runs.
 //
@@ -97,201 +101,15 @@
 // (or cudaErrorInvalidValue for shapes it does not take).
 
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <stdint.h>
 
 #include "hopper_gemm.cuh"
 
 namespace {
 
-using namespace hopper;
-
-constexpr int kLoglikMaxTile = 64;  // widest column tile
-constexpr int kLoglikTiles = 2;     // m64 tiles of cells a warpgroup
-constexpr int kWeightPlanes = 6;    // three terms each of Wa^T and Wd^T
-
-// K3's block: kLoglikTiles m64 tiles of cells a warpgroup (256 cells a
-// block), BN columns, k-blocks of 64 variants.
-template <int BN_>
-struct LoglikShape {
-  static constexpr int BN = BN_;
-  static constexpr int BK = kKBlock;                  // variants a k-block
-  static constexpr int CELLS = kBlockRows * kLoglikTiles;  // cells a block
-  static constexpr int BYTES = CELLS / 2;             // packed bytes a row
-  static constexpr int A_PITCH = BYTES + 16;
-  static constexpr int B_BYTES = kWeightPlanes * BK * BN * 2;
-  static constexpr int A_BYTES = 2 * BK * A_PITCH;
-  static constexpr int STAGE = B_BYTES + A_BYTES;
-  static constexpr int STAGES = ring_depth(STAGE);
-  static constexpr size_t SMEM = (size_t)STAGES * STAGE + kSmemAlign;
-  static_assert(STAGES >= 2, "a ring needs two stages");
-  static_assert(STAGE % kSmemAlign == 0, "stages keep the alignment");
-};
-
-template <int BN>
-__global__ void __launch_bounds__(kBlockThreads, 1)
-    loglik_kernel(const uint8_t* __restrict__ ad,
-                  const uint8_t* __restrict__ dp, long long row_bytes,
-                  int V, long long C,
-                  const __grid_constant__ CUtensorMap b_map,
-                  float* __restrict__ out, int N, int n_tiles) {
-  using S = LoglikShape<BN>;
-  constexpr int MT = kLoglikTiles;
-  extern __shared__ __align__(128) uint8_t smem_raw[];
-  uint8_t* smem = aligned_smem(smem_raw);
-  __shared__ uint64_t b_full[S::STAGES];
-  const int tid = threadIdx.x;
-  const int wg = tid / 128;
-  const int warp = (tid % 128) / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4, c = lane % 4;
-  const long long j0 = (long long)(blockIdx.x / n_tiles) * S::BYTES;
-  const int n0 = (blockIdx.x % n_tiles) * S::BN;
-  const int nkb = (V + S::BK - 1) / S::BK;
-
-  auto stage = [&](int i) { return smem + (size_t)i * S::STAGE; };
-  // B by TMA (one thread), the counts by every thread's cp.async
-  auto load = [&](int t) {
-    uint8_t* st = stage(t % S::STAGES);
-    const long long v0 = (long long)t * S::BK;
-    if (tid == 0)
-      load_b<kWeightPlanes, S::BN, S::BK>(st, &b_map, &b_full[t % S::STAGES],
-                                          n0, (int)v0);
-    load_byte_rows<S::BK, S::BYTES>(st + S::B_BYTES, ad, v0, V, row_bytes,
-                                    j0);
-    load_byte_rows<S::BK, S::BYTES>(st + S::B_BYTES + S::BK * S::A_PITCH, dp,
-                                    v0, V, row_bytes, j0);
-  };
-
-  // part: one k-block's sums, formed by the tensor cores; acc: the sums
-  // over all k-blocks, added to in float32 on the CUDA cores
-  float acc[MT][BN / 2], part[MT][BN / 2];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[mt][i] = part[mt][i] = 0.f;
-
-  if (tid == 0)
-    for (int i = 0; i < S::STAGES; ++i) mbar_init(&b_full[i]);
-  __syncthreads();
-#pragma unroll
-  for (int t = 0; t < S::STAGES - 1; ++t) {
-    if (t < nkb) load(t);
-    cp_async_commit();
-  }
-
-  // the byte, within the block's, that holds this thread's two cells of
-  // tile mt (fragment rows g and g + 8: cells 2j and 2j + 1)
-  auto cell_byte = [&](int mt) { return (wg * MT + mt) * 32 + warp * 8 + g; };
-
-  for (int t = 0; t < nkb; ++t) {
-    cp_async_wait<S::STAGES - 2>();
-    __syncthreads();
-    mbar_wait(&b_full[t % S::STAGES], (t / S::STAGES) & 1);
-
-    const uint8_t* st = stage(t % S::STAGES);
-    const long long v0 = (long long)t * S::BK;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      uint32_t frag[2][S::BK / 16][4];
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        const uint8_t* src = m ? dp : ad;
-        const uint8_t* base = st + S::B_BYTES + m * S::BK * S::A_PITCH;
-#pragma unroll
-        for (int s = 0; s < S::BK / 16; ++s) {
-          const uint8_t* p[4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            // variants 16s + 2c, +1, +8, +9 of the k-block
-            const int r = 16 * s + 2 * c + (q & 1) + 8 * (q >> 1);
-            p[q] = byte_row(base + r * S::A_PITCH, src, v0 + r, row_bytes,
-                            j0) +
-                   cell_byte(mt);
-          }
-          mmajor_frag<Nibbles>(frag[m][s], p);
-        }
-      }
-      fence_regs(part[mt]);
-      wgmma_fence();
-#pragma unroll
-      for (int s = 0; s < S::BK / 16; ++s)
-#pragma unroll
-        for (int m = 0; m < 2; ++m)
-#pragma unroll
-          for (int p = 0; p < 3; ++p) {
-            const int more = s > 0 || m > 0 || p > 0;  // the first sets part
-            wgmma_rs<BN>(part[mt], frag[m][s],
-                         b_desc<BN, S::BK>(st, 3 * m + p, s), more);
-          }
-      wgmma_commit();
-    }
-    // the slot of k-block t - 1, which every warpgroup has finished
-    if (t + S::STAGES - 1 < nkb) load(t + S::STAGES - 1);
-    cp_async_commit();
-    // each tile's sums are added once its group is done, the last tile's
-    // MMAs still running while the others' are added
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      if (mt + 1 < MT)
-        wgmma_wait<MT - 1>();
-      else
-        wgmma_wait<0>();
-      fence_regs(part[mt]);
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[mt][i] += part[mt][i];
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    const long long cell = 2 * (j0 + cell_byte(mt));
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) {
-      const long long cl = cell + ((i >> 1) & 1);
-      const int n = n0 + 8 * (i >> 2) + 2 * c + (i & 1);
-      if (cl < C && n < N) out[cl * N + n] = acc[mt][i];
-    }
-  }
-}
-
-// b: (6, N, ldv) bf16, the variants of each row contiguous (see
-// hopper::encode_b).
-template <int BN>
-cudaError_t launch_loglik(const uint8_t* ad, const uint8_t* dp, int V,
-                          long long C, const void* b, long long ldv,
-                          float* out, int N, cudaStream_t s) {
-  using Sh = LoglikShape<BN>;
-  auto kernel = loglik_kernel<BN>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sh::SMEM);
-  if (err != cudaSuccess) return err;
-  const long long row_bytes = (C + 1) / 2;
-  const long long n_tiles = (N + Sh::BN - 1) / Sh::BN;
-  const long long blocks = n_tiles * ((row_bytes + Sh::BYTES - 1) / Sh::BYTES);
-  CUtensorMap b_map;
-  if (blocks <= 0 || blocks > INT_MAX || V > INT_MAX - Sh::BK ||
-      !encode_b(&b_map, b, kWeightPlanes, N, V, ldv, Sh::BN))
-    return cudaErrorInvalidValue;
-  kernel<<<(unsigned)blocks, kBlockThreads, Sh::SMEM, s>>>(
-      ad, dp, row_bytes, V, C, b_map, out, N, (int)n_tiles);
-  return cudaGetLastError();
-}
-
-// Dispatch on the tile pick_tile gives for the block's cells.
-cudaError_t launch_loglik_any(const uint8_t* ad, const uint8_t* dp, int V,
-                              long long C, const void* b, long long ldv,
-                              float* out, int N, cudaStream_t s) {
-  switch (pick_tile(N, kLoglikMaxTile, 16)) {
-#define VIREO_LOGLIK(BN)                                                   \
-  case BN:                                                                 \
-    return launch_loglik<BN>(ad, dp, V, C, b, ldv, out, N, s);
-    VIREO_LOGLIK(16) VIREO_LOGLIK(32) VIREO_LOGLIK(48) VIREO_LOGLIK(64)
-#undef VIREO_LOGLIK
-  }
-  return cudaErrorInvalidValue;
-}
+// K3's block: two m64 tiles of cells a warpgroup (256 cells a block),
+// as the file note says.
+constexpr int kLoglikTiles = 2;
 
 }  // namespace
 
@@ -320,9 +138,10 @@ int vireo_packed_cell_loglik(const void* ad_p, const void* dp_p,
                              const void* b6, void* out, int V, int C, int N,
                              int ldv, void* stream) {
   if (V <= 0 || C <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-  return (int)launch_loglik_any((const uint8_t*)ad_p, (const uint8_t*)dp_p,
-                                V, C, b6, ldv, (float*)out, N,
-                                (cudaStream_t)stream);
+  return (int)hopper::launch_loglik_any<hopper::Nibbles, kLoglikTiles,
+                                        false>(
+      (const uint8_t*)ad_p, (const uint8_t*)dp_p, ((long long)C + 1) / 2, V,
+      C, b6, ldv, (float*)out, N, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -11,13 +11,18 @@ picks one by the pool's size and largest count (`ladder_rung`):
 
 - ``DenseCounts``: AD and DP dense, (n_var, n_cell), in the smallest
   type that holds every count exactly (`exact_count_dtype`): int8 up to
-  127, which is what real pools give. PyTorch has no int8 x float
-  matmul, so the contractions convert the counts to the weights' type
-  one block of variant rows at a time and hand each block to
-  `torch.matmul`. The conversion is exact, so the result equals a
-  product with the whole matrix converted, up to the order of the float
-  sums; a whole-matrix conversion would instead cost a 12 GB float32
-  copy per matrix per call at 30k variants x 100k cells.
+  127, which is what real pools give. int8 counts go through K0
+  (`dense_suff_stats`, `dense_cell_loglik`): on a card the CUDA kernels
+  of csrc/dense_counts.cu, which read each count byte once and build
+  bf16 operands in registers, as the JAX package's XLA dots read int8
+  cast to bf16 (vireo_tpu/ops/counts.py:71-95); on the CPU their plain
+  versions. The plain versions (`suff_stats_reference`,
+  `cell_loglik_reference`) convert the counts to the weights' type one
+  block of variant rows at a time and hand each block to
+  `torch.matmul`; counts of other types (bfloat16 or float32, for pools
+  with counts above 127) always take them, as the JAX package takes a
+  plain dot there, at `Precision.HIGHEST` for float32
+  (vireo_tpu/ops/counts.py:61-69).
 - ``PackedCounts`` (ops/packed.py): two cells a byte when every count is
   <= 15, with the CUDA kernels K2 and K3.
 - ``HybridCounts``: an int8 or packed base clipped at its cap plus a COO
@@ -31,6 +36,7 @@ budget of the ranks it spans, and each rank places its block of that
 rung, wrapped in a `parallel.mesh.ShardedCounts`.
 """
 
+import ctypes
 import dataclasses
 import os
 
@@ -38,13 +44,16 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ._launch import launch, on_cpu
 from .math import log_binom_coeff
-from .packed import PACK_MAX, PackedCounts
+from .packed import (PACK_MAX, PackedCounts, check_weights,
+                     split_weights_kmajor)
 
 __all__ = ["Counts", "DenseCounts", "SparseCounts", "HybridCounts",
            "counts_from_scipy", "dense_counts", "sparse_counts",
            "hybrid_from_coo", "ladder_rung", "exact_count_dtype",
-           "device_dense_budget"]
+           "device_dense_budget", "dense_suff_stats", "dense_cell_loglik",
+           "suff_stats_reference", "cell_loglik_reference", "LAUNCHES"]
 
 # No counterpart of vireo_tpu/ops/counts.py::_divisible_sharding: there a
 # spec axis that does not divide the counts' shape is replicated; here
@@ -52,16 +61,155 @@ __all__ = ["Counts", "DenseCounts", "SparseCounts", "HybridCounts",
 # padded with zero-count cells where S does not divide C) and the
 # variants into equal ranges, the last one short, so every extent fits.
 
-# bytes of one converted block of count rows
+# bytes of one converted block of count rows (the plain versions and the
+# reductions)
 _CHUNK_BYTES = 1 << 29
+
+# launches of each CUDA kernel of K0
+LAUNCHES = {"dense_suff_stats": 0, "dense_cell_loglik": 0}
+
+_LIB = None
+
+
+def _row_blocks(n_var, n_cell, itemsize, row_chunk=None):
+    """(r0, r1) blocks of variant rows, `row_chunk` rows or about 512 MB
+    of `itemsize`-byte values each."""
+    rows = row_chunk
+    if rows is None:
+        rows = _CHUNK_BYTES // max(n_cell * itemsize, 1)
+    rows = max(int(rows), 1)
+    for r0 in range(0, n_var, rows):
+        yield r0, min(r0 + rows, n_var)
+
+
+def _converted(ad, dp, dtype, row_chunk=None):
+    """(r0, r1, AD rows, DP rows) blocks converted to `dtype`."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    for r0, r1 in _row_blocks(ad.shape[0], ad.shape[1], itemsize, row_chunk):
+        yield r0, r1, ad[r0:r1].to(dtype), dp[r0:r1].to(dtype)
+
+
+def suff_stats_reference(ad, dp, W, row_chunk=None):
+    """Plain version of K0's suff_stats: (AD @ W, DP @ W) for W
+    (n_cell, N) -> two (n_var, N) in W's type, one block of converted
+    rows at a time (`row_chunk` rows, or about 512 MB)."""
+    S1 = torch.empty((ad.shape[0], W.shape[1]), dtype=W.dtype,
+                     device=W.device)
+    SS = torch.empty_like(S1)
+    for r0, r1, a, d in _converted(ad, dp, W.dtype, row_chunk):
+        torch.matmul(a, W, out=S1[r0:r1])
+        torch.matmul(d, W, out=SS[r0:r1])
+    return S1, SS
+
+
+def cell_loglik_reference(ad, dp, Wa, Wd, row_chunk=None):
+    """Plain version of K0's cell_loglik: AD.T @ Wa + DP.T @ Wd for
+    (n_var, N) weights -> (n_cell, N) in the weights' type, one block of
+    converted rows at a time."""
+    out = torch.zeros((ad.shape[1], Wa.shape[1]), dtype=Wa.dtype,
+                      device=Wa.device)
+    for r0, r1, a, d in _converted(ad, dp, Wa.dtype, row_chunk):
+        out.addmm_(a.t(), Wa[r0:r1])
+        out.addmm_(d.t(), Wd[r0:r1])
+    return out
+
+
+def _library():
+    global _LIB
+    if _LIB is None:
+        from ._build import load_library
+        lib = load_library("dense_counts")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.vireo_dense_suff_stats.argtypes = [ptr] * 5 + [i32] * 4 + [
+            ctypes.c_longlong, ptr]
+        lib.vireo_dense_suff_stats.restype = i32
+        lib.vireo_dense_cell_loglik.argtypes = [ptr] * 4 + [i32] * 4 + [
+            ctypes.c_longlong, ptr]
+        lib.vireo_dense_cell_loglik.restype = i32
+        lib.vireo_dense_error_string.argtypes = [i32]
+        lib.vireo_dense_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def _check_launch(name, ad, dp, weights, rows):
+    """Validate what the kernels take: two int8 (n_var, n_cell) count
+    matrices on one device and float32 weights of `rows` rows and one
+    width. Returns (ad, dp, pitch, weights): the counts as they are when
+    their cells are contiguous and both rows lie `pitch` bytes apart (a
+    cell range of a wider matrix), else contiguous copies; the weights
+    contiguous."""
+    if ad.dtype != torch.int8 or dp.dtype != torch.int8:
+        raise TypeError("%s reads int8 counts, got %s/%s"
+                        % (name, ad.dtype, dp.dtype))
+    if ad.dim() != 2 or dp.shape != ad.shape:
+        raise ValueError("%s: count shapes %s/%s differ"
+                         % (name, tuple(ad.shape), tuple(dp.shape)))
+    weights = check_weights(name, ad, dp, weights, rows)
+    V, C = ad.shape
+    pitched = all(C <= 1 or x.stride(1) == 1 for x in (ad, dp)) and (
+        V <= 1 or ad.stride(0) == dp.stride(0) >= C)
+    if not pitched:
+        ad, dp = ad.contiguous(), dp.contiguous()
+    pitch = ad.stride(0) if V > 1 else C
+    return ad, dp, pitch, weights
+
+
+def _run(name, fn, args, device):
+    launch(name, fn, args, device, _library().vireo_dense_error_string)
+    LAUNCHES[name] += 1
+
+
+def dense_suff_stats(ad, dp, W, row_chunk=None):
+    """K0's suff_stats: (AD @ W, DP @ W) for int8 counts and W
+    (n_cell, N) -> two (n_var, N). CPU tensors run the plain version
+    (`row_chunk` sizes its blocks); CUDA tensors launch the kernel
+    (float32 weights only) or raise. Empty counts or weights give zeros
+    without a launch."""
+    if on_cpu("dense_suff_stats", ad):
+        return suff_stats_reference(ad, dp, W, row_chunk)
+    ad, dp, pitch, (W,) = _check_launch("dense_suff_stats", ad, dp, [W],
+                                        ad.shape[1])
+    (V, C), N = ad.shape, W.shape[1]
+    S1 = torch.zeros((V, N), dtype=torch.float32, device=W.device)
+    SS = torch.zeros_like(S1)
+    if V and C and N:
+        w3 = split_weights_kmajor(W)
+        _run("dense_suff_stats", _library().vireo_dense_suff_stats,
+             (ad.data_ptr(), dp.data_ptr(), w3.data_ptr(), S1.data_ptr(),
+              SS.data_ptr(), V, C, N, w3.shape[2], pitch), W.device)
+    return S1, SS
+
+
+def dense_cell_loglik(ad, dp, Wa, Wd, row_chunk=None):
+    """K0's cell_loglik: AD.T @ Wa + DP.T @ Wd for int8 counts and
+    (n_var, N) weights -> (n_cell, N). CPU tensors run the plain
+    version; CUDA tensors launch the kernel (float32 weights only) or
+    raise. Empty counts or weights give zeros without a launch."""
+    if on_cpu("dense_cell_loglik", ad):
+        return cell_loglik_reference(ad, dp, Wa, Wd, row_chunk)
+    ad, dp, pitch, (Wa, Wd) = _check_launch(
+        "dense_cell_loglik", ad, dp, [Wa, Wd], ad.shape[0])
+    (V, C), N = ad.shape, Wa.shape[1]
+    out = torch.zeros((C, N), dtype=torch.float32, device=Wa.device)
+    if V and C and N:
+        b6 = split_weights_kmajor(Wa, Wd)
+        _run("dense_cell_loglik", _library().vireo_dense_cell_loglik,
+             (ad.data_ptr(), dp.data_ptr(), b6.data_ptr(), out.data_ptr(),
+              V, C, N, b6.shape[2], pitch), Wa.device)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
 class DenseCounts:
     """Dense AD/DP counts of shape (n_var, n_cell).
 
-    `row_chunk` fixes the number of variant rows converted per block;
-    None sizes blocks to about 512 MB of the target type.
+    The contractions of int8 counts are K0 (`dense_suff_stats`,
+    `dense_cell_loglik`), on a card its CUDA kernels; those of other
+    types are the plain versions. `row_chunk` fixes the number of
+    variant rows the plain versions and the reductions convert per
+    block; None sizes blocks to about 512 MB of the target type
+    (`_CHUNK_BYTES`). The kernels convert nothing in device memory.
     """
     ad: torch.Tensor
     dp: torch.Tensor
@@ -80,38 +228,24 @@ class DenseCounts:
         return self.ad.device
 
     def _rows(self, itemsize):
-        """(r0, r1) blocks of variant rows, `row_chunk` rows or about
-        512 MB of `itemsize`-byte values each."""
-        rows = self.row_chunk
-        if rows is None:
-            rows = _CHUNK_BYTES // max(self.n_cell * itemsize, 1)
-        rows = max(int(rows), 1)
-        for r0 in range(0, self.n_var, rows):
-            yield r0, min(r0 + rows, self.n_var)
+        return _row_blocks(self.n_var, self.n_cell, itemsize, self.row_chunk)
 
     def _chunks(self, dtype):
-        itemsize = torch.empty((), dtype=dtype).element_size()
-        for r0, r1 in self._rows(itemsize):
-            yield r0, r1, self.ad[r0:r1].to(dtype), self.dp[r0:r1].to(dtype)
+        return _converted(self.ad, self.dp, dtype, self.row_chunk)
 
     def suff_stats(self, W):
         """(AD @ W, DP @ W) for W of shape (n_cell, N) -> two (n_var, N)."""
-        S1 = torch.empty((self.n_var, W.shape[1]), dtype=W.dtype,
-                         device=W.device)
-        SS = torch.empty_like(S1)
-        for r0, r1, a, d in self._chunks(W.dtype):
-            torch.matmul(a, W, out=S1[r0:r1])
-            torch.matmul(d, W, out=SS[r0:r1])
-        return S1, SS
+        if self.ad.dtype == torch.int8:
+            return dense_suff_stats(self.ad, self.dp, W, self.row_chunk)
+        return suff_stats_reference(self.ad, self.dp, W, self.row_chunk)
 
     def cell_loglik(self, Wa, Wd):
         """AD.T @ Wa + DP.T @ Wd for (n_var, N) weights -> (n_cell, N)."""
-        out = torch.zeros((self.n_cell, Wa.shape[1]), dtype=Wa.dtype,
-                          device=Wa.device)
-        for r0, r1, a, d in self._chunks(Wa.dtype):
-            out.addmm_(a.t(), Wa[r0:r1])
-            out.addmm_(d.t(), Wd[r0:r1])
-        return out
+        if self.ad.dtype == torch.int8:
+            return dense_cell_loglik(self.ad, self.dp, Wa, Wd,
+                                     self.row_chunk)
+        return cell_loglik_reference(self.ad, self.dp, Wa, Wd,
+                                     self.row_chunk)
 
     def binom_coeff_sum(self):
         """Sum of log C(DP, AD) over DP > 0 entries, accumulated in

@@ -81,18 +81,17 @@ def fused_estep_stats_reference(ad, dp, Wa, Wd, id_log_prior,
     Returns (S1 (V, Ks), SS (V, Ks), id_prob (C, K), loglik (C, K),
     lb_p, kl_id), all float32; the scalars are 0-d tensors.
     """
-    from .counts import DenseCounts
+    from .counts import cell_loglik_reference, suff_stats_reference
     K, Ks, W, prior = _prepare(Wa, Wd, id_log_prior, stats_cols)
     W = W.to(torch.float32)
-    counts = DenseCounts(ad, dp)
-    loglik = counts.cell_loglik(W[:, :K].contiguous(),
-                                W[:, K:].contiguous())
+    loglik = cell_loglik_reference(ad, dp, W[:, :K].contiguous(),
+                                   W[:, K:].contiguous())
     logp = loglik + prior
     logp = logp - logp.amax(dim=-1, keepdim=True)
     e = torch.exp(logp)
     id_prob = e / e.sum(dim=-1, keepdim=True)
     idb = id_prob[:, :Ks].to(torch.bfloat16).to(torch.float32)
-    S1, SS = counts.suff_stats(idb)
+    S1, SS = suff_stats_reference(ad, dp, idb)
     lb_p = torch.sum(loglik * id_prob)
     pos = id_prob > 0
     safe_log = torch.log(torch.where(pos, id_prob, torch.ones_like(id_prob)))

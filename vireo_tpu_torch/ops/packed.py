@@ -51,7 +51,7 @@ __all__ = ["PACK_MAX", "PackedCounts", "pack_dense", "packed_suff_stats",
            "packed_cell_loglik", "suff_stats_reference",
            "cell_loglik_reference", "split_bf16x3", "split_weights_kmajor",
            "LAUNCHES", "MeshPackedCounts", "pack_scipy_sharded",
-           "packed_cell_block", "pack_nibbles"]
+           "packed_cell_block", "pack_nibbles", "check_weights"]
 
 PACK_MAX = 15  # the largest count a nibble holds exactly
 
@@ -168,18 +168,25 @@ def _check_launch(name, ad_p, dp_p, n_cell, weights, rows):
                             n_cell))
     if V == 0 or n_cell == 0:
         raise ValueError("%s: empty counts (%d x %d)" % (name, V, n_cell))
+    return (ad_p.contiguous(), dp_p.contiguous(),
+            check_weights(name, ad_p, dp_p, weights, rows))
+
+
+def check_weights(name, ad, dp, weights, rows):
+    """The kernels' weights, which they take as float32 matrices of
+    `rows` rows and one width on the counts' device (K0's, K2's and
+    K3's wrappers): contiguous, or an error."""
     for w in weights:
         if w.dtype != torch.float32:
             raise TypeError("%s takes float32 weights, got %s"
                             % (name, w.dtype))
-        if w.device != ad_p.device or dp_p.device != ad_p.device:
+        if w.device != ad.device or dp.device != ad.device:
             raise ValueError("%s: operands on %s, %s and %s"
-                             % (name, ad_p.device, dp_p.device, w.device))
+                             % (name, ad.device, dp.device, w.device))
         if w.dim() != 2 or w.shape != (rows, weights[0].shape[-1]):
             raise ValueError("%s: weights of shape %s, not (%d, N)"
                              % (name, tuple(w.shape), rows))
-    return (ad_p.contiguous(), dp_p.contiguous(),
-            [w.contiguous() for w in weights])
+    return [w.contiguous() for w in weights]
 
 
 def _run(name, fn, args, device):
