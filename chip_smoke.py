@@ -34,16 +34,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    (DenseCounts.suff_stats and .cell_loglik, reached through their
    dispatch), against their plain versions at the warm restarts' and
    the refit's shapes on the main pool's (30000 x 100000 counts in
-   [0, 127] drawn on the card; N = 320 and 16) and at an edge shape (an
-   odd C, also as a cell_slice view that starts at an odd column): bit
-   for bit on integer weights, on a second launch, and on weights that
-   need all three bf16 terms (on the counts halved, K0_SPLIT_NNZ), with
-   the controls of phase 4; within phase 4's bound on float weights and
-   its error against float64 sums; at the two main shapes as a single
-   call in turns with the plain version, 20 back to back and from
-   torch.profiler, beside the bound and, as the library call, cuBLAS
-   bf16 on the counts converted in the call by the weights' first bf16
-   term (lower precision);
+   [0, 127] drawn on the card; N = 320 and 16) and at edge shapes (an
+   odd C, also as a cell_slice view that starts at an odd column, both
+   read by the kernels' producer without TMA; a C that is a multiple of
+   16, read by TMA): bit for bit on integer weights, on a second launch,
+   and on weights that need all three bf16 terms (on the counts halved,
+   K0_SPLIT_NNZ), with the controls of phase 4; the B operand its
+   kernel writes equal to k0_operand's bit for bit; within phase 4's
+   bound on float weights and its error against float64 sums; its plan
+   (ops/counts.py::k0_plan), registers and shared memory; at the two
+   main shapes as a single call in turns with the plain version and
+   with the kernels' two controls (no MMAs; no CUDA-core adds of the
+   k-block sums), 20 back to back and from torch.profiler, beside the
+   bound and, as the library call, cuBLAS bf16 on the counts converted
+   in the call by the weights' first bf16 term (lower precision);
 4b. `[probes]`: the kernels of the probes of benchmarks/
    (vireo_tpu_torch/probes/) against their plain versions: A
    (nibble_unpack) in its three variants bit for bit at the probe's 256
@@ -283,7 +287,10 @@ K23_SHAPES = (
 # contiguous pool and on a cell_slice view of a pool K0_VIEW_START cells
 # wider that starts at that (odd) column and ends at its parent's last
 # one (rows neither 16-byte aligned nor contiguous, the last row's last
-# cell the parent's last byte). Counts uniform in [0, 127], every value
+# cell the parent's last byte), both through the kernels' producer
+# without TMA (ops/counts.py::k0_producer); and the edge shape with C a
+# multiple of 16, whose rows TMA reads (ragged rows, cells, variants and
+# columns on that path). Counts uniform in [0, 127], every value
 # an int8 count takes. The tolerances are K2's and K3's: exact on
 # integer weights (sum|terms| below 2^24, checked on the data), Higham's
 # bound against the plain version on float weights, three terms
@@ -291,6 +298,7 @@ K23_SHAPES = (
 # second launch.
 K0_SHAPES = (
     ("edge", 1001, 1999, 21),
+    ("edge aligned", 1001, 2000, 21),
     ("warm", 30000, 100000, 320),
     ("refit", 30000, 100000, 16),
 )
@@ -467,6 +475,11 @@ def phase_environment(torch):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(smi)
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.applications."
+         "graphics", "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()
+    log("[env] SM clock: max, application %s" % (clocks or "not read"))
     log("[env] device 0: %s, device count %d"
         % (torch.cuda.get_device_name(0), torch.cuda.device_count()))
 
@@ -545,10 +558,11 @@ def _timed_pair(torch, run_kernel, run_plain):
     return float(np.median(k_ms)), float(np.median(p_ms)), len(k_ms)
 
 
-def _kernel_ms(torch, fn, names, reps=3):
+def _kernel_ms(torch, fn, names, reps=3, seen=None):
     """Mean device ms per call of fn of each kernel whose name holds one
     of `names`, from torch.profiler; None where it reports no device
-    time."""
+    time. `seen`, a dict, takes the launches of each that the profiler
+    recorded over the `reps` calls."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -564,6 +578,8 @@ def _kernel_ms(torch, fn, names, reps=3):
         for n in names:
             if n in evt.key and us > 0:
                 ms[n] = (ms[n] or 0.0) + us / 1000.0 / reps
+                if seen is not None:
+                    seen[n] = seen.get(n, 0) + evt.count
     return ms
 
 
@@ -1017,6 +1033,64 @@ def _k0_library(torch, name, X8, w):
     return lambda: torch.matmul(X8.to(torch.bfloat16).t(), wb)
 
 
+def _k0_producer(torch, dc):
+    """The producer K0's kernels take for DenseCounts dc: "tma" or
+    "loads"."""
+    from vireo_tpu_torch.ops import counts
+    pitch = dc.ad.stride(0) if dc.n_var > 1 else dc.n_cell
+    return counts.k0_producer(dc.ad, dc.dp, pitch)
+
+
+def _k0_kernels(plan):
+    """The CUDA kernels of one K0 call, by the names torch.profiler
+    reports (k0_sum_slices where the plan splits the contracted axis)."""
+    own = "k0_suff_kernel" if plan.name == "suff_stats" else \
+        "k0_loglik_kernel"
+    return (own,) + (("k0_sum_slices",) if plan.slices > 1 else ())
+
+
+def _k0_layout(torch, name, dc, N, w, res):
+    """K0's plan, its kernel's registers, shared memory and ring at the
+    plan's tile, and the two controls timed in turns with the kernel
+    (CUDA events, median of 4 each): without the MMAs (the ring and the
+    fragments alone) and without the float32 adds of the k-block sums;
+    into res, logged."""
+    from vireo_tpu_torch.ops import counts
+    plan = counts.k0_plan(name, dc.n_var, dc.n_cell, N, _sms(torch))
+    shape = counts.k0_shape(name, plan.bn)
+    res["plan"], res["shape"] = plan, shape
+    log("[k0]   plan: tile %d x %d, %d x %d tiles, %d slices of %d "
+        "k-blocks (%d), %d units on %d blocks (%.1f%% of the last wave); "
+        "producer %s" % (counts.K0_TILES[name][0], plan.bn, plan.m_tiles,
+                         plan.n_tiles, plan.slices, plan.slice_kb, plan.nkb,
+                         plan.units, plan.grid,
+                         100.0 * (plan.units % plan.grid or plan.grid)
+                         / plan.grid, _k0_producer(torch, dc)))
+    log("[k0]   kernel: %s" % json.dumps(shape))
+    if shape["spill_bytes"] != 0:
+        log("[k0]   WARNING: the kernel spills %d bytes a thread"
+            % shape["spill_bytes"])
+    kern = (lambda: dc.suff_stats(*w)) if name == "suff_stats" else \
+        (lambda: dc.cell_loglik(*w))
+    ctrl = {m: (lambda m=m: counts.k0_control(name, dc, *w, mode=m))
+            for m in ("no_mma", "no_fold")}
+    kern()
+    for f in ctrl.values():
+        f()
+    torch.cuda.synchronize()
+    times = {"kernel": [], "no_mma": [], "no_fold": []}
+    for order in (("kernel", "no_mma", "no_fold"),
+                  ("no_fold", "no_mma", "kernel")):
+        for key in order:
+            times[key] += _time_ms(torch, kern if key == "kernel"
+                                   else ctrl[key], reps=2)
+    ms = {k: float(np.median(v)) for k, v in times.items()}
+    res["controls_ms"] = ms
+    log("[k0]   controls, median ms (CUDA events, %d runs each, in turns): "
+        "kernel %.3f  no MMAs %.3f  no adds of the k-block sums %.3f"
+        % (len(times["kernel"]), ms["kernel"], ms["no_mma"], ms["no_fold"]))
+
+
 def phase_k0(torch):
     """K0 against its plain versions at K0_SHAPES, with the checks and
     times of K0_SHAPES' note."""
@@ -1076,12 +1150,25 @@ def phase_k0(torch):
                     raise AssertionError("K0 %s gave other sums on a second "
                                          "launch" % name)
                 log("[k0]   a second launch: equal bit for bit")
+                b = counts.k0_device_operand(name, *w)
+                if not torch.equal(b, counts.k0_operand(name, *w)):
+                    raise AssertionError("K0 %s's operand kernel wrote "
+                                         "another B than k0_operand" % name)
+                log("[k0]   B operand %s: the operand kernel's equal to "
+                    "k0_operand's bit for bit" % (tuple(b.shape),))
+                del b
                 res = dict(max_abs_err=err)
                 res["err_vs_f64"] = _term_errors(
                     torch, name, kern[name], plain[name], pc, w, got,
                     label="K0 " + name, gain=K0_TERMS_GAIN, tag="k0")
                 del got
-                if not tag.startswith("edge"):
+                if tag.startswith("edge"):
+                    plan = counts.k0_plan(name, V, C, N, _sms(torch))
+                    log("[k0]   plan: tile %d, %d slices, %d blocks; "
+                        "producer %s" % (plan.bn, plan.slices, plan.grid,
+                                         _k0_producer(torch, pc)))
+                else:
+                    _k0_layout(torch, name, pc, N, w, res)
                     X8 = torch.cat([pc.ad, pc.dp])
                     lib = _k0_library(torch, name, X8, w)
                     lib_err = max(float((a.float() - b).abs().max())
@@ -1101,8 +1188,7 @@ def phase_k0(torch):
                         lambda: plain[name](pc, *w), lib,
                         3 * 2.0 * 2 * V * C * N,
                         2.0 * V * C + 4.0 * C * N + 8.0 * V * N,
-                        kernels=("rows_kernel" if name == "suff_stats"
-                                 else "loglik_kernel",), phase="k0")
+                        kernels=_k0_kernels(res["plan"]), phase="k0")
                     del X8, lib
                 results[(tag, name)] = res
                 del w
@@ -1163,7 +1249,8 @@ def _probe_times(torch, tag, res, kern, plain, library, flops, nbytes,
             kern()
     res["stream_ms"] = _time_ms(torch, stream)[-1] / PROBE_STREAM
     res["graph_ms"] = _graph_ms(torch, kern) if graph else None
-    by_name = _kernel_ms(torch, kern, kernels)
+    seen = {}
+    by_name = _kernel_ms(torch, kern, kernels, seen=seen)
     res["device_by_kernel"] = by_name
     res["device_ms"] = (None if None in by_name.values()
                         else sum(by_name.values()))
@@ -1179,8 +1266,9 @@ def _probe_times(torch, tag, res, kern, plain, library, flops, nbytes,
            "" if res["graph_ms"] is None else
            ", in a CUDA graph %.4f ms a call (%.1f%% of the bound)"
            % (res["graph_ms"], 100.0 * res["bound_ms"] / res["graph_ms"]),
-           ", ".join("%s %s" % (k, "not measured" if v is None
-                                else "%.4f ms" % v)
+           ", ".join("%s %s (%d launches recorded in 3 calls)"
+                     % (k, "not measured" if v is None else "%.4f ms" % v,
+                        seen.get(k, 0))
                      for k, v in by_name.items())))
     return res
 
@@ -1971,8 +2059,9 @@ def phase_profile(torch, d):
     """The main path once more on each rung under torch.profiler: the
     phase times, the device time by kernel (the self time of each
     kernel, copy and memset; the aten:: ops, which report their kernels'
-    time again, are left out), and the idle share, one minus the device
-    time over the profiled wall."""
+    time again, are left out), K0's share of it (its kernels, named
+    k0_*), and the idle share, one minus the device time over the
+    profiled wall."""
     from torch.profiler import ProfilerActivity, profile
     from vireo_tpu_torch.engine.wrap import vireo_wrap
     for rung, gb in (("dense", None), ("packed", PACKED_BUDGET_GB)):
@@ -1999,6 +2088,12 @@ def phase_profile(torch, d):
                wall))
         log("[profile] %s: device time %.3f s, idle %.1f%% of the wall"
             % (rung, busy, 100.0 * (1.0 - busy / wall)))
+        k0 = [(sec, count, re.search(r"k0_\w+", key).group(0))
+              for sec, count, key in rows if re.search(r"k0_\w+", key)]
+        log("[profile] %s: K0 %.3f s of the device time (%s)"
+            % (rung, sum(r[0] for r in k0),
+               ", ".join("%s %.3f s x%d" % (name, sec, count)
+                         for sec, count, name in k0) or "no launch"))
         for sec, count, key in rows[:14]:
             log("[profile] %s:   %8.3f s %5.1f%%  x%-5d %s"
                 % (rung, sec, 100.0 * sec / busy, count, key))
@@ -3238,7 +3333,9 @@ def main():
         "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
         "bound_by": res["bound_by"], "library_ms": res["library_ms"]},
         **({"vireo_wrap_launches": wrap_launches[name]}
-           if name in wrap_launches else {}))
+           if name in wrap_launches else {}),
+        **({"note": "redesigned PR 13"} if name.startswith("dense_")
+           else {}))
         for name, source, replaces, path, launches, res in table]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

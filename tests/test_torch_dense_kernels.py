@@ -5,11 +5,15 @@ against vireo_tpu.ops.counts.DenseCounts, whose XLA dots read int8
 counts cast to bf16 (vireo_tpu/ops/counts.py:71-95).
 
 The CUDA kernels run only on a card; chip_smoke.py's `[k0]` phase holds
-them against the plain versions there. Here a CPU emulation of their
-arithmetic (each float32 weight split into three bf16 terms, each
-64-deep k-block summed in float32, the k-blocks added in float32 in
-order) is held against JAX's DenseCounts on int8 counts and float32
-weights:
+them against the plain versions there. Here the host pieces of their
+design are checked (the tile schedule `k0_plan`, the k order of the
+suff_stats B operand `k0_operand`, the choice of producer
+`k0_producer`), and a CPU emulation of their arithmetic in their order
+of sums (each float32 weight split into three bf16 terms; each 64-deep
+k-block, its k values in the kernel's order, summed in float32 on its
+own; a slice's k-blocks added in float32 in order from 0; the slices
+added in order) is held against JAX's DenseCounts on int8 counts and
+float32 weights:
 - integer weights: every product and partial sum is an integer below
   2^24, exact in float32 in any order, so bit for bit;
 - float weights: both sides sum the same exact products (a count below
@@ -69,34 +73,60 @@ def _dense(ad, dp):
     return DenseCounts(torch.as_tensor(ad), torch.as_tensor(dp))
 
 
-def _k0_emulation(A, W):
+# the H100's SMs: the plans the emulation follows are the card's
+SMS = 132
+
+
+def _k0_slices(plan, total_of):
+    """The slices' sums added in slice order, each slice's k-blocks
+    (total_of(t) for k-block t) added in k order to float32 sums from 0:
+    the kernels' order of sums."""
+    total = None
+    for sl in range(plan.slices):
+        t0 = sl * plan.slice_kb
+        acc = None
+        for t in range(t0, min(t0 + plan.slice_kb, plan.nkb)):
+            blk = total_of(t)
+            acc = blk if acc is None else acc + blk
+        total = acc if total is None else total + acc
+    return total
+
+
+def _k0_emulation(A, W, plan):
     """Sum over k of A[:, k] * W[k, :] as K0's suff_stats forms it: W's
-    three bf16 terms, each k-block of K_BLOCK cells summed in float32 on
-    its own, the k-blocks added in float32 in order."""
+    three bf16 terms, each k-block of K_BLOCK cells (read in k0_k_order)
+    summed in float32 on its own, in the plan's slices."""
     terms = [t.float() for t in split_bf16x3(W)]
-    acc = torch.zeros((A.shape[0], W.shape[1]), dtype=torch.float32)
-    for k0 in range(0, A.shape[1], K_BLOCK):
-        a = A[:, k0:k0 + K_BLOCK].float()
-        acc += sum(a @ t[k0:k0 + K_BLOCK] for t in terms)
-    return acc
+    order = torch.as_tensor(counts.k0_k_order("suff_stats"))
+
+    def block(t):
+        cells = K_BLOCK * t + order
+        cells = cells[cells < A.shape[1]]
+        a = A[:, cells].float()
+        return sum(a @ term[cells] for term in terms)
+    return _k0_slices(plan, block)
 
 
-def _emulated_suff_stats(ad, dp, W):
-    return _k0_emulation(ad, W), _k0_emulation(dp, W)
+def _emulated_suff_stats(ad, dp, W, sms=SMS):
+    plan = counts.k0_plan("suff_stats", ad.shape[0], ad.shape[1],
+                          W.shape[1], sms)
+    return _k0_emulation(ad, W, plan), _k0_emulation(dp, W, plan)
 
 
-def _emulated_cell_loglik(ad, dp, Wa, Wd):
+def _emulated_cell_loglik(ad, dp, Wa, Wd, sms=SMS):
     """AD.T @ Wa + DP.T @ Wd as K0's cell_loglik forms it: a k-block of
     K_BLOCK variants takes both matrices and the three terms of each
-    weight, summed in float32 on its own, the k-blocks added in order."""
+    weight, summed in float32 on its own, in the plan's slices."""
+    plan = counts.k0_plan("cell_loglik", ad.shape[0], ad.shape[1],
+                          Wa.shape[1], sms)
     ta = [t.float() for t in split_bf16x3(Wa)]
     td = [t.float() for t in split_bf16x3(Wd)]
-    acc = torch.zeros((ad.shape[1], Wa.shape[1]), dtype=torch.float32)
-    for v0 in range(0, ad.shape[0], K_BLOCK):
-        blk = slice(v0, v0 + K_BLOCK)
+
+    def block(t):
+        blk = slice(K_BLOCK * t, K_BLOCK * (t + 1))
         a, d = ad[blk].float().t(), dp[blk].float().t()
-        acc += (sum(a @ t[blk] for t in ta) + sum(d @ t[blk] for t in td))
-    return acc
+        return sum(a @ x[blk] for x in ta) + sum(d @ x[blk] for x in td)
+    return _k0_slices(plan, block)
 
 
 def _gamma(n):
@@ -248,6 +278,7 @@ def fake_card(monkeypatch):
     lib = _FakeLibrary()
     monkeypatch.setattr(counts, "on_cpu", lambda name, t: False)
     monkeypatch.setattr(counts, "_library", lambda: lib)
+    monkeypatch.setattr(counts, "_sms", lambda device: SMS)
     monkeypatch.setattr(counts, "launch",
                         lambda name, fn, args, device, err: fn(*args, 0))
     monkeypatch.setattr(counts, "LAUNCHES", dict.fromkeys(counts.LAUNCHES,
@@ -259,9 +290,10 @@ def test_cell_slice_and_odd_cells_reach_the_kernel_with_their_pitch(
         fake_card):
     """A cell range that starts at an odd column and ends at its parent's
     last one, and an odd cell count, reach the kernels in place: the
-    view's first byte, the parent's row pitch, the slice's cells; B's
-    rows padded to a whole 16 bytes. Counts whose cells are not
-    contiguous are copied first."""
+    view's first byte, the parent's row pitch, the slice's cells, the
+    producer without TMA; suff_stats' B rows padded to whole k-blocks,
+    cell_loglik's to a whole 16 bytes; k0_plan's schedule. Counts whose
+    cells are not contiguous are copied first."""
     V, C0, start = 13, 40, 7
     ad, dp = (torch.as_tensor(x) for x in _int8_pool(V, C0, seed=8))
     view = DenseCounts(ad, dp).cell_slice(start, C0)
@@ -272,19 +304,24 @@ def test_cell_slice_and_odd_cells_reach_the_kernel_with_their_pitch(
     view.cell_loglik(Wa, Wa)
     (n1, a1), (n2, a2) = fake_card.calls
     assert n1 == "vireo_dense_suff_stats" and n2 == "vireo_dense_cell_loglik"
-    for args in (a1, a2):
+    for args, name in ((a1, "suff_stats"), (a2, "cell_loglik")):
         assert args[0] == ad.data_ptr() + start
         assert args[1] == dp.data_ptr() + start
-        assert args[-2] == C0                   # the row pitch
-    assert a1[5:9] == (V, C, 5, -(-C // 8) * 8)
-    assert a2[4:8] == (V, C, 5, -(-V // 8) * 8)
+        assert args[-8] == C0                   # the row pitch
+        plan = counts.k0_plan(name, V, C, 5, SMS)
+        # the plan, the producer without TMA, mode full; then the stream
+        assert args[-7:] == (plan.bn, plan.slices, plan.slice_kb, plan.grid,
+                             0, 0, 0)
+    assert a1[7:11] == (V, C, 5, -(-C // 64) * 64)
+    assert a2[7:11] == (V, C, 5, -(-V // 8) * 8)
+    assert a1[2] == W.data_ptr() and a2[2:4] == (Wa.data_ptr(),) * 2
     assert counts.LAUNCHES == {"dense_suff_stats": 1, "dense_cell_loglik": 1}
 
     fake_card.calls.clear()
     cols = DenseCounts(ad.t().contiguous().t(), dp.t().contiguous().t())
     cols.suff_stats(torch.ones((C0, 2), dtype=torch.float32))
     (_, args), = fake_card.calls
-    assert args[0] != ad.data_ptr() and args[-2] == C0
+    assert args[0] != ad.data_ptr() and args[-8] == C0
 
 
 def test_empty_counts_give_zeros_without_a_launch(fake_card):
@@ -373,3 +410,147 @@ def test_k0_arithmetic_matches_jax_on_float_weights(V, C, N):
     bound = (_gamma(6 * V) + _gamma(2 * V)) * mag
     assert np.all(np.abs(got - ref) <= bound)
     assert np.abs(got - ref).max() > 0   # the orders do differ
+
+
+# chip_smoke's [k0] shapes (warm and refit on the main pool, the edge
+# shapes) and ragged ones: V, C and N off every tile
+PLAN_SHAPES = [(name, V, C, N)
+               for name in ("suff_stats", "cell_loglik")
+               for V, C, N in ((30000, 100000, 320), (30000, 100000, 16),
+                               (1001, 1999, 21), (1001, 2000, 21),
+                               (37, 53, 5), (130, 301, 21), (129, 65, 81),
+                               (1, 1, 1))]
+
+
+def _unit(plan, u):
+    """(m_tile, n_tile, slice, t0, t1) of unit u as the kernels read it
+    (csrc/dense_counts.cu, Plan::unit): slice-major, then output-row
+    tiles, then column tiles; k-blocks [t0, t1)."""
+    sl, rest = divmod(u, plan.m_tiles * plan.n_tiles)
+    mt, nt = divmod(rest, plan.n_tiles)
+    t0 = sl * plan.slice_kb
+    return mt, nt, sl, t0, min(t0 + plan.slice_kb, plan.nkb)
+
+
+@pytest.mark.parametrize("name,V,C,N", PLAN_SHAPES)
+def test_k0_schedule_covers_each_tile_and_k_range_once(name, V, C, N):
+    """k0_plan's units, walked as the kernels walk them (block b takes
+    units b, b + grid, ...), cover every (row or cell tile, column tile,
+    k-block) exactly once, each unit one nonempty slice of whole
+    k-blocks; the blocks' shares differ by at most one unit."""
+    plan = counts.k0_plan(name, V, C, N, SMS)
+    rows, max_bn = counts.K0_TILES[name]
+    m_len, k_len = (V, C) if name == "suff_stats" else (C, V)
+    assert (plan.m_len, plan.k_len, plan.N) == (m_len, k_len, N)
+    assert plan.bn % 16 == 0 and 16 <= plan.bn <= max_bn
+    assert plan.bn * (plan.n_tiles - 1) < N <= plan.bn * plan.n_tiles
+    assert rows * (plan.m_tiles - 1) < m_len <= rows * plan.m_tiles
+    assert plan.nkb == -(-k_len // K_BLOCK)
+    assert 1 <= plan.slices <= counts.K0_MAX_SLICES
+    assert plan.units == plan.slices * plan.m_tiles * plan.n_tiles
+    assert plan.grid == min(SMS, plan.units)
+    seen, shares = {}, {}
+    order = [(b, u) for b in range(plan.grid)
+             for u in range(b, plan.units, plan.grid)]
+    assert sorted(u for _, u in order) == list(range(plan.units))
+    for b, u in order:
+        mt, nt, sl, t0, t1 = _unit(plan, u)
+        assert 0 <= mt < plan.m_tiles and 0 <= nt < plan.n_tiles
+        assert t0 == sl * plan.slice_kb and t0 < t1 <= plan.nkb
+        for t in range(t0, t1):
+            seen[(mt, nt, t)] = seen.get((mt, nt, t), 0) + 1
+        shares[b] = shares.get(b, 0) + 1
+    assert len(seen) == plan.m_tiles * plan.n_tiles * plan.nkb
+    assert set(seen.values()) == {1}
+    assert max(shares.values()) - min(shares.values()) <= 1
+
+
+@pytest.mark.parametrize("name,N,slices", [("suff_stats", 320, 4),
+                                           ("suff_stats", 16, 5),
+                                           ("cell_loglik", 320, 1),
+                                           ("cell_loglik", 16, 1)])
+def test_k0_plan_fills_the_waves_at_the_main_pools_shapes(name, N, slices):
+    """At the main pool's shape on 132 SMs the last wave is at least 95%
+    full: suff_stats' 235 row tiles are split over the cells (5 slices
+    at N = 16, 4 at N = 320 with 4 column tiles of 80), cell_loglik's
+    391 tiles of 256 cells (x 5 column tiles of 64 at N = 320) need no
+    split."""
+    plan = counts.k0_plan(name, 30000, 100000, N, SMS)
+    assert plan.slices == slices
+    assert plan.bn == (16 if N == 16 else
+                       80 if name == "suff_stats" else 64)
+    waves = -(-plan.units // plan.grid)
+    assert plan.units / (plan.grid * waves) >= 0.95
+
+
+def test_k0_k_order_gives_each_lane_column_16_adjacent_cells():
+    """suff_stats' k order: k value L = 16 s + 8 h + 2 c + e of a k-block
+    is cell 16 c + 4 s + 2 h + e, so lane column c's 16 k values (four
+    k16 steps x two register halves x two elements) are cells 16 c ..
+    16 c + 15, a 16-byte load; word s holds step s's pairs (2c, 2c + 1)
+    and (2c + 8, 2c + 9). cell_loglik reads the variants in order."""
+    order = counts.k0_k_order("suff_stats")
+    assert sorted(order) == list(range(K_BLOCK))
+    for L in range(K_BLOCK):
+        s, h, c, e = L // 16, (L // 8) % 2, (L // 2) % 4, L % 2
+        assert L == 16 * s + 2 * c + 8 * h + e
+        assert order[L] == 16 * c + 4 * s + 2 * h + e
+    assert list(counts.k0_k_order("cell_loglik")) == list(range(K_BLOCK))
+
+
+@pytest.mark.parametrize("K,N", [(1, 1), (53, 5), (64, 3), (301, 21),
+                                 (1999, 7)])
+def test_k0_operand_round_trips_to_split_weights_kmajor(K, N):
+    """suff_stats' permuted B, its k axis put back in cell order, is
+    split_weights_kmajor's B bit for bit, and zero for the rows past the
+    last cell; cell_loglik's is split_weights_kmajor's."""
+    from vireo_tpu_torch.ops.packed import split_weights_kmajor
+    rng = np.random.RandomState(K + N)
+    W = torch.as_tensor(rng.standard_normal((K, N)).astype(np.float32))
+    b = counts.k0_operand("suff_stats", W)
+    K64 = -(-K // K_BLOCK) * K_BLOCK
+    assert b.shape == (3, N, K64) and b.dtype == torch.bfloat16
+    rows = np.arange(K64)
+    cell = K_BLOCK * (rows // K_BLOCK) + counts.k0_k_order(
+        "suff_stats")[rows % K_BLOCK]
+    back = torch.zeros_like(b)
+    back[:, :, torch.as_tensor(cell)] = b
+    ref = split_weights_kmajor(W)
+    assert torch.equal(back[:, :, :K], ref[:, :, :K])
+    assert not back[:, :, K:].any()
+    Wd = torch.as_tensor(rng.standard_normal((K, N)).astype(np.float32))
+    assert torch.equal(counts.k0_operand("cell_loglik", W, Wd),
+                       split_weights_kmajor(W, Wd))
+
+
+def test_k0_producer_sends_aligned_rows_to_tma_and_odd_views_to_loads():
+    """TMA for counts whose rows start on 16 bytes and lie a whole 16
+    bytes apart (the main pool: C = 100000; a view from a column that is
+    a multiple of 16); the producer warp's loads for a cell_slice view
+    from an odd column and for rows of a C off 16."""
+    def producer(dc):
+        ad, dp, pitch, _ = counts._check_launch(
+            "dense_suff_stats", dc.ad, dc.dp,
+            [torch.zeros((dc.n_cell, 1))], dc.n_cell)
+        return counts.k0_producer(ad, dp, pitch)
+    ad, dp = (torch.as_tensor(x) for x in _int8_pool(13, 160, seed=10))
+    whole = DenseCounts(ad, dp)
+    assert ad.data_ptr() % 16 == 0 and dp.data_ptr() % 16 == 0
+    assert producer(whole) == "tma"
+    assert producer(whole.cell_slice(16, 160)) == "tma"
+    assert producer(whole.cell_slice(7, 160)) == "loads"
+    assert producer(whole.cell_slice(16, 151)) == "tma"
+    odd = DenseCounts(*(torch.as_tensor(x) for x in _int8_pool(13, 1999,
+                                                               seed=11)))
+    assert producer(odd) == "loads"
+
+
+def test_aligned_counts_reach_the_kernel_with_tma(fake_card):
+    V, C = 9, 2000
+    dc = DenseCounts(*(torch.as_tensor(x) for x in _int8_pool(V, C,
+                                                              seed=12)))
+    dc.suff_stats(torch.ones((C, 3), dtype=torch.float32))
+    dc.cell_loglik(torch.ones((V, 3)), torch.ones((V, 3)))
+    (_, a1), (_, a2) = fake_card.calls
+    assert a1[-3:] == (1, 0, 0) and a2[-3:] == (1, 0, 0)  # TMA, full
+    assert a1[-8] == a2[-8] == C

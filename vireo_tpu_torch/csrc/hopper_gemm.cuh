@@ -1,6 +1,8 @@
 // Building blocks shared by the tensor-core kernels K1 (fused_estep.cu),
 // K2 and K3 (packed_counts.cu), K0 (dense_counts.cu) and the probes'
-// kernel B (probe_nibbles.cu), on Hopper (sm_90a):
+// kernel B (probe_nibbles.cu), on Hopper (sm_90a); K0 and B take only
+// the pieces (barriers, TMA, wgmma, descriptors, bf16_pair) into kernels
+// of their own:
 //
 // - a ring of shared-memory stages filled by bulk tensor copies (TMA)
 //   for B, with one mbarrier a stage, and by 16-byte cp.async copies for
@@ -9,15 +11,12 @@
 //   accumulators) with A in registers and B in shared memory, read
 //   through a matrix descriptor;
 // - A fragments built in registers from count bytes, K-major (`pair`:
-//   K2, K0's and K1's statistics) or M-major (`mmajor_frag`: K1's
-//   E-step, K3, K0's loglik);
+//   K2, K1's statistics) or M-major (`mmajor_frag`: K1's E-step, K3);
 // - `rows_kernel`, the contraction OUT_m = A_m . sum_p B_p for the two
 //   count matrices m = AD, DP held as byte rows (packed nibbles for K2,
-//   int8 for K0's suff_stats and K1's statistics), which is K2, K0's
-//   suff_stats and the second kernel of K1;
+//   int8 for K1's statistics), which is K2 and the second kernel of K1;
 // - `loglik_kernel`, OUT = AD^T . sum_p B_p + DP^T . sum_p B_{3+p} over
-//   the same byte rows, cells as M: K3 (nibbles) and K0's cell_loglik
-//   (int8);
+//   the same byte rows, cells as M: K3 (nibbles);
 // - for the packed-matmul probe (kernel B, probe_nibbles.cu): a 2-D
 //   tensor map over a byte matrix, barriers that count several
 //   arrivals, and 2-D bulk tensor copies.
@@ -483,7 +482,7 @@ struct Nibbles {
   }
 };
 
-// int8 counts in [0, 127] (K0, K1): one cell a byte.
+// int8 counts in [0, 127] (K1): one cell a byte.
 struct Int8 {
   static constexpr int kCellsPerByte = 1;
   __device__ static __forceinline__ uint32_t pair(const uint8_t* row,
@@ -671,10 +670,7 @@ __device__ __forceinline__ uint64_t b_desc(const uint8_t* stage, int p,
 // start at k = 0 and move at one pace, so the blocks in flight read the
 // same B rows and B's traffic comes from L2.
 //
-// The count rows are `row_bytes` apart. Unless kPitched, they are also
-// row_bytes long; with kPitched (K0, whose rows may be a cell range of a
-// wider dense matrix) a row holds only the bytes of its k_len cells, and
-// nothing past them is read.
+// The count rows are `row_bytes` apart and row_bytes long.
 template <class Codec, int PLANES, int BN_>
 struct RowsShape {
   static constexpr int BN = BN_;
@@ -690,7 +686,7 @@ struct RowsShape {
   static_assert(STAGE % kSmemAlign == 0, "stages keep the alignment");
 };
 
-template <class Codec, int PLANES, int BN, bool kPitched = false>
+template <class Codec, int PLANES, int BN>
 __global__ void __launch_bounds__(kBlockThreads, 1)
     rows_kernel(const uint8_t* __restrict__ a0,
                 const uint8_t* __restrict__ a1, long long row_bytes,
@@ -710,9 +706,6 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   const long long row0 = (long long)(blockIdx.x / n_tiles) * kBlockRows;
   const int n0 = (blockIdx.x % n_tiles) * S::BN;
   const int nkb = (int)((k_len + S::BK - 1) / S::BK);
-  const long long row_len =
-      kPitched ? (k_len + Codec::kCellsPerByte - 1) / Codec::kCellsPerByte
-               : row_bytes;
 
   auto stage = [&](int i) { return smem + (size_t)i * S::STAGE; };
   // B by TMA (one thread), A by every thread's cp.async
@@ -723,10 +716,10 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
                                    t * S::BK);
     const long long j0 = (long long)t * S::BKB;
     load_byte_rows<kBlockRows, S::BKB>(st + S::B_BYTES, a0, row0, n_rows,
-                                       row_bytes, row_len, j0);
+                                       row_bytes, row_bytes, j0);
     load_byte_rows<kBlockRows, S::BKB>(
         st + S::B_BYTES + kBlockRows * S::A_PITCH, a1, row0, n_rows,
-        row_bytes, row_len, j0);
+        row_bytes, row_bytes, j0);
   };
 
   // part: one k-block's sums, formed by the tensor cores; acc: the sums
@@ -825,14 +818,14 @@ inline int pick_tile(int N, int max_bn, int unit = 32) {
 }
 
 // b: PLANES x N x ld bf16, B's k values k_len of each row (see encode_b).
-template <class Codec, int PLANES, int BN, bool kPitched = false>
+template <class Codec, int PLANES, int BN>
 cudaError_t launch_rows(const uint8_t* a0, const uint8_t* a1,
                         long long row_bytes, int n_rows, const void* b,
                         long long ld, long long k_len, float* out0,
                         float* out1, long long ld_out, int N,
                         cudaStream_t s) {
   using Sh = RowsShape<Codec, PLANES, BN>;
-  auto kernel = rows_kernel<Codec, PLANES, BN, kPitched>;
+  auto kernel = rows_kernel<Codec, PLANES, BN>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sh::SMEM);
   if (err != cudaSuccess) return err;
@@ -842,7 +835,6 @@ cudaError_t launch_rows(const uint8_t* a0, const uint8_t* a1,
   CUtensorMap b_map;
   if (blocks <= 0 || blocks > 0x7FFFFFFF || k_len <= 0 ||
       k_len > 0x7FFFFFFF - Sh::BK ||
-      (kPitched && row_bytes * Codec::kCellsPerByte < k_len) ||
       !encode_b(&b_map, b, PLANES, N, k_len, ld, Sh::BN))
     return cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, kBlockThreads, Sh::SMEM, s>>>(
@@ -852,7 +844,7 @@ cudaError_t launch_rows(const uint8_t* a0, const uint8_t* a1,
 }
 
 // Dispatch on the tile pick_tile(N, kRowsMaxTile, 16) gives.
-template <class Codec, int PLANES, bool kPitched = false>
+template <class Codec, int PLANES>
 cudaError_t launch_rows_any(const uint8_t* a0, const uint8_t* a1,
                             long long row_bytes, int n_rows, const void* b,
                             long long ld, long long k_len, float* out0,
@@ -861,7 +853,7 @@ cudaError_t launch_rows_any(const uint8_t* a0, const uint8_t* a1,
   switch (pick_tile(N, kRowsMaxTile, 16)) {
 #define HOPPER_ROWS(BN)                                                   \
   case BN:                                                                \
-    return launch_rows<Codec, PLANES, BN, kPitched>(                      \
+    return launch_rows<Codec, PLANES, BN>(                                \
         a0, a1, row_bytes, n_rows, b, ld, k_len, out0, out1, ld_out, N, s);
     HOPPER_ROWS(16) HOPPER_ROWS(32) HOPPER_ROWS(48) HOPPER_ROWS(64)
     HOPPER_ROWS(80)
@@ -875,7 +867,7 @@ cudaError_t launch_rows_any(const uint8_t* a0, const uint8_t* a1,
 //                          + A_1[v, c] sum_p B_{3+p}[n, v]
 // for the two count matrices (A_0 = AD, A_1 = DP; B: the three bf16
 // terms of Wa^T, then of Wd^T), cells c of C as M, the variants v of V
-// contracted: K3 (packed nibbles) and K0's cell_loglik (int8).
+// contracted: K3 (packed nibbles).
 //
 // The counts are row-major with the cells contiguous, so A = counts^T
 // is M-major: A is built in registers from a staged tile of 64 variants
@@ -892,9 +884,8 @@ cudaError_t launch_rows_any(const uint8_t* a0, const uint8_t* a1,
 // Registers bound the tile: two accumulator sets of BN / 2 floats for
 // each of the MT tiles, and the tiles' A fragments, 2 x 32 a tile.
 //
-// The count rows are `row_bytes` apart; as for rows_kernel, with
-// kPitched a row holds only the bytes of its C cells and nothing past
-// them is read, else it is row_bytes long. No atomics: each output
+// The count rows are `row_bytes` apart and hold exactly the bytes of
+// the C cells. No atomics: each output
 // element belongs to one thread of one block and is summed in a fixed
 // order. Cells past C (an odd C's padding nibble, the bytes past the
 // last cell) are not stored.
@@ -918,7 +909,7 @@ struct LoglikShape {
   static_assert(STAGE % kSmemAlign == 0, "stages keep the alignment");
 };
 
-template <class Codec, int MT, int BN, bool kPitched>
+template <class Codec, int MT, int BN>
 __global__ void __launch_bounds__(kBlockThreads, 1)
     loglik_kernel(const uint8_t* __restrict__ ad,
                   const uint8_t* __restrict__ dp, long long row_bytes,
@@ -939,9 +930,6 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   const long long j0 = (long long)(blockIdx.x / n_tiles) * S::BYTES;
   const int n0 = (blockIdx.x % n_tiles) * S::BN;
   const int nkb = (V + S::BK - 1) / S::BK;
-  const long long row_len =
-      kPitched ? (C + Codec::kCellsPerByte - 1) / Codec::kCellsPerByte
-               : row_bytes;
 
   auto stage = [&](int i) { return smem + (size_t)i * S::STAGE; };
   // B by TMA (one thread), the counts by every thread's cp.async
@@ -952,9 +940,9 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
       load_b<kLoglikPlanes, S::BN, S::BK>(st, &b_map, &b_full[t % S::STAGES],
                                           n0, (int)v0);
     load_byte_rows<S::BK, S::BYTES>(st + S::B_BYTES, ad, v0, V, row_bytes,
-                                    row_len, j0);
+                                    row_bytes, j0);
     load_byte_rows<S::BK, S::BYTES>(st + S::B_BYTES + S::BK * S::A_PITCH, dp,
-                                    v0, V, row_bytes, row_len, j0);
+                                    v0, V, row_bytes, row_bytes, j0);
   };
 
   // part: one k-block's sums, formed by the tensor cores; acc: the sums
@@ -1053,15 +1041,15 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
 }
 
 // b: (6, N, ldv) bf16, the variants of each row contiguous (see
-// encode_b). Rows of the counts `row_bytes` apart, each at least the
-// bytes of C cells (exactly those unless kPitched).
-template <class Codec, int MT, int BN, bool kPitched>
+// encode_b). Rows of the counts `row_bytes` apart, each exactly the
+// bytes of C cells.
+template <class Codec, int MT, int BN>
 cudaError_t launch_loglik(const uint8_t* ad, const uint8_t* dp,
                           long long row_bytes, int V, long long C,
                           const void* b, long long ldv, float* out, int N,
                           cudaStream_t s) {
   using Sh = LoglikShape<Codec, MT, BN>;
-  auto kernel = loglik_kernel<Codec, MT, BN, kPitched>;
+  auto kernel = loglik_kernel<Codec, MT, BN>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sh::SMEM);
   if (err != cudaSuccess) return err;
@@ -1071,7 +1059,7 @@ cudaError_t launch_loglik(const uint8_t* ad, const uint8_t* dp,
   const long long blocks = n_tiles * ((row_len + Sh::BYTES - 1) / Sh::BYTES);
   CUtensorMap b_map;
   if (blocks <= 0 || blocks > 0x7FFFFFFF || V > 0x7FFFFFFF - Sh::BK ||
-      (kPitched ? row_bytes < row_len : row_bytes != row_len) ||
+      row_bytes != row_len ||
       !encode_b(&b_map, b, kLoglikPlanes, N, V, ldv, Sh::BN))
     return cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, kBlockThreads, Sh::SMEM, s>>>(
@@ -1080,7 +1068,7 @@ cudaError_t launch_loglik(const uint8_t* ad, const uint8_t* dp,
 }
 
 // Dispatch on the tile pick_tile(N, kLoglikMaxTile, 16) gives.
-template <class Codec, int MT, bool kPitched>
+template <class Codec, int MT>
 cudaError_t launch_loglik_any(const uint8_t* ad, const uint8_t* dp,
                               long long row_bytes, int V, long long C,
                               const void* b, long long ldv, float* out,
@@ -1088,8 +1076,8 @@ cudaError_t launch_loglik_any(const uint8_t* ad, const uint8_t* dp,
   switch (pick_tile(N, kLoglikMaxTile, 16)) {
 #define HOPPER_LOGLIK(BN)                                                 \
   case BN:                                                                \
-    return launch_loglik<Codec, MT, BN, kPitched>(ad, dp, row_bytes, V, C, \
-                                                  b, ldv, out, N, s);
+    return launch_loglik<Codec, MT, BN>(ad, dp, row_bytes, V, C, b, ldv,  \
+                                        out, N, s);
     HOPPER_LOGLIK(16) HOPPER_LOGLIK(32) HOPPER_LOGLIK(48) HOPPER_LOGLIK(64)
   }
 #undef HOPPER_LOGLIK

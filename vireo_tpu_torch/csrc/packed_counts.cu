@@ -138,8 +138,7 @@ int vireo_packed_cell_loglik(const void* ad_p, const void* dp_p,
                              const void* b6, void* out, int V, int C, int N,
                              int ldv, void* stream) {
   if (V <= 0 || C <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-  return (int)hopper::launch_loglik_any<hopper::Nibbles, kLoglikTiles,
-                                        false>(
+  return (int)hopper::launch_loglik_any<hopper::Nibbles, kLoglikTiles>(
       (const uint8_t*)ad_p, (const uint8_t*)dp_p, ((long long)C + 1) / 2, V,
       C, b6, ldv, (float*)out, N, (cudaStream_t)stream);
 }

@@ -13,10 +13,11 @@ picks one by the pool's size and largest count (`ladder_rung`):
   type that holds every count exactly (`exact_count_dtype`): int8 up to
   127, which is what real pools give. int8 counts go through K0
   (`dense_suff_stats`, `dense_cell_loglik`): on a card the CUDA kernels
-  of csrc/dense_counts.cu, which read each count byte once and build
-  bf16 operands in registers, as the JAX package's XLA dots read int8
-  cast to bf16 (vireo_tpu/ops/counts.py:71-95); on the CPU their plain
-  versions. The plain versions (`suff_stats_reference`,
+  of csrc/dense_counts.cu on a static tile schedule (`k0_plan`), which
+  build bf16 operands in registers from the count bytes, as the JAX
+  package's XLA dots read int8 cast to bf16
+  (vireo_tpu/ops/counts.py:71-95); on the CPU their plain versions.
+  The plain versions (`suff_stats_reference`,
   `cell_loglik_reference`) convert the counts to the weights' type one
   block of variant rows at a time and hand each block to
   `torch.matmul`; counts of other types (bfloat16 or float32, for pools
@@ -53,7 +54,9 @@ __all__ = ["Counts", "DenseCounts", "SparseCounts", "HybridCounts",
            "counts_from_scipy", "dense_counts", "sparse_counts",
            "hybrid_from_coo", "ladder_rung", "exact_count_dtype",
            "device_dense_budget", "dense_suff_stats", "dense_cell_loglik",
-           "suff_stats_reference", "cell_loglik_reference", "LAUNCHES"]
+           "suff_stats_reference", "cell_loglik_reference", "LAUNCHES",
+           "K0Plan", "k0_plan", "k0_k_order", "k0_operand",
+           "k0_device_operand", "k0_producer", "k0_shape", "k0_control"]
 
 # No counterpart of vireo_tpu/ops/counts.py::_divisible_sharding: there a
 # spec axis that does not divide the counts' shape is replicated; here
@@ -119,17 +122,179 @@ def _library():
     if _LIB is None:
         from ._build import load_library
         lib = load_library("dense_counts")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.vireo_dense_suff_stats.argtypes = [ptr] * 5 + [i32] * 4 + [
-            ctypes.c_longlong, ptr]
-        lib.vireo_dense_suff_stats.restype = i32
-        lib.vireo_dense_cell_loglik.argtypes = [ptr] * 4 + [i32] * 4 + [
-            ctypes.c_longlong, ptr]
-        lib.vireo_dense_cell_loglik.restype = i32
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        for fn in (lib.vireo_dense_suff_stats, lib.vireo_dense_cell_loglik):
+            fn.argtypes = [ptr] * 7 + [i32] * 4 + [i64] + [i32] * 6 + [ptr]
+            fn.restype = i32
+        lib.vireo_dense_operand.argtypes = [i32, ptr, ptr] + [i32] * 3 + [
+            ptr, ptr]
+        lib.vireo_dense_operand.restype = i32
+        lib.vireo_dense_shape.argtypes = [i32, i32, ctypes.POINTER(i32)]
+        lib.vireo_dense_shape.restype = i32
         lib.vireo_dense_error_string.argtypes = [i32]
         lib.vireo_dense_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+# K0's kernels (csrc/dense_counts.cu): the output rows (variants for
+# suff_stats, cells for cell_loglik) a block owns, and the widest column
+# tile; the contracted axis in k-blocks of K0_KBLOCK, split into at most
+# K0_MAX_SLICES slices where the tiles leave a tail wave.
+K0_TILES = {"suff_stats": (128, 80), "cell_loglik": (256, 64)}
+K0_KBLOCK = 64
+K0_MAX_SLICES = 8
+# the kernels' modes: the contraction, and the two controls that time it
+# without its MMAs and without its float32 adds of the k-block sums
+K0_MODES = {"full": 0, "no_mma": 1, "no_fold": 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class K0Plan:
+    """K0's static tile schedule for one call (`k0_plan`)."""
+    name: str
+    m_len: int      # output rows: n_var (suff_stats) or n_cell
+    k_len: int      # contracted length: n_cell or n_var
+    N: int
+    bn: int         # column tile
+    m_tiles: int
+    n_tiles: int
+    nkb: int        # k-blocks over k_len
+    slices: int
+    slice_kb: int   # k-blocks a slice (the last may hold fewer)
+    units: int      # slices x m_tiles x n_tiles, slice-major, then
+                    # output-row tiles, then column tiles
+    grid: int       # persistent blocks: block b takes units b, b + grid, ...
+
+
+def pick_tile(N, max_bn, unit=16):
+    """Column tile: 16 for N <= 16, else as few tiles of at most max_bn
+    columns as cover N, balanced, in multiples of `unit`
+    (hopper_gemm.cuh::pick_tile)."""
+    if N <= 16:
+        return 16
+    chunks = -(-N // unit)
+    tiles = -(-chunks // (max_bn // unit))
+    return unit * -(-chunks // tiles)
+
+
+def k0_plan(name, n_var, n_cell, N, sms):
+    """K0's tile schedule for `name` on a card of `sms` SMs: the column
+    tile, and the number of slices of the contracted axis (1 to
+    K0_MAX_SLICES, whole k-blocks each) that makes the waves of units
+    shortest, each extra slice charged 1% for its scratch and the ordered
+    adds of the slices."""
+    rows, max_bn = K0_TILES[name]
+    m_len, k_len = ((n_var, n_cell) if name == "suff_stats"
+                    else (n_cell, n_var))
+    bn = pick_tile(N, max_bn)
+    m_tiles, n_tiles = -(-m_len // rows), -(-N // bn)
+    nkb = -(-k_len // K0_KBLOCK)
+    best = None
+    for want in range(1, min(K0_MAX_SLICES, nkb) + 1):
+        slice_kb = -(-nkb // want)
+        slices = -(-nkb // slice_kb)
+        units = m_tiles * n_tiles * slices
+        cost = -(-units // sms) * slice_kb * (1 + 0.01 * (slices - 1))
+        if best is None or cost < best[0]:
+            best = (cost, slices, slice_kb, units)
+    _, slices, slice_kb, units = best
+    return K0Plan(name, m_len, k_len, N, bn, m_tiles, n_tiles, nkb, slices,
+                  slice_kb, units, min(sms, units))
+
+
+def k0_k_order(name):
+    """Where K0's kernel `name` reads k value L of a k-block, as an array
+    over L: suff_stats takes k value L = 16 s + 8 h + 2 c + e (k16 step s,
+    register half h, lane column c, element e) from cell
+    16 c + 4 s + 2 h + e of the k-block, so a thread's 16 k values are 16
+    adjacent count bytes; cell_loglik reads the variants in order."""
+    L = np.arange(K0_KBLOCK)
+    if name == "cell_loglik":
+        return L
+    s, h, c, e = L // 16, (L // 8) % 2, (L // 2) % 4, L % 2
+    return 16 * c + 4 * s + 2 * h + e
+
+
+def _k0_ld(name, K):
+    """The row length of K0's B operand over K contracted values: whole
+    k-blocks for suff_stats, whole 16 bytes (TMA's row stride) for
+    cell_loglik."""
+    unit = K0_KBLOCK if name == "suff_stats" else 8
+    return -(-K // unit) * unit
+
+
+def k0_operand(name, *mats):
+    """The B operand of K0's kernel `name`, the plain version of what its
+    operand kernel writes on the card (`k0_device_operand`):
+    `split_weights_kmajor`'s three bf16 terms of each weight matrix. For
+    suff_stats W's rows (cells) are padded with zero rows to whole
+    k-blocks and put in k0_k_order within each: B[p, n, 64 t + L] =
+    term_p[64 t + k0_k_order[L], n], zero past n_cell; (3, N, ld) with ld
+    the cells rounded up to a whole k-block. For cell_loglik as
+    split_weights_kmajor gives it."""
+    if name == "cell_loglik":
+        return split_weights_kmajor(*mats)
+    W, = mats
+    k = np.arange(W.shape[0])
+    # the row of B that holds cell k
+    pos = K0_KBLOCK * (k // K0_KBLOCK) + np.argsort(
+        k0_k_order("suff_stats"))[k % K0_KBLOCK]
+    Wp = W.new_zeros((_k0_ld("suff_stats", len(k)), W.shape[1]))
+    Wp[torch.as_tensor(pos, device=W.device)] = W
+    return split_weights_kmajor(Wp)
+
+
+def k0_device_operand(name, *mats):
+    """K0's B operand as its operand kernel writes it (the first launch
+    of every K0 call) from contiguous float32 weights on a card: equal to
+    k0_operand's bit for bit."""
+    K, N = mats[0].shape
+    b = torch.empty((3 * len(mats), N, _k0_ld(name, K)),
+                    dtype=torch.bfloat16, device=mats[0].device)
+    lib = _library()
+    launch("dense_operand", lib.vireo_dense_operand,
+           (0 if name == "suff_stats" else 1, mats[0].data_ptr(),
+            mats[-1].data_ptr(), K, N, b.shape[2], b.data_ptr()),
+           mats[0].device, lib.vireo_dense_error_string)
+    return b
+
+
+def k0_producer(ad, dp, pitch):
+    """How K0's kernels bring the counts in: "tma" when both matrices
+    start on a 16-byte boundary and their rows lie a whole number of 16
+    bytes apart (what a TMA tensor map addresses), else "loads" (the
+    producer warp's aligned word loads, realigned; a cell_slice view
+    from an odd column)."""
+    aligned = (ad.data_ptr() % 16 == 0 and dp.data_ptr() % 16 == 0
+               and pitch % 16 == 0)
+    return "tma" if aligned else "loads"
+
+
+_SMS = {}
+
+
+def _sms(device):
+    """The card's SM count."""
+    key = str(device)
+    if key not in _SMS:
+        _SMS[key] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[key]
+
+
+def k0_shape(name, bn):
+    """K0's kernel `name` at column tile `bn`, from the library: ring
+    stages, bytes a stage, threads a block, dynamic shared memory, blocks
+    an SM, registers a thread and spilled bytes a thread."""
+    out = (ctypes.c_int * 7)()
+    err = _library().vireo_dense_shape(
+        0 if name == "suff_stats" else 1, bn, out)
+    if err:
+        raise ValueError("K0 %s has no kernel of tile %d" % (name, bn))
+    keys = ("stages", "stage_bytes", "threads", "smem", "blocks_per_sm",
+            "registers", "spill_bytes")
+    return dict(zip(keys, out))
 
 
 def _check_launch(name, ad, dp, weights, rows):
@@ -155,9 +320,36 @@ def _check_launch(name, ad, dp, weights, rows):
     return ad, dp, pitch, weights
 
 
-def _run(name, fn, args, device):
-    launch(name, fn, args, device, _library().vireo_dense_error_string)
-    LAUNCHES[name] += 1
+def _k0_launch(name, ad, dp, pitch, weights, outs, mode="full"):
+    """Launch K0's kernel `name` (a checked call: `_check_launch`) into
+    `outs` on the counts' card, by k0_plan's schedule, with a scratch
+    of the slices' sums where the plan splits. `mode` is "full", or a
+    control (K0_MODES) whose outputs mean nothing."""
+    V, C = ad.shape
+    N = weights[0].shape[1]
+    dev = weights[0].device
+    plan = k0_plan(name, V, C, N, _sms(dev))
+    # the B operand's scratch, which the call's operand kernel fills
+    b = torch.empty((3 * len(weights), N,
+                     _k0_ld(name, C if name == "suff_stats" else V)),
+                    dtype=torch.bfloat16, device=dev)
+    part = None
+    if plan.slices > 1:
+        part = torch.empty((plan.slices,) + (
+            (2, V, N) if name == "suff_stats" else (C, N)),
+            dtype=torch.float32, device=dev)
+    tma = k0_producer(ad, dp, pitch) == "tma"
+    lib = _library()
+    fn = (lib.vireo_dense_suff_stats if name == "suff_stats"
+          else lib.vireo_dense_cell_loglik)
+    args = ((ad.data_ptr(), dp.data_ptr())
+            + tuple(w.data_ptr() for w in weights) + (b.data_ptr(),)
+            + tuple(o.data_ptr() for o in outs)
+            + (0 if part is None else part.data_ptr(), V, C, N, b.shape[2],
+               pitch, plan.bn, plan.slices, plan.slice_kb, plan.grid,
+               int(tma), K0_MODES[mode]))
+    launch("dense_" + name, fn, args, dev, lib.vireo_dense_error_string)
+    return plan
 
 
 def dense_suff_stats(ad, dp, W, row_chunk=None):
@@ -171,13 +363,14 @@ def dense_suff_stats(ad, dp, W, row_chunk=None):
     ad, dp, pitch, (W,) = _check_launch("dense_suff_stats", ad, dp, [W],
                                         ad.shape[1])
     (V, C), N = ad.shape, W.shape[1]
-    S1 = torch.zeros((V, N), dtype=torch.float32, device=W.device)
-    SS = torch.zeros_like(S1)
-    if V and C and N:
-        w3 = split_weights_kmajor(W)
-        _run("dense_suff_stats", _library().vireo_dense_suff_stats,
-             (ad.data_ptr(), dp.data_ptr(), w3.data_ptr(), S1.data_ptr(),
-              SS.data_ptr(), V, C, N, w3.shape[2], pitch), W.device)
+    if not (V and C and N):
+        S1 = torch.zeros((V, N), dtype=torch.float32, device=W.device)
+        return S1, torch.zeros_like(S1)
+    # the kernel writes every element
+    S1 = torch.empty((V, N), dtype=torch.float32, device=W.device)
+    SS = torch.empty_like(S1)
+    _k0_launch("suff_stats", ad, dp, pitch, [W], (S1, SS))
+    LAUNCHES["dense_suff_stats"] += 1
     return S1, SS
 
 
@@ -191,13 +384,28 @@ def dense_cell_loglik(ad, dp, Wa, Wd, row_chunk=None):
     ad, dp, pitch, (Wa, Wd) = _check_launch(
         "dense_cell_loglik", ad, dp, [Wa, Wd], ad.shape[0])
     (V, C), N = ad.shape, Wa.shape[1]
-    out = torch.zeros((C, N), dtype=torch.float32, device=Wa.device)
-    if V and C and N:
-        b6 = split_weights_kmajor(Wa, Wd)
-        _run("dense_cell_loglik", _library().vireo_dense_cell_loglik,
-             (ad.data_ptr(), dp.data_ptr(), b6.data_ptr(), out.data_ptr(),
-              V, C, N, b6.shape[2], pitch), Wa.device)
+    if not (V and C and N):
+        return torch.zeros((C, N), dtype=torch.float32, device=Wa.device)
+    out = torch.empty((C, N), dtype=torch.float32, device=Wa.device)
+    _k0_launch("cell_loglik", ad, dp, pitch, [Wa, Wd], (out,))
+    LAUNCHES["dense_cell_loglik"] += 1
     return out
+
+
+def k0_control(name, counts, *weights, mode):
+    """One launch of K0's kernel `name` on DenseCounts `counts` in a
+    control mode ("no_mma" or "no_fold", K0_MODES), for timing: the same
+    plan, ring and fragments; its outputs mean nothing and it counts no
+    launch."""
+    ad, dp, pitch, weights = _check_launch(
+        name, counts.ad, counts.dp, list(weights),
+        counts.n_cell if name == "suff_stats" else counts.n_var)
+    V, C = ad.shape
+    N = weights[0].shape[1]
+    shapes = [(V, N), (V, N)] if name == "suff_stats" else [(C, N)]
+    outs = [torch.empty(s, dtype=torch.float32, device=ad.device)
+            for s in shapes]
+    return _k0_launch(name, ad, dp, pitch, weights, outs, mode=mode)
 
 
 @dataclasses.dataclass(frozen=True)
