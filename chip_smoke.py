@@ -28,13 +28,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    against float64 sums beside the plain version's and those of one and
    two terms (three terms at least K2_TERMS_GAIN and K3_TERMS_GAIN times
    as close as one); both times, each kernel's bound and achieved
-   TFLOP/s, and as the library call one cuBLAS float32 torch.matmul on
-   the counts unpacked ahead of the timing, where they fit the card;
+   TFLOP/s, and as the library calls one cuBLAS float32 torch.matmul on
+   the counts unpacked ahead of the timing, and one cuBLAS bf16 on them
+   by the weights rounded to one bf16 term, where they fit the card;
 4a. `[k0]`: K0, the dense rung's two contractions on int8 counts
    (DenseCounts.suff_stats and .cell_loglik, reached through their
    dispatch), against their plain versions at the warm restarts' and
    the refit's shapes on the main pool's (30000 x 100000 counts in
-   [0, 127] drawn on the card; N = 320 and 16) and at edge shapes (an
+   [0, 127] drawn on the card; N = 320 and 16), cell_loglik also at the
+   doublet phase's N = 136, and at edge shapes (an
    odd C, also as a cell_slice view that starts at an odd column, both
    read by the kernels' producer without TMA; a C that is a multiple of
    16, read by TMA): bit for bit on integer weights, on a second launch,
@@ -47,7 +49,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    with the kernels' two controls (no MMAs; no CUDA-core adds of the
    k-block sums), 20 back to back and from torch.profiler, beside the
    bound and, as the library call, cuBLAS bf16 on the counts converted
-   in the call by the weights' first bf16 term (lower precision);
+   in the call by the weights' first bf16 term (lower precision); and
+   beside the two library yardsticks that K2 and K3 also get: cuBLAS
+   float32 and cuBLAS bf16 with one term, on the counts converted ahead
+   of the timing;
 4b. `[probes]`: the kernels of the probes of benchmarks/
    (vireo_tpu_torch/probes/) against their plain versions: A
    (nibble_unpack) in its three variants bit for bit at the probe's 256
@@ -92,8 +97,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    of 30000 variants x 100000 cells x 16 donors with 8% doublets
    through `vireo_wrap(n_init=20, random_seed=0)` (its seeded inits
    regenerated on the card, as in phase 5), with K0's and K1's launch
-   counts over that run (each must be at least 1), phase times, peak
-   memory and accuracy against the simulation's truth;
+   counts over that run (both of K0's kernels at least once, its
+   cell_loglik at the doublet phase's N = 136 among them; K1 none: the
+   doublet phase is unfused unless VIREO_FUSED_DOUBLET asks for K1, as
+   in the JAX package), phase times, peak memory and accuracy against
+   the simulation's truth; then `[doublet]`: that run's fitted model's
+   doublet phase again by the default route (K0) and under
+   VIREO_FUSED_DOUBLET=1 (K1 once, no K0), each twice in turns and
+   timed: the default equal to the run's outputs bit for bit, each
+   route equal to itself on its second run, their doublet calls agreeing
+   on at least DOUBLET_ROUTE_AGREE of the cells, and each at the doublet
+   recall and FPR gates;
 8. the same pool and call on the packed rung, chosen by the ladder under
    VIREO_DENSE_BUDGET_GB=4: K2's and K3's launch counts (and no K0 or K1),
    phase times, peak memory, accuracy, and agreement with the dense
@@ -104,7 +118,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    unfused float32 fit from the same seeded init: iterations, time per
    iteration, ELBOs, accuracy and the agreement of their calls;
 10. the donor-genotype modes on the main pool through vireo_wrap on the
-   dense rung (K1 in the doublet phase): every donor known (with the
+   dense rung (K0 in the doublet phase at its width, no K1): every donor
+   known (with the
    ambient-RNA phase), a superset (12 of 16 known, 20 restarts), a
    subset (the 16 among 4 decoys); then every donor known, with the
    ambient phase, on the packed rung (K2, K3; its SNP gate goes through
@@ -124,7 +139,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 12. the CLI at full width from disk (`[cli_full]`): the main pool
    written as a cellSNP folder (timed apart), then `vireo -c DIR -N 16
    --randSeed 0 --noPlot` at the default --nInit 50 (152M init doubles
-   through the device stream; K1 in the doublet phase): the native reader
+   through the device stream; K0 in the doublet phase at N = 136, no
+   K1): the native reader
    built and loaded, the matrices it read equal the pool, singlet
    accuracy >= 0.99 from donor_ids.tsv after label matching; each phase,
    the disk-to-answer wall time and the peak memory;
@@ -133,8 +149,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    packed-hybrid and COO rungs of a heavy-tailed pool, with the ambient
    phase (each rung's contractions also run twice and must give the
    same sums bit for bit; the int8-hybrid base must launch both of K0's
-   kernels), then a 23-donor pool on the dense rung,
-   whose doublet space (K = 276 columns) goes through K1; the BMM on
+   kernels), then a 23-donor pool on the dense rung under
+   VIREO_FUSED_DOUBLET=1, whose doublet space (K = 276 columns) goes
+   through K1; the BMM on
    the dense and packed rungs, a seeded sweep_n_donor over K = 2..6 and
    a sweep_n_clone, and VireoBulk with LikRatio_test;
 14. checkpoints on the card: resumes after either phase give the
@@ -148,13 +165,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    phase 7's call on a cells mesh (parallel/mesh.py): its ID_prob,
    LB_list, doublet outputs and every fit's iterations equal phase 7's
    bit for bit (an all-reduce over one rank is exact); K0's (at least 1
-   each, on the rank's block) and K1's launches, the phases and the
-   peak memory;
+   each, on the rank's block, cell_loglik at N = 136 among them) and
+   K1's (none) launches, the phases and the peak memory;
 17. `[mesh_cli]`: `python -m torch.distributed.run --standalone
    --nproc-per-node 2 -m vireo_tpu_torch.cli.vireo_cli -c <phase 12's
    folder> -N 16 --randSeed 0 --noPlot --nInit 20 --mesh 1x2 --timing`:
-   the two ranks share the card over gloo, on the dense rung, K1 on each
-   rank in the doublet phase (each rank's launches and peak memory from
+   the two ranks share the card over gloo, on the dense rung, K0 on each
+   rank's block and no K1 (each rank's launches and peak memory from
    its own log line); singlet accuracy >= MESH_ACC from donor_ids.tsv
    and >= MESH_AGREE of the singlets called as in phase 7, after label
    matching; the wall time and rank 0's phases;
@@ -223,6 +240,16 @@ K1_SHAPES = (
 K1_KERNELS = ("estep_kernel", "rows_kernel", "sum_partials")
 # the full-size main path (benchmarks/e2e_100k.py's pool)
 MAIN = dict(n_var=30000, n_cell=100000, n_donor=16, n_init=20)
+# the doublet phase of the main path's fitted model by its two routes,
+# the default (K0, unfused) and VIREO_FUSED_DOUBLET=1 (K1, bf16 weights
+# and assignments): their doublet calls (top pair probability >= 0.9)
+# agree on at least DOUBLET_ROUTE_AGREE of the cells, and each route
+# reaches the doublet recall and FPR that the main path logged through
+# K1 before the default route changed (1.0 and 0.0 on an H100, PERF.md)
+DOUBLET_N = MAIN["n_donor"] + MAIN["n_donor"] * (MAIN["n_donor"] - 1) // 2
+DOUBLET_ROUTE_AGREE = 0.99
+DOUBLET_ROUTE_RECALL = 1.0
+DOUBLET_ROUTE_FPR = 0.0
 
 # --- K2/K3 tolerances (kernel vs plain version on the same inputs) ------
 # exact: integer weights in [-2, 2] make every product and partial sum an
@@ -282,8 +309,10 @@ K23_SHAPES = (
     ("capacity", 100000, 300000, 16, ("suff_stats", "cell_loglik")),
 )
 # --- K0 (the dense rung's int8 contractions, csrc/dense_counts.cu) ------
-# label, V, C, N: warm and refit at the main pool's shape (the EM fit's
-# N = 20 x 16 and 16), and an edge shape with an odd C, run on a
+# label, V, C, N, contractions: warm and refit at the main pool's shape
+# (the EM fit's N = 20 x 16 and 16), the doublet phase's cell_loglik at
+# N = K + C(K,2) = 136 on the same pool, and an edge shape with an odd
+# C, run on a
 # contiguous pool and on a cell_slice view of a pool K0_VIEW_START cells
 # wider that starts at that (odd) column and ends at its parent's last
 # one (rows neither 16-byte aligned nor contiguous, the last row's last
@@ -296,11 +325,13 @@ K23_SHAPES = (
 # bound against the plain version on float weights, three terms
 # K0_TERMS_GAIN times as close to float64 sums as one; bit for bit on a
 # second launch.
+K0_BOTH = ("suff_stats", "cell_loglik")
 K0_SHAPES = (
-    ("edge", 1001, 1999, 21),
-    ("edge aligned", 1001, 2000, 21),
-    ("warm", 30000, 100000, 320),
-    ("refit", 30000, 100000, 16),
+    ("edge", 1001, 1999, 21, K0_BOTH),
+    ("edge aligned", 1001, 2000, 21, K0_BOTH),
+    ("warm", 30000, 100000, 320, K0_BOTH),
+    ("refit", 30000, 100000, 16, K0_BOTH),
+    ("doublet", 30000, 100000, 136, ("cell_loglik",)),
 )
 K0_VIEW_START = 7
 K0_TERMS_GAIN = 2.0
@@ -958,16 +989,11 @@ def _k23_times(torch, name, kern, plain, pc, w, X, V, C, N):
                               flop / res["ms"] / 1e9,
                               3 * flop / res["ms"] / 1e9))
     res["bound_ms"], res["bound_by"] = _k23_bound(name, V, C, N)
-    res["library_ms"] = None
-    if X is not None:
-        call = _library_call(torch, name, X, w)
-        lib_err = max(float((a - b).abs().max()) for a, b in zip(
-            torch.split(call(), V) if name == "suff_stats" else (call(),),
-            plain(pc, *w)))
-        res["library_ms"] = float(np.median(_time_ms(torch, call, reps=6)))
-        log("[k23]   library call (cuBLAS float32, one torch.matmul on the "
-            "unpacked counts) %.3f ms, max |diff| from the plain version "
-            "%.3e" % (res["library_ms"], lib_err))
+    ref = plain(pc, *w)
+    _library_f32(torch, "k23", name, X, w, ref, V, res)
+    _library_bf16(torch, "k23", name, X, w, ref, V, res)
+    del ref
+    res["library_ms"] = res["library_f32_ms"]
     log("[k23]   bound %.3f ms (%s): the kernel at %.1f%% of it"
         % (res["bound_ms"], res["bound_by"],
            100.0 * res["bound_ms"] / res["ms"]))
@@ -1031,6 +1057,52 @@ def _k0_library(torch, name, X8, w):
         return lambda: torch.matmul(X8.to(torch.bfloat16), wb)
     wb = torch.cat(w).to(torch.bfloat16)
     return lambda: torch.matmul(X8.to(torch.bfloat16).t(), wb)
+
+
+def _library_f32(torch, tag, name, X, w, plain, V, res):
+    """The library call in float32, K2's and K3's yardstick, beside a
+    kernel of the same function: one cuBLAS float32 torch.matmul on the
+    counts [AD; DP] converted to float32 ahead of the timing (X, or None
+    where they do not fit the card); its median ms into
+    res["library_f32_ms"], logged with its max |diff| from the plain
+    version's outputs `plain`."""
+    res["library_f32_ms"] = None
+    if X is None:
+        return
+    call = _library_call(torch, name, X, w)
+    err = max(float((a - b).abs().max()) for a, b in zip(
+        torch.split(call(), V) if name == "suff_stats" else (call(),),
+        plain))
+    res["library_f32_ms"] = float(np.median(_time_ms(torch, call, reps=6)))
+    log("[%s]   library call, float32: cuBLAS float32, one torch.matmul on "
+        "the counts converted to float32 ahead of the timing, %.3f ms, max "
+        "|diff| from the plain version %.3e" % (tag, res["library_f32_ms"],
+                                                err))
+
+
+def _library_bf16(torch, tag, name, X, w, plain, V, res):
+    """The library call in bf16 with one term, K0's yardstick, beside a
+    kernel of the same function: cuBLAS bf16 on the counts [AD; DP]
+    converted to bf16 ahead of the timing (X, float32, or None), by the
+    weights rounded to one bf16 term; into res["library_bf16_ms"]."""
+    res["library_bf16_ms"] = None
+    if X is None:
+        return
+    Xb = X.to(torch.bfloat16)
+    wb = (w[0] if name == "suff_stats" else torch.cat(w)).to(torch.bfloat16)
+    call = ((lambda: torch.matmul(Xb, wb)) if name == "suff_stats"
+            else (lambda: torch.matmul(Xb.t(), wb)))
+    err = max(float((a.float() - b).abs().max()) for a, b in zip(
+        torch.split(call(), V) if name == "suff_stats" else (call(),),
+        plain))
+    res["library_bf16_ms"] = float(np.median(_time_ms(torch, call,
+                                                      reps=6)))
+    log("[%s]   library call, bf16 one term: cuBLAS bf16 on the counts "
+        "converted to bf16 ahead of the timing, by W rounded to one bf16 "
+        "term (lower precision than the kernel's three), %.3f ms, max "
+        "|diff| from the plain version %.3e"
+        % (tag, res["library_bf16_ms"], err))
+    del Xb
 
 
 def _k0_producer(torch, dc):
@@ -1100,9 +1172,10 @@ def phase_k0(torch):
     kern, plain = _k0_calls()
     results = {}
     dc = None
-    for label, V, C, N in K0_SHAPES:
+    X32 = None
+    for label, V, C, N, names in K0_SHAPES:
         if dc is None or (dc.n_var, dc.n_cell) != (V, C):
-            dc = None
+            dc = X32 = None
             torch.cuda.empty_cache()
             t0 = time.perf_counter()
             pools = [(label, _k0_inputs(torch, V, C, V + C, dev))]
@@ -1119,11 +1192,14 @@ def phase_k0(torch):
             dc = pools[0][1]
         else:
             pools = [(label, dc)]
+        if not label.startswith("edge") and X32 is None:
+            # the float32 library call's operand, where it fits the card
+            X32 = _dense_f32(torch, dc)
         g = torch.Generator(device=dev)
         g.manual_seed(V + C + N)
         for tag, pc in pools:
             half = DenseCounts(pc.ad >> 1, pc.dp >> 1)
-            for name in ("suff_stats", "cell_loglik"):
+            for name in names:
                 log("[k0] %s %s V=%d C=%d N=%d" % (tag, name, V, C, N))
                 w = _k23_weights(torch, name, V, C, N, g, dev, exact=True)
                 top = max(float(x.max()) for x in plain[name](
@@ -1179,6 +1255,10 @@ def phase_k0(torch):
                         "converted to bf16 in the call, by W rounded to "
                         "one bf16 term (lower precision than K0's three); "
                         "max |diff| from the plain version %.3e" % lib_err)
+                    ref = plain[name](pc, *w)
+                    _library_f32(torch, "k0", name, X32, w, ref, V, res)
+                    _library_bf16(torch, "k0", name, X32, w, ref, V, res)
+                    del ref
                     # 2 x 2 V C N flops a term, three bf16 terms; the int8
                     # counts, the float32 weights and outputs once (4 C N
                     # + 8 V N bytes for either contraction)
@@ -1194,9 +1274,29 @@ def phase_k0(torch):
                 del w
                 torch.cuda.empty_cache()
             del half
-    del dc, pools
+    del dc, pools, X32
     torch.cuda.empty_cache()
     return results
+
+
+def _dense_f32(torch, dc):
+    """[AD; DP] of DenseCounts dc as one (2 n_var, n_cell) float32
+    matrix, the operand of the float32 library call, or None (with the
+    reason logged) where it does not fit the card."""
+    V, C = dc.n_var, dc.n_cell
+    need = 8.0 * V * C
+    free, _ = torch.cuda.mem_get_info()
+    if need > LIBRARY_MEM_SHARE * free:
+        log("[k0]   float32 library call not timed: the counts in float32 "
+            "take %.1f GB, more than %.0f%% of the card's %.1f GB free"
+            % (need / 1e9, 100 * LIBRARY_MEM_SHARE, free / 1e9))
+        return None
+    X = torch.empty((2 * V, C), dtype=torch.float32, device=dc.ad.device)
+    for m, x in enumerate((dc.ad, dc.dp)):
+        for r0 in range(0, V, 2048):
+            r1 = min(r0 + 2048, V)
+            X[m * V + r0:m * V + r1] = x[r0:r1].float()
+    return X
 
 
 def _sms(torch):
@@ -1823,7 +1923,8 @@ def phase_cli_full(torch, d, cell):
     on the main pool written to local disk at `cell` (kept for the mesh
     phases), in this process: the native library loaded, the matrices it
     read equal the pool, the singlet accuracy of donor_ids.tsv after
-    label matching, K1's launches, the phases of its --timing summaries,
+    label matching, the launches (K0's cell_loglik at the doublet's
+    width, no K1), the phases of its --timing summaries,
     the disk-to-answer wall time (the CLI's whole call) and the peak
     device memory."""
     from scipy.optimize import linear_sum_assignment
@@ -1854,10 +1955,11 @@ def phase_cli_full(torch, d, cell):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         _reset_launches()
+        widths = {}
         matrices.read_cellSNP = timed_read
         try:
             t0 = time.perf_counter()
-            with contextlib.redirect_stdout(text):
+            with contextlib.redirect_stdout(text), _k0_widths(widths):
                 vireo_cli.main(["-c", cell, "-N", str(K), "-o", out,
                                 "--randSeed", "0", "--nInit",
                                 str(CLI_FULL_N_INIT), "--noPlot",
@@ -1866,6 +1968,7 @@ def phase_cli_full(torch, d, cell):
         finally:
             matrices.read_cellSNP = real_read
         launches = _launches()
+        launches["K0_widths"] = widths
         peak = torch.cuda.max_memory_allocated()
         with open(os.path.join(out, "donor_ids.tsv")) as f:
             rows = [x.split("\t") for x in f.read().splitlines()[1:]]
@@ -1889,7 +1992,8 @@ def phase_cli_full(torch, d, cell):
         % (wall, CLI_FULL_N_INIT, peak / 2**30, json.dumps(launches), same,
            len(rows), acc, calls.get("doublet", 0),
            calls.get("unassigned", 0)))
-    if not same or len(rows) != C or acc < 0.99 or launches["K1"] < 1:
+    if not same or len(rows) != C or acc < 0.99 or \
+            not _doublet_on_k0(launches, DOUBLET_N):
         raise AssertionError("the full-width CLI run is wrong")
 
 
@@ -1913,6 +2017,47 @@ def _k0_launched(launches):
     """Whether both of K0's kernels were launched."""
     return min(launches["dense_suff_stats"],
                launches["dense_cell_loglik"]) > 0
+
+
+@contextlib.contextmanager
+def _k0_widths(out):
+    """Count, into `out` by "<wrapper> N=<width>", the launches of K0's
+    two kernels made in the block, by the width of their weights: a
+    launch counts where its wrapper's own count rose over the call (the
+    wrappers alone count launches; this only sorts them by width)."""
+    from vireo_tpu_torch.ops import counts
+    reals = {name: getattr(counts, name)
+             for name in ("dense_suff_stats", "dense_cell_loglik")}
+
+    def spy(name):
+        def call(ad, dp, *weights, **kwargs):
+            before = counts.LAUNCHES[name]
+            res = reals[name](ad, dp, *weights, **kwargs)
+            if counts.LAUNCHES[name] > before:
+                key = "%s N=%d" % (name, weights[0].shape[1])
+                out[key] = out.get(key, 0) + counts.LAUNCHES[name] - before
+            return res
+        return call
+
+    for name in reals:
+        setattr(counts, name, spy(name))
+    try:
+        yield
+    finally:
+        for name, real in reals.items():
+            setattr(counts, name, real)
+
+
+def _doublet_width(res):
+    """K + C(K,2), the doublet phase's columns, of a vireo_wrap result."""
+    return res["ID_prob"].shape[1] + res["doublet_prob"].shape[1]
+
+
+def _doublet_on_k0(launches, width):
+    """Whether a run's doublet phase took the default route: K1 not
+    launched, K0's cell_loglik launched at the doublet's width."""
+    return launches["K1"] == 0 and \
+        launches["K0_widths"].get("dense_cell_loglik N=%d" % width, 0) >= 1
 
 
 def _probe_counters():
@@ -1953,23 +2098,48 @@ def _log_fit_lengths(prefix, fits):
         % (prefix, fits[0], ", ".join(str(f[0]) for f in fits[1:])))
 
 
-def _run_main(torch, d, tag):
+@contextlib.contextmanager
+def _keep_doublet_input(out):
+    """Keep, into `out`, what vireo_wrap's doublet phase is called with
+    in the block: a copy of the fitted model as it stands before the
+    phase (which refreshes the model in place), its counts and its
+    arguments."""
+    import copy
+    from vireo_tpu_torch.engine import wrap
+    real = wrap.predict_doublet
+
+    def spy(vobj, AD, DP=None, **kwargs):
+        out.update(model=copy.copy(vobj), counts=AD, DP=DP, kwargs=kwargs)
+        return real(vobj, AD, DP, **kwargs)
+
+    wrap.predict_doublet = spy
+    try:
+        yield
+    finally:
+        wrap.predict_doublet = real
+
+
+def _run_main(torch, d, tag, keep=None):
     """vireo_wrap on the main pool as a user calls it, with every kernel
-    launch count set to 0 just before and read just after."""
+    launch count set to 0 just before and read just after (K0's also by
+    width); with `keep`, a dict, the doublet phase's input kept there."""
     from vireo_tpu_torch.engine.wrap import vireo_wrap
     V, C, K = MAIN["n_var"], MAIN["n_cell"], MAIN["n_donor"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    phases, fits = {}, []
+    phases, fits, widths = {}, [], {}
     _reset_launches()
     t0 = time.perf_counter()
-    with _fit_lengths(fits):
+    with _fit_lengths(fits), _k0_widths(widths), \
+            (_keep_doublet_input(keep) if keep is not None
+             else contextlib.nullcontext()):
         res = vireo_wrap(d["AD"], d["DP"], n_donor=K,
                          n_init=MAIN["n_init"], random_seed=0,
                          check_doublet=True, verbose=False, timing=phases)
     wall = time.perf_counter() - t0
     launches = _launches()
     launches.update(_probe_launches())
+    launches["K0_widths"] = widths
     _log_fit_lengths("[%s]" % tag, fits)
     peak = torch.cuda.max_memory_allocated()
     for name, sec in phases.items():
@@ -1995,12 +2165,96 @@ def _run_main(torch, d, tag):
 
 
 def phase_main_path(torch, d):
-    """The dense rung: K0 in every iteration, K1 in the doublet phase."""
-    res, launches, fits = _run_main(torch, d, "main")
-    if launches["K1"] < 1 or not _k0_launched(launches):
-        raise AssertionError("the main path did not launch K1 and both of "
-                             "K0's kernels: %s" % json.dumps(launches))
-    return res, launches, fits
+    """The dense rung: K0 in every iteration and in the doublet phase
+    (cell_loglik at N = K + C(K,2), then the GT refresh's E-step at
+    N = K); K1 not launched. Returns also the doublet phase's input."""
+    keep = {}
+    res, launches, fits = _run_main(torch, d, "main", keep=keep)
+    if not _k0_launched(launches) or \
+            not _doublet_on_k0(launches, _doublet_width(res)):
+        raise AssertionError("the main path did not launch both of K0's "
+                             "kernels, K0's cell_loglik at the doublet's "
+                             "width and no K1: %s" % json.dumps(launches))
+    return res, launches, fits, keep
+
+
+def _doublet_route(torch, keep, knob):
+    """predict_doublet on a copy of the kept model and counts, with
+    VIREO_FUSED_DOUBLET=knob (unset when None), its launch counts set to
+    0 just before and read just after; (outputs, launches, seconds)."""
+    import copy
+    from vireo_tpu_torch.models.doublet import predict_doublet
+    model = copy.copy(keep["model"])
+    widths = {}
+    with _env("VIREO_FUSED_DOUBLET", knob), _k0_widths(widths):
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        out = predict_doublet(model, keep["counts"], keep["DP"],
+                              **keep["kwargs"])
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = _launches()
+    launches["K0_widths"] = widths
+    return dict(doublet_prob=out[0], ID_prob=out[1], doublet_LLR=out[2],
+                GT_prob=model.GT_prob), launches, sec
+
+
+def phase_doublet_routes(torch, d, main_res, keep):
+    """The doublet phase of phase 7's fitted model by both routes, on the
+    same model and counts: the default (K0, unfused, as in phase 7) and
+    VIREO_FUSED_DOUBLET=1 (K1), each run twice in turns (default, knob,
+    knob, default) and timed with the card synchronised; each route's
+    launches; the doublet calls of the two routes agree on at least
+    DOUBLET_ROUTE_AGREE of the cells, and each reaches the doublet recall
+    and FPR gates. The default route's outputs equal phase 7's bit for
+    bit. Returns K1's launches in the knob's route."""
+    runs = {None: [], "1": []}
+    for knob in (None, "1", "1", None):
+        runs[knob].append(_doublet_route(torch, keep, knob))
+    keep.clear()
+    torch.cuda.empty_cache()
+    width = _doublet_width(main_res)
+    calls = {}
+    for knob, tag in ((None, "default (K0)"), ("1", "VIREO_FUSED_DOUBLET=1 "
+                                                    "(K1)")):
+        out, launches, _ = runs[knob][0]
+        acc = _singlet_accuracy(d, out["ID_prob"], out["doublet_prob"])
+        calls[knob] = out["doublet_prob"].max(1) >= 0.9
+        log("[doublet] %s: %s s (two runs), launches %s; %s"
+            % (tag, ", ".join("%.4f" % r[2] for r in runs[knob]),
+               json.dumps({k: v for k, v in launches.items()
+                           if v and not isinstance(v, dict)}
+                          | {"K0_widths": launches["K0_widths"]}),
+               json.dumps(acc)))
+        if acc["doublet_recall"] < DOUBLET_ROUTE_RECALL or \
+                acc["doublet_fpr"] > DOUBLET_ROUTE_FPR:
+            raise AssertionError("the %s doublet route misses the recall "
+                                 "or FPR gate" % tag)
+        for later in runs[knob][1:]:
+            if not all(np.array_equal(out[k], later[0][k]) for k in out):
+                raise AssertionError("the %s doublet route gave other "
+                                     "outputs on a second run" % tag)
+    default, knob = runs[None][0][0], runs["1"][0][0]
+    same = {k: bool(np.array_equal(default[k], main_res[k]))
+            for k in ("ID_prob", "doublet_prob", "doublet_LLR", "GT_prob")}
+    agree = float(np.mean(calls[None] == calls["1"]))
+    gap = {k: float(np.abs(default[k] - knob[k]).max())
+           for k in ("ID_prob", "doublet_prob", "doublet_LLR", "GT_prob")}
+    log("[doublet] the routes' doublet calls agree on %.6f of %d cells "
+        "(gate %.2f), %d and %d called; max |default - knob| %s; the "
+        "default route equal to phase 7 bit for bit: %s"
+        % (agree, len(calls[None]), DOUBLET_ROUTE_AGREE,
+           int(calls[None].sum()), int(calls["1"].sum()), json.dumps(gap),
+           json.dumps(same)))
+    if agree < DOUBLET_ROUTE_AGREE or not all(same.values()):
+        raise AssertionError("the doublet routes disagree")
+    if not _doublet_on_k0(runs[None][0][1], width) or \
+            runs["1"][0][1]["K1"] != 1 or \
+            runs["1"][0][1]["dense_cell_loglik"] != 0:
+        raise AssertionError("a doublet route launched other kernels than "
+                             "its own")
+    return runs["1"][0][1]["K1"]
 
 
 @contextlib.contextmanager
@@ -2113,9 +2367,9 @@ def _matched_agreement(a, b):
 
 
 def phase_small_cross_check(torch):
-    """The same seeded small pool on the card (float32, K1 kernel) and on
-    the CPU (float64, K1's plain version): the same optimum and the same
-    calls up to the donors' labels."""
+    """The same seeded small pool on the card (float32, K0's kernels) and
+    on the CPU (float64, K0's plain versions): the same optimum and the
+    same calls up to the donors' labels."""
     from vireo_tpu_torch.sim.synth import synth_pool_counts
     from vireo_tpu_torch.engine.wrap import vireo_wrap
     d = synth_pool_counts(600, 1500, 4, doublet_rate=0.08, density=0.1,
@@ -2242,32 +2496,35 @@ def _check_repeatable(torch, rung, c):
 
 
 def phase_many_donors(torch):
-    """A seeded 23-donor pool on the dense rung of the card: its doublet
-    space has 23 + C(23,2) = 276 columns, more than one 256-column tile
-    of K1 (and more than the first design's limit, at which such a pool
-    raised). K1 must launch, and the confident singlet calls and the
-    doublet calls must agree with the same call on the CPU (float64,
-    K1's plain version) up to the donors' labels."""
+    """A seeded 23-donor pool on the dense rung of the card under
+    VIREO_FUSED_DOUBLET=1: its doublet space has 23 + C(23,2) = 276
+    columns, more than one 256-column tile of K1 (and more than the
+    first design's limit, at which such a pool raised). K1 must launch,
+    and the confident singlet calls and the doublet calls must agree
+    with the same call on the CPU (float64, K1's plain version) up to
+    the donors' labels."""
     from vireo_tpu_torch.ops import fused_em
     from vireo_tpu_torch.sim.synth import synth_pool_counts
     from vireo_tpu_torch.engine.wrap import vireo_wrap
     V, C, K = (MANY_DONORS[k] for k in ("n_var", "n_cell", "n_donor"))
     d = synth_pool_counts(V, C, K, doublet_rate=0.08, density=0.2, seed=7)
-    t0 = time.perf_counter()
-    fused_em.LAUNCHES = 0
-    gpu = vireo_wrap(d["AD"], d["DP"], n_donor=K, n_init=5, random_seed=2,
-                     verbose=False, device="cuda")
-    launches = fused_em.LAUNCHES
-    wall = time.perf_counter() - t0
-    cpu = vireo_wrap(d["AD"], d["DP"], n_donor=K, n_init=5, random_seed=2,
-                     verbose=False, device="cpu")
+    with _env("VIREO_FUSED_DOUBLET", "1"):
+        t0 = time.perf_counter()
+        fused_em.LAUNCHES = 0
+        gpu = vireo_wrap(d["AD"], d["DP"], n_donor=K, n_init=5,
+                         random_seed=2, verbose=False, device="cuda")
+        launches = fused_em.LAUNCHES
+        wall = time.perf_counter() - t0
+        cpu = vireo_wrap(d["AD"], d["DP"], n_donor=K, n_init=5,
+                         random_seed=2, verbose=False, device="cpu")
     conf = cpu["ID_prob"].max(1) >= 0.9
     agree = _matched_agreement(gpu["ID_prob"][conf], cpu["ID_prob"][conf])
     dbl = float(np.mean((gpu["doublet_prob"].max(1) >= 0.9)
                         == (cpu["doublet_prob"].max(1) >= 0.9)))
-    log("[donors] %d donors (%d doublet columns) on the card: %.2f s, K1 "
-        "launches %d; vs the CPU: argmax agreement %.5f over %d confident "
-        "singlets after label matching, doublet calls %.5f; %s"
+    log("[donors] %d donors (%d doublet columns) on the card under "
+        "VIREO_FUSED_DOUBLET=1: %.2f s, K1 launches %d; vs the CPU: argmax "
+        "agreement %.5f over %d confident singlets after label matching, "
+        "doublet calls %.5f; %s"
         % (K, K + K * (K - 1) // 2, wall, launches, agree, int(conf.sum()),
            dbl, json.dumps(_singlet_accuracy(d, gpu["ID_prob"],
                                              gpu["doublet_prob"]))))
@@ -2398,14 +2655,15 @@ def _run_mode(torch, counts, d, tag, kw):
     from vireo_tpu_torch.engine.wrap import vireo_wrap
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    phases, fits, amb = {}, [], {}
+    phases, fits, amb, widths = {}, [], {}, {}
     _reset_launches()
     t0 = time.perf_counter()
-    with _fit_lengths(fits), _ambient_record(amb):
+    with _fit_lengths(fits), _ambient_record(amb), _k0_widths(widths):
         res = vireo_wrap(counts, random_seed=0, verbose=False,
                          timing=phases, **kw)
     wall = time.perf_counter() - t0
     launches = _launches()
+    launches["K0_widths"] = widths
     _log_fit_lengths("[modes] %s:" % tag, fits)
     C, K = counts.n_cell, MAIN["n_donor"]
     assert res["ID_prob"].shape == (C, K)
@@ -2478,7 +2736,8 @@ def _ambient_cpu_check(torch, res, amb):
 
 def phase_donor_modes(torch, counts, d):
     """The donor-genotype modes at full width through vireo_wrap on the
-    dense rung (K0, K1 in the doublet phase): all 16 donors known, with
+    dense rung (K0, in the doublet phase too: its cell_loglik at the
+    doublet's width, no K1): all 16 donors known, with
     the ambient phase (its gates 1 and 3), 12 of 16 known (superset, 20
     restarts), the 16 among 4 decoys (subset). Singlet accuracy
     >= 0.99; with every donor known, without label matching (donor k of
@@ -2490,8 +2749,9 @@ def phase_donor_modes(torch, counts, d):
             kw = dict(kw, check_ambient=True)
         res, launches, matched, own, _, amb = _run_mode(torch, counts, d,
                                                         mode, kw)
-        if launches["K1"] < 1:
-            raise AssertionError("the %s mode did not launch K1" % mode)
+        if not _doublet_on_k0(launches, _doublet_width(res)):
+            raise AssertionError("the %s mode's doublet phase did not take "
+                                 "K0 at its width, or launched K1" % mode)
         acc = own if mode == "known" else matched
         if acc < 0.99:
             raise AssertionError("%s mode: singlet accuracy %.5f < 0.99"
@@ -2531,7 +2791,7 @@ def phase_known_packed(torch, d, dense_known):
                                                "known (packed)", kw)
     fit_iters = sum(max(f) for f in fits)
     want = dict(K1=0, K2=fit_iters + 2, K3=fit_iters + 2,
-                dense_suff_stats=0, dense_cell_loglik=0)
+                dense_suff_stats=0, dense_cell_loglik=0, K0_widths={})
     log("[modes] known (packed): launches %s, expected %s (%d fit "
         "iterations; doublet K2 1, K3 2; ambient gate K2 1)"
         % (json.dumps(launches), json.dumps(want), fit_iters))
@@ -2616,8 +2876,8 @@ def _small_branch_pool():
 
 def phase_small_branches(torch):
     """The extra-donor and superset branches of vireo_wrap on a seeded
-    small pool, on the card (float32, K1) and on the CPU (float64, K1's
-    plain version): the same calls up to the donors' labels (confident
+    small pool, on the card (float32, K0) and on the CPU (float64, K0's
+    plain versions): the same calls up to the donors' labels (confident
     singlets, max ID_prob >= 0.9 on the CPU, and doublet calls) and the
     ELBO to BRANCH_ELBO_RTOL."""
     from vireo_tpu_torch.engine.wrap import vireo_wrap
@@ -2942,8 +3202,9 @@ def _main_record(res, fits):
 def phase_mesh_nccl(torch, d, main7):
     """Phase 7's call on a cells mesh of this one process, in an NCCL
     world of one rank: every output and fit equal to phase 7's bit for
-    bit, K1 and both of K0's kernels launched on the rank's block; the
-    process group is destroyed after."""
+    bit, both of K0's kernels launched on the rank's block, its
+    cell_loglik at the doublet's width, and no K1; the process group is
+    destroyed after."""
     import torch.distributed as dist
     from vireo_tpu_torch.engine.wrap import vireo_wrap
     from vireo_tpu_torch.parallel.mesh import (initialize_distributed,
@@ -2958,16 +3219,17 @@ def phase_mesh_nccl(torch, d, main7):
                                  "NCCL, got %s" % mesh.backend)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        phases, fits = {}, []
+        phases, fits, widths = {}, [], {}
         _reset_launches()
         t0 = time.perf_counter()
-        with _fit_lengths(fits):
+        with _fit_lengths(fits), _k0_widths(widths):
             res = vireo_wrap(d["AD"], d["DP"], n_donor=MAIN["n_donor"],
                              n_init=MAIN["n_init"], random_seed=0,
                              check_doublet=True, verbose=False,
                              timing=phases, mesh=mesh)
         wall = time.perf_counter() - t0
         launches = _launches()
+        launches["K0_widths"] = widths
         peak = torch.cuda.max_memory_allocated()
     finally:
         dist.destroy_process_group()
@@ -2981,11 +3243,11 @@ def phase_mesh_nccl(torch, d, main7):
     log("[mesh_nccl] vireo_wrap wall %.3f s, peak device memory %.3f GiB, "
         "launches %s; equal to phase 7 bit for bit: %s"
         % (wall, peak / 2**30, json.dumps(launches), json.dumps(same)))
-    if not all(same.values()) or launches["K1"] < 1 or \
-            not _k0_launched(launches):
+    if not all(same.values()) or not _k0_launched(launches) or \
+            not _doublet_on_k0(launches, DOUBLET_N):
         raise AssertionError("the one-rank NCCL mesh run differs from the "
-                             "run without a mesh, or did not launch K1 and "
-                             "K0")
+                             "run without a mesh, or did not launch K0 (at "
+                             "the doublet's width too), or launched K1")
     return launches
 
 
@@ -3049,17 +3311,19 @@ def phase_mesh_cli(d, cell, main7):
         for name, sec in summary.items():
             log("[mesh_cli] rank 0 phase %-15s %.2f s" % (name, sec))
     ranks = re.findall(r"\[vireo\] rank (\d+) of 2: peak device memory "
-                       r"(\S+) GiB, kernel launches K1 (\d+) K2 (\d+) K3 "
-                       r"(\d+)", text)
+                       r"(\S+) GiB, kernel launches K0 (\d+) (\d+) K1 "
+                       r"(\d+) K2 (\d+) K3 (\d+)", text)
     best = np.array([int(r[5][len("donor"):]) for r in rows])
     acc, agree = _singlet_calls(d, best, np.argmax(main7["ID_prob"], 1))
     log("[mesh_cli] wall %.3f s (two ranks, launch to exit); %d rows, "
         "singlet accuracy %.5f, singlets called as in phase 7 %.5f"
         % (wall, len(rows), acc, agree))
     if len(rows) != C or acc < MESH_ACC or agree < MESH_AGREE \
-            or len(ranks) != 2 or any(int(r[2]) < 1 for r in ranks):
+            or len(ranks) != 2 or any(min(int(r[2]), int(r[3])) < 1
+                                      or int(r[4]) != 0 for r in ranks):
         raise AssertionError("the 2-rank CLI run is wrong (per rank peak "
-                             "GiB and K1, K2, K3 launches: %s)" % (ranks,))
+                             "GiB and K0's two, K1, K2, K3 launches: %s)"
+                             % (ranks,))
 
 
 def _k23_block_check(torch, pc, N, seed):
@@ -3249,7 +3513,9 @@ def main():
     phase_mt(torch)
     d = _main_pool()
     phase_synth(torch, d)
-    dense_res, dense_launches, dense_fits = phase_main_path(torch, d)
+    dense_res, dense_launches, dense_fits, keep = phase_main_path(torch, d)
+    knob_k1 = phase_doublet_routes(torch, d, dense_res, keep)
+    del keep
     main7 = _main_record(dense_res, dense_fits)
     packed_launches, packed8 = phase_packed_main_path(torch, d, dense_res)
     phase_profile(torch, d)
@@ -3280,14 +3546,18 @@ def main():
     phase_cli()
 
     # each kernel at its main-path shape, with the launches of the run of
-    # its path: K1 at the doublet phase's (vireo_wrap on the dense rung),
-    # and at the fused fit's with that fit's launches; K0 (vireo_wrap on
-    # the dense rung), K2 and K3 (on the packed rung) at the warm
-    # restarts' (N = 20 x 16)
+    # its path: K1 at the doublet phase's shape with the launches of that
+    # phase under VIREO_FUSED_DOUBLET=1 (vireo_wrap's dense run, whose
+    # default doublet phase launches none), and at the fused fit's with
+    # that fit's launches; K0 (vireo_wrap on the dense rung) at the warm
+    # restarts' (N = 20 x 16) with all of that run's launches, and its
+    # cell_loglik again at the doublet phase's N = 136 with the launches
+    # at that width; K2 and K3 (on the packed rung) at the warm restarts'
     table = [
         ("fused_estep_stats", "vireo_tpu_torch/csrc/fused_estep.cu",
-         "vireo_tpu/ops/pallas_em.py:145", "vireo_wrap dense",
-         dense_launches["K1"], k1["doublet"]),
+         "vireo_tpu/ops/pallas_em.py:145",
+         "vireo_wrap dense, doublet phase under VIREO_FUSED_DOUBLET=1",
+         knob_k1, k1["doublet"]),
         ("fused_estep_stats_fit", "vireo_tpu_torch/csrc/fused_estep.cu",
          "vireo_tpu/ops/pallas_em.py:145", "fused fit", fused_launches,
          k1["fit_full"]),
@@ -3300,7 +3570,14 @@ def main():
     ] + [("dense_" + name, "vireo_tpu_torch/csrc/dense_counts.cu",
           "vireo_tpu/ops/counts.py:78, :87 (XLA dots)", "vireo_wrap dense",
           dense_launches["dense_" + name], k0[("warm", name)])
-         for name in ("suff_stats", "cell_loglik")]
+         for name in ("suff_stats", "cell_loglik")] + [
+        ("dense_cell_loglik_doublet", "vireo_tpu_torch/csrc/dense_counts.cu",
+         "vireo_tpu/ops/counts.py:87 (XLA dot), reached from "
+         "vireo_tpu/models/doublet.py:90",
+         "vireo_wrap dense, doublet phase (N = %d)" % DOUBLET_N,
+         dense_launches["K0_widths"].get(
+             "dense_cell_loglik N=%d" % DOUBLET_N, 0),
+         k0[("doublet", "cell_loglik")])]
     # the probes' kernels: their launches in the runs of the probes' entry
     # points; beside them their launches in the two vireo_wrap runs (0:
     # they lie on no path of vireo_wrap)
@@ -3334,6 +3611,10 @@ def main():
         "bound_by": res["bound_by"], "library_ms": res["library_ms"]},
         **({"vireo_wrap_launches": wrap_launches[name]}
            if name in wrap_launches else {}),
+        **({"vireo_wrap_launches": dense_launches["K1"]}
+           if name == "fused_estep_stats" else {}),
+        **{k: res[k] for k in ("library_f32_ms", "library_bf16_ms")
+           if k in res},
         **({"note": "redesigned PR 13"} if name.startswith("dense_")
            else {}))
         for name, source, replaces, path, launches, res in table]}))

@@ -151,7 +151,7 @@ def jax_runs(pool):
     for name, (ad, dp) in (("light", (pool["AD"], pool["DP"])),
                            ("heavy", _heavy(pool))):
         with pytest.MonkeyPatch.context() as mp:
-            mp.setenv("VIREO_FUSED_DOUBLET", "0")
+            mp.delenv("VIREO_FUSED_DOUBLET", raising=False)
             runs[name] = (ad, dp, jwrap.vireo_wrap(
                 jax_dense_counts(ad, dp, dtype=jnp.float64),
                 dtype=jnp.float64, mesh=None, **KW))

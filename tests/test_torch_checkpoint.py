@@ -7,10 +7,10 @@ against the uninterrupted run and against the JAX package's files.
   refit draws new assignments from the RNG.
 - A checkpoint of another run is refused by its fingerprint.
 - Each package resumes from the other's checkpoint directory and gives
-  its own uninterrupted result: identical calls and fit lengths, and the
-  numbers to rtol 1e-9 (the two packages' float64 states differ in the
-  last bits; the JAX side runs the doublet phase unfused, the port's side
-  runs K1's plain version on both of its runs).
+  its own uninterrupted result, and the two packages' uninterrupted runs
+  agree: identical calls, and the numbers to rtol 1e-9 (the two
+  packages' float64 states differ in the last bits; both run the
+  doublet phase unfused, at their defaults).
 """
 
 import os
@@ -126,7 +126,7 @@ def test_checkpoint_files_round_trip(tmp_path):
 
 def _jax_run(AD, DP, kw, ck=None):
     with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("VIREO_FUSED_DOUBLET", "0")
+        mp.delenv("VIREO_FUSED_DOUBLET", raising=False)
         return jax_wrap(AD, DP, dtype=jnp.float64, mesh=None,
                         checkpoint_dir=ck, **kw)
 
@@ -154,15 +154,16 @@ def test_each_package_resumes_from_the_others_checkpoint(pool, tmp_path,
 
     write, read = (_jax_run, None) if writer == "jax" else (None, _jax_run)
     if writer == "jax":
-        write(AD, DP, kw, ck)
+        first = write(AD, DP, kw, ck)
         own = port()
         resume = port
     else:
-        port(ck)
+        first = port(ck)
         own = _jax_run(AD, DP, kw)
 
         def resume(ck):
             return read(AD, DP, kw, ck)
+    _close(own, first)                      # the two packages' runs
     _close(resume(ck), own)                 # after the refit
     os.remove(os.path.join(ck, STEP1))
     _close(resume(ck), own)                 # after the warm restarts

@@ -25,9 +25,6 @@ torch.set_num_threads(1)
 F64 = torch.float64
 KW = dict(n_donor=3, n_init=3, random_seed=23, dtype=F64, verbose=False)
 WRAP = "vireo_tpu_torch.engine.wrap:vireo_wrap"
-# K1's float32 assignments from another rank's states: a loglik one
-# float32 ulp apart moves them by at most ~5e-5 (chip_smoke.py ID_ATOL)
-K1_ID_ATOL = 1e-4
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -71,8 +68,8 @@ def runs(tmp_path_factory):
 def test_two_rank_cli_writes_the_single_process_files(runs, name):
     """`--mesh 1x2` on two ranks: rank 0 writes each file of the
     single-process CLI, with the same content (the variants are not
-    split, so K1 runs on each rank's cells and the probabilities come
-    out equal)."""
+    split, so each rank's cells get their whole log-likelihood and the
+    probabilities come out equal)."""
     tmp = runs["tmp"]
     assert sorted(os.listdir(tmp / "mesh")) == sorted(os.listdir(tmp / "one"))
     read = gzip.open if name.endswith(".gz") else open
@@ -113,13 +110,11 @@ def test_mesh_resumes_from_a_single_process_checkpoint(runs):
     """A mesh run resumes from a single-process run's warm checkpoint
     (every rank takes its block of the global file) and gives the
     uninterrupted mesh run's results: float64 to rtol 1e-9, the doublet
-    phase's float32 K1 outputs within its tolerance."""
+    phase (unfused) included."""
     full, resumed = runs["out"][0][1], runs["out"][0][3]
-    for key in ("LB_list", "LB_doublet", "theta_mean", "theta_sum"):
+    for key in ("LB_list", "LB_doublet", "theta_mean", "theta_sum",
+                "ID_prob", "doublet_prob", "GT_prob", "doublet_LLR"):
         np.testing.assert_allclose(resumed[key], full[key], rtol=1e-9,
-                                   err_msg=key)
-    for key in ("ID_prob", "doublet_prob"):
-        np.testing.assert_allclose(resumed[key], full[key], atol=K1_ID_ATOL,
-                                   err_msg=key)
+                                   atol=1e-12, err_msg=key)
     assert (np.argmax(resumed["ID_prob"], 1)
             == np.argmax(full["ID_prob"], 1)).all()

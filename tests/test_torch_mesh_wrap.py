@@ -6,14 +6,8 @@ Four spawned CPU ranks (gloo, float64) run every case at once, on a
 2 x 2 vars x cells mesh and on a 4-rank cells mesh; JAX runs here on
 the mesh of the same shape over its virtual devices. Every rank must
 return the same result dict. Tolerances: the warm restarts, the refit
-and every unfused doublet phase are float64 on both sides, rtol 1e-9;
-on a cells mesh the port's int8 counts take the doublet phase through
-K1's plain version (float32 sums, bf16 weights; JAX keeps its kernel
-off a mesh), which is held against the port's single-device run. There
-a rank's float32 product over fewer cells may round a loglik one ulp
-apart (~1e-4 at |loglik| ~ 1000), which the softmax passes on as at
-most half: the assignments atol K1_ID_ATOL = 1e-4 (chip_smoke.py's
-ID_ATOL, for the same reason), the rest atol 1e-5.
+and the doublet phase (unfused on every mesh, as in the JAX package,
+VIREO_FUSED_DOUBLET set or not) are float64 on both sides, rtol 1e-9.
 """
 
 import numpy as np
@@ -36,10 +30,10 @@ from torch_rank_calls import Ref, run_calls
 
 F64 = torch.float64
 RTOL = 1e-9
-K1_ID_ATOL = 1e-4
 WRAP = "vireo_tpu_torch.engine.wrap:vireo_wrap"
 ENV = "os:environ.__setitem__"
 UNSET = "os:environ.pop"
+TAKES_K1 = "vireo_tpu_torch.models.doublet:takes_fused_estep"
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -105,7 +99,7 @@ def runs(tmp_path_factory):
         (WRAP, (AD[:, :37], DP[:, :37]),
          dict(KW, n_donor=3, n_init=3, random_seed=23, mesh=m22)),
         # 2: a prebuilt single-device int8 pool, cut into the mesh's
-        # blocks; K1 per rank in the doublet phase
+        # blocks
         ("vireo_tpu_torch.ops.counts:counts_from_scipy",
          (d8["AD"], d8["DP"]), dict(device="cpu")),
         (WRAP, (Ref(2),), dict(KW, n_donor=4, n_init=4, random_seed=11,
@@ -128,19 +122,26 @@ def runs(tmp_path_factory):
         (WRAP, (amb["AD"], amb["DP"]),
          dict(KW, n_donor=3, n_init=3, random_seed=5, check_ambient=True,
               mesh=m22)),
-        # 14-17: which meshes take the doublet phase through K1
+        # 14-17: whether a mesh takes the doublet phase through K1
         ("vireo_tpu_torch.ops.counts:counts_from_scipy", (AD, DP),
          dict(mesh=m4)),
-        ("vireo_tpu_torch.models.doublet:takes_fused_estep", (Ref(14), 10),
-         {}),
+        (TAKES_K1, (Ref(14), 10, True), {}),
         ("vireo_tpu_torch.ops.counts:counts_from_scipy", (AD, DP),
          dict(mesh=m22)),
-        ("vireo_tpu_torch.models.doublet:takes_fused_estep", (Ref(16), 10),
-         {}),
+        (TAKES_K1, (Ref(16), 10, True), {}),
+        # 18-22: the same under VIREO_FUSED_DOUBLET=1, and call 3 under it
+        (ENV, ("VIREO_FUSED_DOUBLET", "1"), {}),
+        (TAKES_K1, (Ref(14), 10, True), {}),
+        (TAKES_K1, (Ref(16), 10, True), {}),
+        (WRAP, (Ref(2),), dict(KW, n_donor=4, n_init=4, random_seed=11,
+                               mesh=m4)),
+        (UNSET, ("VIREO_FUSED_DOUBLET",), {}),
     ]
-    out = run_calls(calls, 4, str(tmp_path_factory.mktemp("wrap4")),
-                    timeout=400)
-    whole = (0, 1, 3, 5, 8, 9, 13, 15, 17)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("VIREO_FUSED_DOUBLET", raising=False)
+        out = run_calls(calls, 4, str(tmp_path_factory.mktemp("wrap4")),
+                        timeout=400)
+    whole = (0, 1, 3, 5, 8, 9, 13, 15, 17, 19, 20, 21)
     assert [i for i in whole if not results_agree([o[i] for o in out])] \
         == []
     return dict(pools, out=out)
@@ -185,31 +186,20 @@ def test_vireo_wrap_on_mesh2d(runs):
     _same_result(rt, rj)
 
 
-def test_wrap_int8_cells_mesh_runs_k1_per_rank(runs):
+def test_wrap_int8_cells_mesh_runs_k1_per_rank(runs, monkeypatch):
     """test_sharding.py::test_wrap_auto_mesh_int8_end_to_end: a
-    single-device int8 pool cut into a 4-rank mesh's blocks. The warm
-    restarts and the refit equal JAX's on make_mesh(4) (rtol 1e-9); the
-    doublet phase runs K1 per rank and equals the port's single-device
-    run at K1's tolerance; the calls recover the simulation."""
+    single-device int8 pool cut into a 4-rank mesh's blocks. The whole
+    run, the doublet phase included (unfused on a mesh, as in the JAX
+    package), equals JAX's on make_mesh(4) (rtol 1e-9); the calls
+    recover the simulation."""
     d = runs["int8"]
     jc = jax_counts_from_scipy(d["AD"], d["DP"], max_dense_elems=10)
     assert jc.ad.dtype == jnp.int8
+    monkeypatch.delenv("VIREO_FUSED_DOUBLET", raising=False)
     rj = jwrap.vireo_wrap(jc, mesh=jmesh.make_mesh(4), n_donor=4, n_init=4,
                           random_seed=11, **JKW)
     rt = runs["out"][0][3]
-    for key in ("LB_list", "LB_doublet", "theta_mean", "theta_sum"):
-        np.testing.assert_allclose(rt[key], np.asarray(rj[key]), rtol=RTOL,
-                                   err_msg=key)
-    one = twrap.vireo_wrap(tcounts.counts_from_scipy(d["AD"], d["DP"],
-                                                     device="cpu"),
-                           n_donor=4, n_init=4, random_seed=11, mesh=None,
-                           **KW)
-    for key in ("ID_prob", "doublet_prob"):
-        np.testing.assert_allclose(rt[key], one[key], atol=K1_ID_ATOL,
-                                   err_msg=key)
-    np.testing.assert_allclose(rt["GT_prob"], one["GT_prob"], atol=1e-5)
-    np.testing.assert_allclose(rt["doublet_LLR"], one["doublet_LLR"],
-                               rtol=1e-5, atol=1e-5)
+    _same_result(rt, rj)
     from scipy.optimize import linear_sum_assignment
     singlet = d["donor2"] < 0
     conf = np.zeros((4, 4))
@@ -219,11 +209,35 @@ def test_wrap_int8_cells_mesh_runs_k1_per_rank(runs):
     assert conf[ri, ci].sum() / singlet.sum() > 0.95
 
 
-def test_doublet_takes_k1_on_a_cells_mesh_only(runs):
-    """A cells mesh's int8 blocks go to K1 in the doublet phase; on a
-    vars axis a rank holds partial logliks and the phase is unfused."""
-    assert all(o[15] is True for o in runs["out"])
-    assert all(o[17] is False for o in runs["out"])
+@pytest.mark.parametrize("mesh,knob,call", [
+    ("cells", None, 15),
+    ("vars x cells", None, 17),
+    ("cells", "1", 19),
+    ("vars x cells", "1", 20),
+])
+def test_doublet_dispatch_on_meshes(runs, mesh, knob, call):
+    """takes_fused_estep on each rank: no mesh's blocks go to K1, the
+    knob set or not, as the JAX package keeps its kernel off a mesh."""
+    assert all(o[call] is False for o in runs["out"])
+
+
+def test_doublet_takes_k1_on_a_cells_mesh_only(runs, monkeypatch):
+    """VIREO_FUSED_DOUBLET=1 moves the int8 pool's doublet phase to K1
+    on one device (its bf16 rounding moves the calls' probabilities) and
+    leaves the same pool on a cells mesh unfused: that run is the
+    default's bit for bit."""
+    d = runs["int8"]
+    default, knob = runs["out"][0][3], runs["out"][0][21]
+    assert set(knob) == set(default)
+    for key in default:
+        np.testing.assert_array_equal(knob[key], default[key], err_msg=key)
+    monkeypatch.setenv("VIREO_FUSED_DOUBLET", "1")
+    one = twrap.vireo_wrap(tcounts.counts_from_scipy(d["AD"], d["DP"],
+                                                     device="cpu"),
+                           n_donor=4, n_init=4, random_seed=11, mesh=None,
+                           **KW)
+    assert np.abs(one["doublet_prob"] - default["doublet_prob"]).max() \
+        > 1e-9
 
 
 def test_vireo_wrap_on_mesh_packed(runs):
@@ -306,7 +320,6 @@ def test_vireo_wrap_mesh_spec_string(tmp_path):
                            mesh=None, **KW)
     _, perm = optimal_match(one["GT_prob"], out[0]["GT_prob"], axis=1)
     np.testing.assert_array_equal(perm, np.arange(3))
-    np.testing.assert_allclose(out[0]["LB_list"], one["LB_list"],
-                               rtol=RTOL)
-    np.testing.assert_allclose(out[0]["ID_prob"], one["ID_prob"],
-                               atol=K1_ID_ATOL)
+    for key in ("LB_list", "ID_prob", "doublet_prob", "doublet_LLR"):
+        np.testing.assert_allclose(out[0][key], one[key], rtol=RTOL,
+                                   atol=1e-12, err_msg=key)

@@ -221,14 +221,15 @@ def main(argv=None):
                 contextlib.nullcontext():
             _run(options, start_time, mesh, rank == 0)
         if world > 1:
-            from ..ops import fused_em, packed
+            from ..ops import counts, fused_em, packed
             dev = torch.cuda.current_device() \
                 if torch.cuda.is_initialized() else None
             peak = torch.cuda.max_memory_allocated(dev) / 2**30 \
                 if dev is not None else float("nan")
             print("[vireo] rank %d of %d: peak device memory %.3f GiB, "
-                  "kernel launches K1 %d K2 %d K3 %d"
-                  % (rank, world, peak, fused_em.LAUNCHES,
+                  "kernel launches K0 %d %d K1 %d K2 %d K3 %d"
+                  % (rank, world, peak, counts.LAUNCHES["dense_suff_stats"],
+                     counts.LAUNCHES["dense_cell_loglik"], fused_em.LAUNCHES,
                      packed.LAUNCHES["suff_stats"],
                      packed.LAUNCHES["cell_loglik"]), flush=True)
     finally:

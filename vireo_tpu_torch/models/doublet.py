@@ -3,28 +3,28 @@
 
 The donor axis grows by the C(K,2) donor pairs and the genotype axis by
 the C(G,2) genotype combinations; the assignment E-step then runs once
-on the expanded tensors. With an int8 DenseCounts and a row prior it
-runs through the fused kernel (ops/fused_em.py), which also yields the
-singlet-slice statistics for the GT refresh; every other counts class
-(packed, hybrid, COO, or dense in another type) takes the unfused
-contraction through its own `cell_loglik`, as the JAX package sends only
-a DenseCounts to its kernel. The branch depends on the counts' class and
-type and the prior's shape only, the same on the CPU and on a card.
+on the expanded tensors. By default, as in the JAX package, it runs
+unfused: the expanded log-likelihood through the counts' own
+`cell_loglik` (K0 for an int8 DenseCounts, K3 for packed counts), the
+softmax on the device, then `Vireo.update_GT_prob`'s full E-step for
+the GT refresh. Under VIREO_FUSED_DOUBLET (`takes_fused_estep`, the
+same values and warning as the JAX package's `_fused_doublet_mode`) an
+int8 DenseCounts with a row prior and at most `fused_em.MAX_K` columns
+goes through the fused kernel K1 (ops/fused_em.py), which rounds W and
+the assignments to bf16 and also yields the singlet-slice statistics
+for the GT refresh. `interpret` asks for K1's math: its plain version
+on the CPU, the kernel on a card, as `1` does.
 
-On a mesh (a ShardedCounts) the E-step runs on each rank's cells and the
-outputs are gathered. Where the variants are not split (a cells mesh,
-or 1 x C) each rank's block is an int8 DenseCounts, so K1 runs there per
-rank and its singlet statistics are all-reduced over the cells. With
-the variants split a rank holds only part of each cell's
-log-likelihood, and K1 takes its softmax in the same pass, so the
-doublet phase goes through the unfused path there, whose partial
-logliks the ShardedCounts all-reduces first. (The JAX package
-keeps its Pallas doublet pass off a mesh altogether,
-vireo_tpu/models/doublet.py:134-135.)
+One difference from the JAX package, under the knob only: bfloat16
+dense counts (counts above 127) stay unfused, as K1 reads int8 bytes.
+A mesh (a ShardedCounts) goes unfused, as in the JAX package, whose
+Pallas pass is not SPMD-partitioned.
 """
 
 import dataclasses
 import itertools
+import os
+import warnings
 
 import numpy as np
 import torch
@@ -32,7 +32,7 @@ import torch
 from ..ops import fused_em
 from ..ops.counts import DenseCounts
 from ..ops.math import normalize, softmax_from_loglik, digamma_triplet
-from ..parallel.mesh import CELL_AXIS, VAR_AXIS
+from ..parallel.mesh import CELL_AXIS
 
 __all__ = ["add_doublet_theta", "add_doublet_GT", "predict_doublet",
            "fused_doublet_estep", "doublet_loglik", "takes_fused_estep"]
@@ -109,33 +109,31 @@ def fused_doublet_estep(counts, gt_both, mu_both, sum_both,
     bf16, as in the JAX package. Returns (S1, SS, ID_prob_both,
     logLik_ID), float32."""
     Wfa, Wfd = _doublet_weights(gt_both, mu_both, sum_both)
-    mesh = getattr(counts, "mesh", None)
-    dense = counts if mesh is None else counts.local
     prior = torch.as_tensor(np.asarray(log_prior_both),
                             device=counts.device).to(torch.float32)
     S1, SS, id_prob, loglik, _, _ = fused_em.fused_estep_stats(
-        dense.ad, dense.dp, Wfa.to(torch.float32), Wfd.to(torch.float32),
+        counts.ad, counts.dp, Wfa.to(torch.float32), Wfd.to(torch.float32),
         prior.reshape(1, -1), stats_cols=n_donor)
-    if mesh is not None:
-        # a rank's cells: the statistics summed over every rank's cells
-        # (the doublet phase reads no ELBO from K1, as in the JAX package)
-        n = counts.layout.n_cell_local
-        id_prob, loglik = id_prob[:n], loglik[:n]
-        S1, SS = mesh.all_reduce(torch.stack([S1, SS]), CELL_AXIS)
     return S1, SS, id_prob, loglik
 
 
-def takes_fused_estep(counts, n_cols):
+def takes_fused_estep(counts, n_cols, row_prior):
     """Whether the doublet E-step over `n_cols` assignment columns goes
-    through K1: int8 dense counts (on a mesh, each rank's block, and the
-    variants not split), and no more columns than K1 takes."""
-    mesh = getattr(counts, "mesh", None)
-    if mesh is not None:
-        if mesh.splits(VAR_AXIS):
-            return False
-        counts = counts.local
-    return (isinstance(counts, DenseCounts) and counts.ad.dtype == torch.int8
-            and n_cols <= fused_em.MAX_K)
+    through K1 (the JAX package's `_fused_doublet_mode`): only when
+    VIREO_FUSED_DOUBLET is 1, on, yes, kernel or interpret (all launch
+    K1 on a card and run its plain version on the CPU), for int8 dense
+    counts on one device, a row-broadcast ID prior, and no more columns
+    than K1 takes."""
+    knob = os.environ.get("VIREO_FUSED_DOUBLET", "0").lower()
+    if knob in ("0", "off", "no", ""):
+        return False
+    if knob not in ("1", "on", "yes", "kernel", "interpret"):
+        warnings.warn("VIREO_FUSED_DOUBLET=%r is not a valid value "
+                      "(use 0/1/interpret); keeping the default XLA "
+                      "path" % knob)
+        return False
+    return (row_prior and isinstance(counts, DenseCounts)
+            and counts.ad.dtype == torch.int8 and n_cols <= fused_em.MAX_K)
 
 
 def predict_doublet(vobj, AD, DP=None, update_GT=True, update_ID=True,
@@ -166,12 +164,14 @@ def predict_doublet(vobj, AD, DP=None, update_GT=True, update_ID=True,
         doublet_rate_prior = min(0.5, n_cell / 100000)
 
     id_prior_np = vobj.ID_prior
+    row_prior = id_prior_np.shape[0] == 1
+    fused = takes_fused_estep(counts, K + n_pair, row_prior)
     S1 = SS = None
-    if id_prior_np.shape[0] == 1:
+    if row_prior:
         prior_row = np.concatenate(
             [id_prior_np[0] * (1 - doublet_rate_prior),
              np.full(n_pair, doublet_rate_prior / n_pair)])
-        if takes_fused_estep(counts, K + n_pair):
+        if fused:
             S1, SS, post, logLik_ID = fused_doublet_estep(
                 counts, gt_both, mu_both, sum_both, np.log(prior_row), K)
             llr = (logLik_ID[:, K:].amax(dim=1)
