@@ -36,7 +36,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    dispatch), against their plain versions at the warm restarts' and
    the refit's shapes on the main pool's (30000 x 100000 counts in
    [0, 127] drawn on the card; N = 320 and 16), cell_loglik also at the
-   doublet phase's N = 136, and at edge shapes (an
+   doublet phase's N = 136, both at the K sweep's N = 96 and 128,
+   and at edge shapes (an
    odd C, also as a cell_slice view that starts at an odd column, both
    read by the kernels' producer without TMA; a C that is a multiple of
    16, read by TMA): bit for bit on integer weights, on a second launch,
@@ -44,8 +45,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    K0_SPLIT_NNZ), with the controls of phase 4; the B operand its
    kernel writes equal to k0_operand's bit for bit; within phase 4's
    bound on float weights and its error against float64 sums; its plan
-   (ops/counts.py::k0_plan), registers and shared memory; at the two
-   main shapes as a single call in turns with the plain version and
+   (ops/counts.py::k0_plan), registers and shared memory; at each shape
+   but the edge ones as a single call in turns with the plain version and
    with the kernels' two controls (no MMAs; no CUDA-core adds of the
    k-block sums), 20 back to back and from torch.profiler, beside the
    bound and, as the library call, cuBLAS bf16 on the counts converted
@@ -183,7 +184,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    K2 and K3 on rank 0's block against their plain versions with phase
    4's tolerances;
 19. `[mesh_small]`: `parallel.dryrun.dryrun_multichip` on the card with
-   four ranks, on a 1 x 4 and a 2 x 2 mesh: every rung against one rank.
+   four ranks, on a 1 x 4 and a 2 x 2 mesh: every rung against one rank;
+20. `[ksweep]` (after phase 18): benchmarks/k_sweep.py's sweep_n_donor
+   at full width (KSWEEP's note), on int8 counts made on the card (K0 at
+   the warm widths 96-144, both kernels in every K's fit, the launches
+   read before and after each fit) and on the same counts as float32:
+   the best K the truth on both, each K's restart ELBOs within
+   RUNG_ELBO_RTOL and the same best restart; walls, launches, tiles and
+   peak memory; phase 4a holds K0 at two of these widths (N = 96 and
+   128, suff_stats' tiles 48 and 64);
+21. `[heavy]` (after phase 20): benchmarks/e2e_hybrid.py's heavy-tailed
+   pool at full width through vireo_wrap on its default rung (dense
+   float32 on an 80 GB card), int8-hybrid, packed-hybrid and COO
+   (HEAVY's note, phase_heavy's gates): launches by rung, sums bit for
+   bit on a second run, calls, ELBO and accuracy against the default
+   rung's from its warm restarts; placement, phases, residual
+   nonzeros, peak memory and accuracy by rung.
 
 Before the kernel table it prints the whole command's seconds. The line
 before the last is the kernel table as JSON; the last line is
@@ -332,6 +348,11 @@ K0_SHAPES = (
     ("warm", 30000, 100000, 320, K0_BOTH),
     ("refit", 30000, 100000, 16, K0_BOTH),
     ("doublet", 30000, 100000, 136, ("cell_loglik",)),
+    # the K sweep's warm widths n_init x K (KSWEEP_FIT, KSWEEP_KS) that
+    # reach suff_stats' column tiles 48 (N = 96) and 64 (N = 128), which
+    # no shape above takes; cell_loglik takes 48 and 64 there too
+    ("sweep96", 30000, 100000, 96, K0_BOTH),
+    ("sweep128", 30000, 100000, 128, K0_BOTH),
 )
 K0_VIEW_START = 7
 K0_TERMS_GAIN = 2.0
@@ -408,6 +429,10 @@ SMALL_RUNGS = dict(n_var=3000, n_cell=8000, n_donor=4)
 # while it summed with atomic index_add_, whose order changes from run
 # to run (it now sums in a fixed order, which this phase checks)
 RUNG_ELBO_RTOL = 1e-4
+# and its calls: the share of the reference's confident singlets (max
+# ID_prob >= 0.9) called alike after label matching, and of the cells
+# whose doublet call (top pair >= 0.9) is alike
+RUNG_AGREE = 0.99
 # the many-donor pool: 23 donors give K + C(K,2) = 276 doublet columns
 MANY_DONORS = dict(n_var=3000, n_cell=4000, n_donor=23)
 # the fused fit (K1 in every iteration, bf16 weights and assignments)
@@ -487,6 +512,31 @@ MESH_AGREE = 0.999
 MESH_REFIT_SLACK = 15
 # seconds the spawned ranks of a mesh phase may take
 MESH_TIMEOUT_S = 600
+# [ksweep]: benchmarks/k_sweep.py's configuration, seeded. The pool of
+# synth_pool_dense_device (int8 DenseCounts, so K0) without doublets,
+# then sweep_n_donor over KSWEEP_KS with KSWEEP_FIT. Its warm widths
+# N = n_init x K (96, 112, 128, 144) take K0's suff_stats column tiles
+# 48, 64, 64, 80 and cell_loglik's 48, 64, 64, 48 (ops/counts.py::
+# k0_plan). The same sweep on the counts as float32 DenseCounts (the
+# plain torch.matmul versions) must pick the same K, reach each K's
+# per-restart ELBOs within RUNG_ELBO_RTOL and the same best restart.
+KSWEEP = dict(n_var=30000, n_cell=100000, n_donor=16, doublet_rate=0.0,
+              density=0.01, seed=0)
+KSWEEP_KS = (12, 14, 16, 18)
+KSWEEP_FIT = dict(n_init=8, max_iter_init=20, random_seed=0)
+# [heavy]: benchmarks/e2e_hybrid.py's heavy-tailed pool (`_heavy_pool`,
+# its generator's lines; the largest count ~2000) through vireo_wrap
+# with HEAVY_FIT on the rung counts_from_scipy picks by default (dense
+# float32 on an 80 GB card) and on the rungs of HEAVY_RUNGS, forced by a
+# dense_budget in units of n_var x n_cell bytes (0: one byte). Each
+# forced rung's calls against the default rung's: the [rungs] gates
+# (RUNG_AGREE, RUNG_ELBO_RTOL); singlet accuracy by the script's
+# measure within HEAVY_ACC_ATOL of the default rung's.
+HEAVY = dict(n_var=30000, n_cell=100000, n_donor=16, hot_frac=0.002,
+             density=0.01, seed=0)
+HEAVY_FIT = dict(n_init=20, random_seed=0, check_doublet=True)
+HEAVY_RUNGS = (("int8-hybrid", 2), ("packed-hybrid", 1), ("coo", 0))
+HEAVY_ACC_ATOL = 0.01
 
 
 def log(*args):
@@ -2366,6 +2416,19 @@ def _matched_agreement(a, b):
     return hits[ra, rb].sum() / len(pa)
 
 
+def _rung_agreement(res, base, conf):
+    """A vireo_wrap result against a reference one (RUNG_AGREE's note):
+    argmax agreement over the reference's confident singlets `conf`
+    after label matching, the share of doublet calls alike, and
+    LB_doublet's relative difference."""
+    agree = _matched_agreement(res["ID_prob"][conf], base["ID_prob"][conf])
+    dbl = float(np.mean((res["doublet_prob"].max(1) >= 0.9)
+                        == (base["doublet_prob"].max(1) >= 0.9)))
+    rel = abs(res["LB_doublet"] - base["LB_doublet"]) \
+        / abs(base["LB_doublet"])
+    return agree, dbl, rel
+
+
 def phase_small_cross_check(torch):
     """The same seeded small pool on the card (float32, K0's kernels) and
     on the CPU (float64, K0's plain versions): the same optimum and the
@@ -2449,9 +2512,7 @@ def phase_small_rungs(torch):
         # are the confident singlets (max ID_prob >= 0.9 on the CPU) and
         # the doublet calls (max doublet_prob >= 0.9)
         conf = cpu["ID_prob"].max(1) >= 0.9
-        agree = _matched_agreement(gpu["ID_prob"][conf], cpu["ID_prob"][conf])
-        dbl = np.mean((gpu["doublet_prob"].max(1) >= 0.9)
-                      == (cpu["doublet_prob"].max(1) >= 0.9))
+        agree, dbl, _ = _rung_agreement(gpu, cpu, conf)
         log("[rungs] %s (%s%s) on the card vs dense on the CPU: argmax "
             "agreement %.5f over %d confident singlets after label "
             "matching (%.5f over all cells), doublet calls %.5f, "
@@ -2462,7 +2523,7 @@ def phase_small_rungs(torch):
                _matched_agreement(gpu["ID_prob"], cpu["ID_prob"]), dbl,
                gpu["LB_doublet"], cpu["LB_doublet"],
                time.perf_counter() - t0))
-        if agree < 0.99 or dbl < 0.99:
+        if agree < RUNG_AGREE or dbl < RUNG_AGREE:
             raise AssertionError("%s calls disagree with the dense rung's"
                                  % rung)
         np.testing.assert_allclose(gpu["LB_doublet"], cpu["LB_doublet"],
@@ -2495,6 +2556,329 @@ def _check_repeatable(torch, rung, c):
                              % rung)
 
 
+@contextlib.contextmanager
+def _sweep_fits(torch, out):
+    """Append to `out`, for each fit of sweep_n_donor in the block (one a
+    K), its K, seconds (ending in a device sync) and the launches of K0's
+    two kernels, read from ops/counts.py::LAUNCHES before and after."""
+    from vireo_tpu_torch.engine import select
+    from vireo_tpu_torch.ops import counts
+    real = select.fit_vb
+
+    def spy(*args, **kwargs):
+        torch.cuda.synchronize()
+        before = dict(counts.LAUNCHES)
+        t0 = time.perf_counter()
+        res = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        out.append(dict(K=args[3].n_donor, s=time.perf_counter() - t0,
+                        launches={k: counts.LAUNCHES[k] - before[k]
+                                  for k in before}))
+        return res
+
+    select.fit_vb = spy
+    try:
+        yield
+    finally:
+        select.fit_vb = real
+
+
+def phase_ksweep(torch):
+    """`[ksweep]`, KSWEEP's note: the sweep on int8 counts through K0 (the
+    best K the truth, both of K0's kernels launched in every K's fit, the
+    launches counted by width for the kernel table), then on the same
+    counts as float32 (the plain versions). Returns the int8 sweep's
+    launches ("K0_widths" by width)."""
+    from vireo_tpu_torch.engine.select import sweep_n_donor
+    from vireo_tpu_torch.ops import counts
+    from vireo_tpu_torch.ops.counts import DenseCounts
+    from vireo_tpu_torch.sim.synth import synth_pool_dense_device
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dc = synth_pool_dense_device(device=torch.device("cuda"),
+                                 **KSWEEP)["counts"]
+    torch.cuda.synchronize()
+    V, C = dc.n_var, dc.n_cell
+    log("[ksweep] pool %d x %d x %d, int8 DenseCounts, made on the card in "
+        "%.2f s" % (V, C, KSWEEP["n_donor"], time.perf_counter() - t0))
+    for K in KSWEEP_KS:
+        N = KSWEEP_FIT["n_init"] * K
+        log("[ksweep] K=%d: warm width N = %d, K0 column tiles: suff_stats "
+            "%d, cell_loglik %d" % (K, N, *(
+                counts.k0_plan(name, V, C, N, _sms(torch)).bn
+                for name in K0_BOTH)))
+    sweeps, launches = {}, None
+    for label in ("int8", "float32"):
+        c = dc if label == "int8" else DenseCounts(dc.ad.float(),
+                                                   dc.dp.float())
+        fits, widths = [], {}
+        _reset_launches()
+        t0 = time.perf_counter()
+        with _sweep_fits(torch, fits), _k0_widths(widths):
+            out = sweep_n_donor(c, n_donor_list=KSWEEP_KS, verbose=False,
+                                **KSWEEP_FIT)
+        wall = time.perf_counter() - t0
+        sweeps[label] = out
+        for f in fits:
+            log("[ksweep] %s K=%d: fit %.3f s, K0 launches %s; ELBOs of "
+                "the restarts %s" % (label, f["K"], f["s"],
+                                     json.dumps(f["launches"]),
+                                     ["%.1f" % e for e in out[f["K"]]]))
+        log("[ksweep] %s: best K %d, %.3f s, peak device memory %.3f GiB"
+            % (label, out["best"], wall,
+               torch.cuda.max_memory_allocated() / 2**30))
+        if label == "int8":
+            launches = _launches()
+            launches["K0_widths"] = widths
+            log("[ksweep] int8 launches %s" % json.dumps(launches))
+            missed = [f["K"] for f in fits
+                      if min(f["launches"].values()) < 1
+                      or min(widths.get("%s N=%d" % (
+                          k, KSWEEP_FIT["n_init"] * f["K"]), 0)
+                          for k in f["launches"]) < 1]
+            if len(fits) != len(KSWEEP_KS) or missed:
+                raise AssertionError("K0's kernels were not both launched, "
+                                     "at the warm width, in the fits of "
+                                     "K = %s" % missed)
+            if out["best"] != KSWEEP["n_donor"]:
+                raise AssertionError("the sweep picked K = %d, not the "
+                                     "truth %d" % (out["best"],
+                                                   KSWEEP["n_donor"]))
+        elif any(counts.LAUNCHES.values()):
+            raise AssertionError("float32 counts launched K0: %s"
+                                 % json.dumps(counts.LAUNCHES))
+        del c
+        torch.cuda.empty_cache()
+    i8, f32 = sweeps["int8"], sweeps["float32"]
+    for K in KSWEEP_KS:
+        rel = float(np.max(np.abs(f32[K] - i8[K]) / np.abs(i8[K])))
+        log("[ksweep] K=%d: best restart %d (int8) and %d (float32), "
+            "largest relative ELBO difference %.3e (gate %.0e)"
+            % (K, int(np.argmax(i8[K])), int(np.argmax(f32[K])), rel,
+               RUNG_ELBO_RTOL))
+        if np.argmax(i8[K]) != np.argmax(f32[K]) or rel > RUNG_ELBO_RTOL:
+            raise AssertionError("K=%d: the float32 sweep differs from the "
+                                 "int8 sweep" % K)
+    if f32["best"] != i8["best"]:
+        raise AssertionError("the float32 sweep picked K = %d"
+                             % f32["best"])
+    del dc
+    torch.cuda.empty_cache()
+    log("[ksweep] the phase took %.1f s" % (time.perf_counter() - t_phase))
+    return launches
+
+
+def _heavy_pool(n_var, n_cell, n_donor, hot_frac, density, seed=0):
+    """benchmarks/e2e_hybrid.py's heavy-tailed pool, its generator's lines
+    (:35-63) with its names: AD and DP as scipy CSR, and the truth
+    (donor, is_dbl, donor2: -1 for a singlet)."""
+    import scipy.sparse as sp
+    V, C, K = n_var, n_cell, n_donor
+    rng = np.random.RandomState(seed)
+    nnz = int(V * C * density)
+    rows = rng.randint(0, V, size=nnz)
+    cols = rng.randint(0, C, size=nnz)
+    GT = rng.randint(0, 3, size=(V, K))
+    theta = np.array([0.02, 0.5, 0.98])
+    donor = rng.randint(0, K, size=C)
+    is_dbl = rng.rand(C) < 0.08
+    donor2 = np.where(is_dbl, rng.randint(0, K, size=C), -1)
+
+    dp = rng.poisson(3.0, size=nnz) + 1
+    hot = rng.rand(nnz) < hot_frac
+    dp = dp + hot * rng.randint(200, 2000, size=nnz)
+    p = theta[GT[rows, donor[cols]]]
+    p2 = theta[GT[rows, donor2[cols]]]
+    use2 = (donor2[cols] >= 0) & (rng.rand(nnz) < 0.5)
+    p = np.where(use2, p2, p)
+    ad = rng.binomial(dp, p)
+    DP = sp.csr_matrix((dp.astype(np.float64), (rows, cols)), shape=(V, C))
+    AD = sp.csr_matrix((ad.astype(np.float64), (rows, cols)), shape=(V, C))
+    DP.sum_duplicates()
+    AD.sum_duplicates()
+    return dict(AD=AD, DP=DP, donor=donor, is_dbl=is_dbl, donor2=donor2)
+
+
+def _heavy_accuracy(pool, ID_prob):
+    """benchmarks/e2e_hybrid.py's singlet accuracy: over the true
+    singlets called with max ID_prob >= 0.9, after label matching
+    (Hungarian) over all true singlets; and the share so called."""
+    from scipy.optimize import linear_sum_assignment
+    K = ID_prob.shape[1]
+    pred = np.argmax(ID_prob, axis=1)
+    singlets = ~pool["is_dbl"]
+    hits = np.zeros((K, K))
+    for t in range(K):
+        hits[t] = np.bincount(pred[singlets & (pool["donor"] == t)],
+                              minlength=K)
+    ti, pi = linear_sum_assignment(-hits)
+    remap = np.empty(K, np.int64)
+    remap[pi] = ti
+    conf = singlets & (ID_prob.max(axis=1) >= 0.9)
+    return (float(np.mean(remap[pred[conf]] == pool["donor"][conf])),
+            float(np.mean(conf[singlets])))
+
+
+@contextlib.contextmanager
+def _warm_restarts(keep):
+    """vireo_wrap's warm restarts (its call of fit_vb) in the block: while
+    keep has no "warm", the fit runs and its result is kept there; once
+    it has one, the fit is not run and the kept result stands in for it,
+    so the run's refit and doublet phase start from the kept run's
+    winner (a seeded run hands that winner to its refit through the
+    host, so the kept tensors are not written)."""
+    from vireo_tpu_torch.engine import wrap
+    real = wrap.fit_vb
+
+    def spy(*args, **kwargs):
+        if "warm" not in keep:
+            keep["warm"] = real(*args, **kwargs)
+        return keep["warm"]
+
+    wrap.fit_vb = spy
+    try:
+        yield
+    finally:
+        wrap.fit_vb = real
+
+
+def _heavy_run(torch, pool, c, rung, tag, keep):
+    """vireo_wrap(c, HEAVY_FIT) with every launch count set to 0 just
+    before and read just after, its warm restarts kept into or taken
+    from `keep` (`_warm_restarts`); logged. Returns the result, the
+    launches and the accuracy."""
+    from vireo_tpu_torch.engine.wrap import vireo_wrap
+    phases, fits = {}, []
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with _fit_lengths(fits), _warm_restarts(keep):
+        res = vireo_wrap(c, n_donor=HEAVY["n_donor"], verbose=False,
+                         timing=phases, **HEAVY_FIT)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    acc, assigned = _heavy_accuracy(pool, res["ID_prob"])
+    top = np.argsort(res["LB_list"])[::-1][:3]
+    log("[heavy] %s, %s: fit iterations %s; the warm restarts' ELBOs (LB_list), best: "
+        "%s; vireo_wrap %.3f s (%s); peak device memory %.3f GiB; "
+        "launches %s; singlet accuracy %.5f over %.5f of the singlets; "
+        "LB_doublet %.6e"
+        % (rung, tag, fits[0] if len(fits) == 1 else
+           "%s, then %s" % (fits[0], fits[1][0]),
+           ", ".join("%d %.6e" % (i, res["LB_list"][i]) for i in top), wall,
+           ", ".join("%s %.3f s" % kv for kv in phases.items()),
+           torch.cuda.max_memory_allocated() / 2**30, json.dumps(launches),
+           acc, assigned, res["LB_doublet"]))
+    return res, launches, acc
+
+
+def phase_heavy(torch):
+    """`[heavy]`, HEAVY's note: the pool on its default rung and on each
+    rung of HEAVY_RUNGS, each placed by counts_from_scipy (the ladder's
+    rung checked), its two contractions run twice (equal bit for bit)
+    and handed to vireo_wrap prebuilt. Each rung's own run: the
+    int8-hybrid base launches both of K0's kernels, the packed-hybrid
+    base K2 and K3, the default and COO rungs none of K0-K3, and no rung
+    K1; its placement, phases, residual nonzeros, peak memory and
+    accuracy are logged, and its calls beside the default run's.
+
+    In float32 the warm restarts of this pool reach other optima on
+    other rungs (their sums round apart, and 20 iterations from random
+    inits amplify that), so each forced rung's calls are held against
+    the default rung's from one state: the forced rung runs vireo_wrap
+    again with the default run's warm restarts standing in for its own
+    (`_warm_restarts`), so its refit and doublet phase start from the
+    default run's winner. That run's calls against the default run's:
+    RUNG_AGREE of the confident singlets after label matching and of
+    the doublet calls, LB_doublet within RUNG_ELBO_RTOL, singlet
+    accuracy within HEAVY_ACC_ATOL. The default rung's own rerun from its
+    kept restarts must equal its run bit for bit."""
+    from vireo_tpu_torch.ops import counts
+    V, C, K = (HEAVY[k] for k in ("n_var", "n_cell", "n_donor"))
+    cuda = torch.device("cuda")
+    t_phase = t0 = time.perf_counter()
+    pool = _heavy_pool(**HEAVY)
+    AD, DP = pool["AD"], pool["DP"]
+    vmax = float(DP.max())
+    log("[heavy] pool %d x %d x %d, %d nonzeros (%d above 127, %d above "
+        "15; largest count %d), generated on the host in %.2f s"
+        % (V, C, K, DP.nnz, int((DP.data > 127).sum()),
+           int((DP.data > 15).sum()), int(vmax), time.perf_counter() - t0))
+    torch.cuda.empty_cache()
+    budget = counts.device_dense_budget(cuda)
+    log("[heavy] default budget %.1f GiB (55%% of the card's free memory): "
+        "rung %s (counts in %s)"
+        % (budget / 2**30, counts.ladder_rung((V, C), vmax, budget),
+           counts.exact_count_dtype(vmax)))
+    keep, base = {}, None
+    for rung, units in (("default", None),) + HEAVY_RUNGS:
+        if units is not None:
+            budget = max(units * V * C, 1)
+            if counts.ladder_rung((V, C), vmax, budget) != rung:
+                raise AssertionError("budget %d does not give the %s rung"
+                                     % (budget, rung))
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        c = counts.counts_from_scipy(AD, DP, device=cuda,
+                                     dense_budget=budget)
+        torch.cuda.synchronize()
+        log("[heavy] %s: %s%s%s placed in %.3f s; residual nonzeros %s"
+            % (rung, type(c).__name__,
+               "/" + type(c.base).__name__ if hasattr(c, "base") else "",
+               " " + str(c.ad.dtype) if hasattr(c, "ad") else "",
+               time.perf_counter() - t0,
+               c.resid_nnz if hasattr(c, "resid") else None))
+        _check_repeatable(torch, rung, c)
+        own = {} if base is not None else keep
+        res, launches, acc = _heavy_run(torch, pool, c, rung, "own run",
+                                        own)
+        k0 = launches["dense_suff_stats"] + launches["dense_cell_loglik"]
+        k23 = launches["K2"] + launches["K3"]
+        want = {"int8-hybrid": _k0_launched(launches) and k23 == 0,
+                "packed-hybrid": min(launches["K2"], launches["K3"]) > 0
+                and k0 == 0}.get(rung, k0 == 0 and k23 == 0)
+        if not want or launches["K1"]:
+            raise AssertionError("the %s rung launched %s" % (
+                rung, json.dumps(launches)))
+        again, _, again_acc = _heavy_run(
+            torch, pool, c, rung, "from the default run's warm restarts",
+            keep)
+        del c
+        torch.cuda.empty_cache()
+        if base is None:
+            base, base_acc = res, acc
+            conf = base["ID_prob"].max(1) >= 0.9
+            same = all(np.array_equal(again[k], res[k]) for k in (
+                "ID_prob", "doublet_prob", "LB_doublet", "GT_prob"))
+            log("[heavy] default: the rerun from its kept warm restarts "
+                "equal bit for bit: %s" % same)
+            if not same:
+                raise AssertionError("the default rung's rerun from its "
+                                     "kept warm restarts differs")
+            continue
+        log("[heavy] %s's own run vs the default run (not gated: other "
+            "optima): argmax agreement %.5f, doublet calls %.5f, "
+            "LB_doublet relative difference %.3e, singlet accuracy %.5f "
+            "vs %.5f" % ((rung,) + _rung_agreement(res, base, conf)
+                         + (acc, base_acc)))
+        agree, dbl, rel = _rung_agreement(again, base, conf)
+        log("[heavy] %s from the default run's warm restarts vs the "
+            "default run: argmax agreement %.5f over %d confident "
+            "singlets after label matching, doublet calls %.5f (gates "
+            "%.2f), LB_doublet relative difference %.3e (gate %.0e), "
+            "singlet accuracy %.5f vs %.5f (gate %.2f)"
+            % (rung, agree, int(conf.sum()), dbl, RUNG_AGREE, rel,
+               RUNG_ELBO_RTOL, again_acc, base_acc, HEAVY_ACC_ATOL))
+        if agree < RUNG_AGREE or dbl < RUNG_AGREE or \
+                rel > RUNG_ELBO_RTOL or \
+                abs(again_acc - base_acc) > HEAVY_ACC_ATOL:
+            raise AssertionError("the %s rung's calls disagree with the "
+                                 "default rung's" % rung)
+    log("[heavy] the phase took %.1f s" % (time.perf_counter() - t_phase))
+
+
 def phase_many_donors(torch):
     """A seeded 23-donor pool on the dense rung of the card under
     VIREO_FUSED_DOUBLET=1: its doublet space has 23 + C(23,2) = 276
@@ -2518,9 +2902,7 @@ def phase_many_donors(torch):
         cpu = vireo_wrap(d["AD"], d["DP"], n_donor=K, n_init=5,
                          random_seed=2, verbose=False, device="cpu")
     conf = cpu["ID_prob"].max(1) >= 0.9
-    agree = _matched_agreement(gpu["ID_prob"][conf], cpu["ID_prob"][conf])
-    dbl = float(np.mean((gpu["doublet_prob"].max(1) >= 0.9)
-                        == (cpu["doublet_prob"].max(1) >= 0.9)))
+    agree, dbl, _ = _rung_agreement(gpu, cpu, conf)
     log("[donors] %d donors (%d doublet columns) on the card under "
         "VIREO_FUSED_DOUBLET=1: %.2f s, K1 launches %d; vs the CPU: argmax "
         "agreement %.5f over %d confident singlets after label matching, "
@@ -2530,7 +2912,7 @@ def phase_many_donors(torch):
                                              gpu["doublet_prob"]))))
     if launches < 1:
         raise AssertionError("the 23-donor pool did not launch K1")
-    if agree < 0.99 or dbl < 0.99:
+    if agree < RUNG_AGREE or dbl < RUNG_AGREE:
         raise AssertionError("the 23-donor calls disagree with the CPU's")
 
 
@@ -3536,6 +3918,8 @@ def main():
         phase_mesh_cli(d, cell, main7)
         phase_mesh_packed(d, cell, packed_launches, packed8)
     del d, main7, packed8
+    ksweep = phase_ksweep(torch)
+    phase_heavy(torch)
     phase_mesh_small()
     phase_small_cross_check(torch)
     phase_small_branches(torch)
@@ -3552,7 +3936,8 @@ def main():
     # that fit's launches; K0 (vireo_wrap on the dense rung) at the warm
     # restarts' (N = 20 x 16) with all of that run's launches, and its
     # cell_loglik again at the doublet phase's N = 136 with the launches
-    # at that width; K2 and K3 (on the packed rung) at the warm restarts'
+    # at that width; K2 and K3 (on the packed rung) at the warm restarts';
+    # K0 at the K sweep's widths 96 and 128 with [ksweep]'s launches there
     table = [
         ("fused_estep_stats", "vireo_tpu_torch/csrc/fused_estep.cu",
          "vireo_tpu/ops/pallas_em.py:145",
@@ -3577,7 +3962,17 @@ def main():
          "vireo_wrap dense, doublet phase (N = %d)" % DOUBLET_N,
          dense_launches["K0_widths"].get(
              "dense_cell_loglik N=%d" % DOUBLET_N, 0),
-         k0[("doublet", "cell_loglik")])]
+         k0[("doublet", "cell_loglik")])] + [
+        ("dense_%s_sweep_n%d" % (name, N),
+         "vireo_tpu_torch/csrc/dense_counts.cu",
+         "vireo_tpu/ops/counts.py:%s (XLA dot), reached from "
+         "vireo_tpu/engine/select.py:65" % line,
+         "sweep_n_donor on int8 counts, K = %d (N = %d)"
+         % (N // KSWEEP_FIT["n_init"], N),
+         ksweep["K0_widths"].get("dense_%s N=%d" % (name, N), 0),
+         k0[("sweep%d" % N, name)])
+        for N in (96, 128)
+        for name, line in (("suff_stats", 78), ("cell_loglik", 87))]
     # the probes' kernels: their launches in the runs of the probes' entry
     # points; beside them their launches in the two vireo_wrap runs (0:
     # they lie on no path of vireo_wrap)

@@ -25,6 +25,8 @@ float32 weights:
   K3).
 """
 
+import re
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -412,11 +414,12 @@ def test_k0_arithmetic_matches_jax_on_float_weights(V, C, N):
     assert np.abs(got - ref).max() > 0   # the orders do differ
 
 
-# chip_smoke's [k0] shapes (warm and refit on the main pool, the edge
-# shapes) and ragged ones: V, C and N off every tile
+# chip_smoke's [k0] shapes (warm, refit and the K sweep's widths on the
+# main pool, the edge shapes) and ragged ones: V, C and N off every tile
 PLAN_SHAPES = [(name, V, C, N)
                for name in ("suff_stats", "cell_loglik")
                for V, C, N in ((30000, 100000, 320), (30000, 100000, 16),
+                               (30000, 100000, 96), (30000, 100000, 128),
                                (1001, 1999, 21), (1001, 2000, 21),
                                (37, 53, 5), (130, 301, 21), (129, 65, 81),
                                (1, 1, 1))]
@@ -481,6 +484,42 @@ def test_k0_plan_fills_the_waves_at_the_main_pools_shapes(name, N, slices):
                        80 if name == "suff_stats" else 64)
     waves = -(-plan.units // plan.grid)
     assert plan.units / (plan.grid * waves) >= 0.95
+
+
+def _instantiated_widths(name):
+    """The column tiles csrc/dense_counts.cu instantiates K0's kernel
+    `name` at (K0_SUFF_WIDTHS, K0_LOGLIK_WIDTHS), parsed from the source;
+    its dispatch refuses any other."""
+    macro = {"suff_stats": "K0_SUFF_WIDTHS",
+             "cell_loglik": "K0_LOGLIK_WIDTHS"}[name]
+    text = _build.source_path("dense_counts").read_text()
+    found = re.search(r"#define %s\(X\)((?: X\(\d+\))+)\n" % macro, text)
+    return [int(x) for x in re.findall(r"X\((\d+)\)", found.group(1))]
+
+
+@pytest.mark.parametrize("N,suff,loglik", [(96, 48, 48), (112, 64, 64),
+                                           (128, 64, 64), (144, 80, 48)])
+def test_k0_tiles_at_the_k_sweeps_widths(N, suff, loglik):
+    """The K sweep's warm widths n_init x K (8 x 12, 14, 16, 18: chip_smoke's
+    [ksweep]) take these column tiles at the main pool's shape, each one
+    the source instantiates."""
+    for name, bn in (("suff_stats", suff), ("cell_loglik", loglik)):
+        plan = counts.k0_plan(name, 30000, 100000, N, SMS)
+        assert plan.bn == bn == counts.pick_tile(N, counts.K0_TILES[name][1])
+        assert bn in _instantiated_widths(name)
+
+
+@pytest.mark.parametrize("name", ["suff_stats", "cell_loglik"])
+def test_every_k0_tile_is_instantiated(name):
+    """Every column tile the plan picks, for N from 1 to 1024, is a width
+    the source instantiates, and every instantiated width is picked for
+    some N: the widest is K0_TILES' and the rest are its multiples of
+    16 below it."""
+    widths = _instantiated_widths(name)
+    assert widths == list(range(16, counts.K0_TILES[name][1] + 1, 16))
+    picked = {counts.k0_plan(name, 300, 1000, N, SMS).bn
+              for N in range(1, 1025)}
+    assert picked == set(widths)
 
 
 def test_k0_k_order_gives_each_lane_column_16_adjacent_cells():
