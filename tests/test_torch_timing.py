@@ -1,13 +1,19 @@
 """utils/timing.py and the timing knobs: VIREO_TIMING=1 makes the port's
 vireo_wrap and CLI print the JAX package's per-phase summary (the same
-format and phases), PhaseTimer and throughput behave as JAX's, and
-VIREO_PROFILE=<dir> writes a torch.profiler trace."""
+format and phases), PhaseTimer behaves as JAX's, VIREO_PROFILE=<dir>
+writes a torch.profiler trace, and the program's `vireo.*` spans name
+its steps in any profiler's trace and cost nothing without one."""
 
 import json
+import os
 import re
+import tempfile
+import time
 
 import jax.numpy as jnp
+import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 from vireo_tpu.utils import timing as jtiming
@@ -61,9 +67,13 @@ def test_phase_timer_matches_jax_format():
     assert synced == [1] and list(timer.phases) == ["x"]
 
 
-def test_throughput_matches_jax():
-    for args in ((10, 100, 2.0), (3, 5, 0.0)):
-        assert ttiming.throughput(*args) == jtiming.throughput(*args)
+def test_phase_timer_reads_the_monotonic_clock(monkeypatch):
+    """A step of the wall clock moves no phase time."""
+    monkeypatch.setattr(time, "time", lambda: pytest.fail("wall clock read"))
+    timer = ttiming.PhaseTimer()
+    with timer.phase("a"):
+        pass
+    assert 0 <= timer.phases["a"] < 1
 
 
 @pytest.fixture(scope="module")
@@ -141,3 +151,193 @@ def test_vireo_profile_writes_a_trace(pool, tmp_path, monkeypatch):
     with ttiming.profile_trace(None):      # no directory: no trace
         pass
     assert len(list(out.glob("*.json"))) == 1
+
+
+# ---- the program's spans
+
+PHASES = ("data_placement", "warm_restarts", "model_build", "refit",
+          "doublet")
+
+
+def _traced(fn):
+    """(fn's result, the `vireo.*` spans of the calling thread as
+    (name, start, end), in start order) under a CPU torch.profiler."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = fn()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.unlink(path)
+    return out, sorted(((e["name"], float(e["ts"]),
+                         float(e["ts"]) + e["dur"]) for e in events
+                        if e.get("cat") == "user_annotation"
+                        and e["name"].startswith("vireo.")),
+                       key=lambda span: span[1])
+
+
+def _named(spans, name):
+    return [span for span in spans if span[0] == name]
+
+
+def _inside(inner, outers):
+    return any(o[1] <= inner[1] and inner[2] <= o[2] for o in outers)
+
+
+class _Calls:
+    """Counts the calls of a counts class's two contractions, as the
+    benchmark's class wrapper records them."""
+
+    def __init__(self, monkeypatch, cls):
+        self.n = {"suff_stats": 0, "cell_loglik": 0}
+        for kind in self.n:
+            real = getattr(cls, kind)
+
+            def call(counts, *a, _real=real, _kind=kind, **kw):
+                self.n[_kind] += 1
+                return _real(counts, *a, **kw)
+            monkeypatch.setattr(cls, kind, call)
+
+
+@pytest.mark.parametrize("device_mt", ["0", "1"])
+def test_vireo_wrap_spans_nest_in_its_phases(pool, monkeypatch, device_mt):
+    """From host scipy: placement's steps inside `vireo.data_placement`,
+    the inits' steps (on the host, or regenerated on the device) inside
+    `vireo.inits` inside `vireo.warm_restarts`, and one contraction span
+    for each call the class wrapper records."""
+    from vireo_tpu_torch.engine.wrap import vireo_wrap
+    from vireo_tpu_torch.ops.counts import DenseCounts
+    monkeypatch.setenv("VIREO_DEVICE_MT", device_mt)
+    calls = _Calls(monkeypatch, DenseCounts)
+    _, spans = _traced(lambda: vireo_wrap(
+        pool["AD"], pool["DP"], n_donor=3, n_init=2, random_seed=1,
+        verbose=False, device="cpu"))
+    for name in PHASES:
+        assert len(_named(spans, "vireo." + name)) == 1, name
+    place = _named(spans, "vireo.data_placement")
+    steps = [sp for sp in spans if sp[0].startswith("vireo.place.")]
+    assert {sp[0] for sp in steps} == {"vireo.place.union",
+                                       "vireo.place.rung",
+                                       "vireo.place.upload"}
+    assert all(_inside(sp, place) for sp in steps)
+    inits = _named(spans, "vireo.inits")
+    assert len(inits) == 1
+    assert _inside(inits[0], _named(spans, "vireo.warm_restarts"))
+    subs = {sp[0] for sp in spans if sp[0].startswith("vireo.inits.")}
+    assert subs == ({"vireo.inits.host"} if device_mt == "0" else
+                    {"vireo.inits.plan", "vireo.inits.stream",
+                     "vireo.inits.normalise"})
+    assert all(_inside(sp, inits) for sp in spans
+               if sp[0].startswith("vireo.inits."))
+    for kind, n in calls.n.items():
+        assert n > 0 and len(_named(spans, "vireo." + kind)) == n, kind
+    fits = _named(spans, "vireo.fit")
+    assert len(fits) == 2 and _inside(fits[0],
+                                      _named(spans, "vireo.warm_restarts"))
+    assert _inside(fits[1], _named(spans, "vireo.refit"))
+    assert len(_named(spans, "vireo.binom")) == 2
+
+
+def _heavy(pool):
+    """The pool with a few counts above 127, for the hybrid rungs."""
+    AD, DP = pool["AD"].toarray(), pool["DP"].toarray()
+    rows, cols = np.nonzero(DP)
+    DP[rows[:7], cols[:7]] += 200.0
+    AD[rows[:7], cols[:7]] += 150.0
+    return sp.csc_matrix(AD), sp.csc_matrix(DP)
+
+
+@pytest.mark.parametrize("rung,budget,heavy", [
+    ("dense", None, False), ("packed", 1.0, False),
+    ("int8-hybrid", 2.0, True), ("packed-hybrid", 1.0, True),
+    ("coo", 1 / 120 / 160, False)])
+def test_one_contraction_span_per_call_on_every_rung(pool, monkeypatch, rung,
+                                                     budget, heavy):
+    """A hybrid's base and residual calls open no span of their own: each
+    call of the placed counts' class lies inside exactly one span."""
+    from vireo_tpu_torch.engine.wrap import vireo_wrap
+    from vireo_tpu_torch.ops.counts import (counts_from_scipy,
+                                            device_dense_budget, ladder_rung)
+    AD, DP = _heavy(pool) if heavy else (pool["AD"], pool["DP"])
+    budget = None if budget is None else budget * AD.shape[0] * AD.shape[1]
+    counts = counts_from_scipy(AD, DP, device="cpu", dense_budget=budget)
+    assert ladder_rung(AD.shape, DP.max(),
+                       budget or device_dense_budget("cpu")) == rung
+    calls = _Calls(monkeypatch, type(counts))
+    _, spans = _traced(lambda: vireo_wrap(
+        counts, n_donor=3, n_init=2, random_seed=1, verbose=False,
+        device="cpu"))
+    for kind, n_calls in calls.n.items():
+        mine = _named(spans, "vireo." + kind)
+        assert n_calls > 0 and len(mine) == n_calls, kind
+        assert not any(_inside(a, [b]) for a in mine for b in mine
+                       if a is not b)
+    assert len(_named(spans, "vireo.binom")) == 2
+
+
+def test_sweep_opens_inits_and_fit_once_per_k(pool):
+    from vireo_tpu_torch.engine.select import sweep_n_donor
+    from vireo_tpu_torch.ops.counts import counts_from_scipy
+    counts = counts_from_scipy(pool["AD"], pool["DP"], device="cpu")
+    Ks = (2, 3, 4)
+    for seed in (1, None):
+        _, spans = _traced(lambda: sweep_n_donor(
+            counts, n_donor_list=Ks, n_init=2, random_seed=seed,
+            verbose=False))
+        assert len(_named(spans, "vireo.inits")) == len(Ks)
+        assert len(_named(spans, "vireo.fit")) == len(Ks)
+        assert len(_named(spans, "vireo.binom")) == 1
+
+
+def test_no_span_is_recorded_without_a_profiler(pool, monkeypatch):
+    """Without a profiler the spans enter no `record_function`; under
+    one they do (the count proves the patch is seen)."""
+    from vireo_tpu_torch.engine.select import sweep_n_donor
+    from vireo_tpu_torch.engine.wrap import vireo_wrap
+    entered = []
+    real = torch.profiler.record_function
+
+    def counted(*a, **kw):
+        entered.append(a)
+        return real(*a, **kw)
+    monkeypatch.setattr(torch.profiler, "record_function", counted)
+
+    def run():
+        vireo_wrap(pool["AD"], pool["DP"], n_donor=3, n_init=2,
+                   random_seed=1, verbose=False, device="cpu",
+                   check_ambient=True)
+        sweep_n_donor(pool["AD"], pool["DP"], n_donor_list=(2, 3),
+                      n_init=2, random_seed=1, verbose=False, device="cpu")
+    run()
+    assert entered == []
+    _traced(run)
+    assert ("vireo.inits",) in entered and ("vireo.ambient",) in entered
+
+
+def test_results_are_the_same_under_a_profiler(pool):
+    from vireo_tpu_torch.engine.select import sweep_n_donor
+    from vireo_tpu_torch.engine.wrap import vireo_wrap
+
+    def run():
+        res = vireo_wrap(pool["AD"], pool["DP"], n_donor=3, n_init=3,
+                         random_seed=2, verbose=False, device="cpu")
+        sweep = sweep_n_donor(pool["AD"], pool["DP"], n_donor_list=(2, 3),
+                              n_init=2, random_seed=2, verbose=False,
+                              device="cpu")
+        return res, sweep
+    plain, plain_sweep = run()
+    (traced, traced_sweep), spans = _traced(run)
+    assert spans
+    for key, value in plain.items():
+        if value is None:
+            assert traced[key] is None, key
+        else:
+            assert np.array_equal(np.asarray(value), np.asarray(traced[key]),
+                                  equal_nan=True), key
+    assert plain_sweep["best"] == traced_sweep["best"]
+    for K in (2, 3):
+        assert np.array_equal(plain_sweep[K], traced_sweep[K])

@@ -38,7 +38,7 @@ from ..parallel.mesh import (Mesh, Layout, ShardedCounts, VAR_AXIS,
                              make_mesh, make_mesh2d, n_cell_shards,
                              shard_state, gather_state, world_size, world_min)
 from ..utils import checkpoint as ckpt
-from ..utils.timing import PhaseTimer, profile_trace, timing_env
+from ..utils.timing import PhaseTimer, profile_trace, span, timing_env
 from ..utils.device import (resolve_device, default_dtype,
                             pin_matmul_precision, numpy_dtype, sync)
 
@@ -220,24 +220,25 @@ def _host_batched_init(cfg, n_init, GT_prior_use, rng, dtype, device,
     K, C, G = cfg.n_donor, cfg.n_cell, cfg.n_GT
     c_draw = C if n_cell_draw is None else int(n_cell_draw)
     np_dtype = numpy_dtype(dtype)
-    id_b = np.empty((n_init, C, K), np_dtype)
-    gt_b = np.empty((n_init, cfg.n_var, K, G), np_dtype)
-    id_b[:, c_draw:, :] = 1.0 / K
-    if GT_prior_use is not None:
-        gp = np.asarray(GT_prior_use, np.float64)
-        gp = gp / gp.sum(-1, keepdims=True)
-    for i in range(n_init):
-        idp = rng.rand(c_draw, K)
-        id_b[i, :c_draw] = idp / idp.sum(1, keepdims=True)
-        if GT_prior_use is None:
-            gtp = rng.rand(cfg.n_var, K, G)
-            gt_b[i] = gtp / gtp.sum(-1, keepdims=True)
-        else:
-            gt_b[i] = gp
-    beta_mu, beta_sum = _batched_beta(cfg, n_init, dtype, device)
-    return VireoState(beta_mu=beta_mu, beta_sum=beta_sum,
-                      gt_prob=torch.from_numpy(gt_b).to(device),
-                      id_prob=torch.from_numpy(id_b).to(device))
+    with span("inits.host"):
+        id_b = np.empty((n_init, C, K), np_dtype)
+        gt_b = np.empty((n_init, cfg.n_var, K, G), np_dtype)
+        id_b[:, c_draw:, :] = 1.0 / K
+        if GT_prior_use is not None:
+            gp = np.asarray(GT_prior_use, np.float64)
+            gp = gp / gp.sum(-1, keepdims=True)
+        for i in range(n_init):
+            idp = rng.rand(c_draw, K)
+            id_b[i, :c_draw] = idp / idp.sum(1, keepdims=True)
+            if GT_prior_use is None:
+                gtp = rng.rand(cfg.n_var, K, G)
+                gt_b[i] = gtp / gtp.sum(-1, keepdims=True)
+            else:
+                gt_b[i] = gp
+        beta_mu, beta_sum = _batched_beta(cfg, n_init, dtype, device)
+        return VireoState(beta_mu=beta_mu, beta_sum=beta_sum,
+                          gt_prob=torch.from_numpy(gt_b).to(device),
+                          id_prob=torch.from_numpy(id_b).to(device))
 
 
 def _mt_batched_init(cfg, n_init, GT_prior_use, rng, dtype, device,
@@ -255,21 +256,24 @@ def _mt_batched_init(cfg, n_init, GT_prior_use, rng, dtype, device,
     c_draw = C if n_cell_draw is None else int(n_cell_draw)
     gt_draw = 0 if GT_prior_use is not None else V * K * G
     per = c_draw * K + gt_draw
-    flat = device_stream(plan_stream(n_init * per, rng=rng, device=device))
-    flat = flat.reshape(n_init, per)
+    with span("inits.plan"):
+        plan = plan_stream(n_init * per, rng=rng, device=device)
+    with span("inits.stream"):
+        flat = device_stream(plan).reshape(n_init, per)
 
-    idp = flat[:, :c_draw * K].reshape(n_init, c_draw, K)
-    idn = torch.full((n_init, C, K), 1.0 / K, dtype=dtype, device=device)
-    idn[:, :c_draw] = idp / np_pairwise_sum_last(idp)[..., None]
-    del idp
-    if gt_draw:
-        gtp = flat[:, c_draw * K:].reshape(n_init, V, K, G)
-        gtn = (gtp / np_pairwise_sum_last(gtp)[..., None]).to(dtype)
-        del gtp
-    else:
-        gp = np.asarray(GT_prior_use, np.float64)
-        gp = torch.from_numpy(gp / gp.sum(-1, keepdims=True))
-        gtn = gp.to(device=device, dtype=dtype).expand(n_init, V, K, G)
+    with span("inits.normalise"):
+        idp = flat[:, :c_draw * K].reshape(n_init, c_draw, K)
+        idn = torch.full((n_init, C, K), 1.0 / K, dtype=dtype, device=device)
+        idn[:, :c_draw] = idp / np_pairwise_sum_last(idp)[..., None]
+        del idp
+        if gt_draw:
+            gtp = flat[:, c_draw * K:].reshape(n_init, V, K, G)
+            gtn = (gtp / np_pairwise_sum_last(gtp)[..., None]).to(dtype)
+            del gtp
+        else:
+            gp = np.asarray(GT_prior_use, np.float64)
+            gp = torch.from_numpy(gp / gp.sum(-1, keepdims=True))
+            gtn = gp.to(device=device, dtype=dtype).expand(n_init, V, K, G)
     beta_mu, beta_sum = _batched_beta(cfg, n_init, dtype, device)
     return VireoState(beta_mu=beta_mu, beta_sum=beta_sum, gt_prob=gtn,
                       id_prob=idn)
@@ -305,8 +309,9 @@ def _seeded_batched_init(cfg, n_init, GT_prior_use, rng, dtype, device,
     use_mt = _env_tristate("VIREO_DEVICE_MT",
                            n_total >= _MT_STREAM_MIN_DOUBLES)
     init = _mt_batched_init if use_mt else _host_batched_init
-    return init(cfg, n_init, GT_prior_use, rng, dtype, device,
-                n_cell_draw=n_cell_draw)
+    with span("inits"):
+        return init(cfg, n_init, GT_prior_use, rng, dtype, device,
+                    n_cell_draw=n_cell_draw)
 
 
 def _device_batched_init(cfg, n_init, GT_prior_use, generator, dtype,
@@ -316,18 +321,19 @@ def _device_batched_init(cfg, n_init, GT_prior_use, generator, dtype,
     carry no parity contract with any other stream."""
     shape_id = (n_init, cfg.n_cell, cfg.n_donor)
     shape_gt = (n_init, cfg.n_var, cfg.n_donor, cfg.n_GT)
-    idp = torch.rand(shape_id, generator=generator, dtype=dtype,
-                     device=device)
-    if GT_prior_use is None:
-        gtp = torch.rand(shape_gt, generator=generator, dtype=dtype,
+    with span("inits"):
+        idp = torch.rand(shape_id, generator=generator, dtype=dtype,
                          device=device)
-    else:
-        gtp = torch.as_tensor(np.asarray(GT_prior_use), device=device).to(
-            dtype).expand(shape_gt)
-    beta_mu, beta_sum = _batched_beta(cfg, n_init, dtype, device)
-    return VireoState(beta_mu=beta_mu, beta_sum=beta_sum,
-                      gt_prob=gtp / gtp.sum(-1, keepdim=True),
-                      id_prob=idp / idp.sum(-1, keepdim=True))
+        if GT_prior_use is None:
+            gtp = torch.rand(shape_gt, generator=generator, dtype=dtype,
+                             device=device)
+        else:
+            gtp = torch.as_tensor(np.asarray(GT_prior_use),
+                                  device=device).to(dtype).expand(shape_gt)
+        beta_mu, beta_sum = _batched_beta(cfg, n_init, dtype, device)
+        return VireoState(beta_mu=beta_mu, beta_sum=beta_sum,
+                          gt_prob=gtp / gtp.sum(-1, keepdim=True),
+                          id_prob=idp / idp.sum(-1, keepdim=True))
 
 
 def _model_from_state(counts, cfg_kwargs, n_donor, learn_GT, state,

@@ -32,6 +32,7 @@ from ..ops.math import (softmax_from_loglik, kl_categorical, beta_entropy,
                         digamma_triplet)
 from ..parallel.mesh import CELL_AXIS, VAR_AXIS, shard_state, shard_priors
 from ..utils.device import resolve_device, default_dtype, numpy_dtype
+from ..utils.timing import span
 
 __all__ = ["VireoConfig", "VireoState", "VireoPriors", "FitResult",
            "em_step", "fit_vb", "converge", "run_em_iters",
@@ -407,8 +408,9 @@ def fit_vb(counts, state, priors, cfg, max_iter=200, min_iter=5,
                               update_theta=(n >= delay_fit_theta), mesh=mesh)
         return st, elbo
 
-    return FitResult(*converge(step, state, max_iter, min_iter,
-                               epsilon_conv))
+    with span("fit"):
+        return FitResult(*converge(step, state, max_iter, min_iter,
+                                   epsilon_conv))
 
 
 def converge(step, state, max_iter, min_iter, epsilon_conv):

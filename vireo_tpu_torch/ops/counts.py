@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.timing import span
 from ._launch import launch, on_cpu
 from .math import log_binom_coeff
 from .packed import (PACK_MAX, PackedCounts, check_weights,
@@ -443,25 +444,28 @@ class DenseCounts:
 
     def suff_stats(self, W):
         """(AD @ W, DP @ W) for W of shape (n_cell, N) -> two (n_var, N)."""
-        if self.ad.dtype == torch.int8:
-            return dense_suff_stats(self.ad, self.dp, W, self.row_chunk)
-        return suff_stats_reference(self.ad, self.dp, W, self.row_chunk)
+        with span("suff_stats"):
+            if self.ad.dtype == torch.int8:
+                return dense_suff_stats(self.ad, self.dp, W, self.row_chunk)
+            return suff_stats_reference(self.ad, self.dp, W, self.row_chunk)
 
     def cell_loglik(self, Wa, Wd):
         """AD.T @ Wa + DP.T @ Wd for (n_var, N) weights -> (n_cell, N)."""
-        if self.ad.dtype == torch.int8:
-            return dense_cell_loglik(self.ad, self.dp, Wa, Wd,
-                                     self.row_chunk)
-        return cell_loglik_reference(self.ad, self.dp, Wa, Wd,
-                                     self.row_chunk)
+        with span("cell_loglik"):
+            if self.ad.dtype == torch.int8:
+                return dense_cell_loglik(self.ad, self.dp, Wa, Wd,
+                                         self.row_chunk)
+            return cell_loglik_reference(self.ad, self.dp, Wa, Wd,
+                                         self.row_chunk)
 
     def binom_coeff_sum(self):
         """Sum of log C(DP, AD) over DP > 0 entries, accumulated in
         float64 one block of rows at a time; a 0-d float64 tensor."""
-        total = torch.zeros((), dtype=torch.float64, device=self.device)
-        for _, _, a, d in self._chunks(torch.float64):
-            total += log_binom_coeff(d, a).sum()
-        return total
+        with span("binom"):
+            total = torch.zeros((), dtype=torch.float64, device=self.device)
+            for _, _, a, d in self._chunks(torch.float64):
+                total += log_binom_coeff(d, a).sum()
+            return total
 
     def row_sums(self):
         """(AD.sum(axis=1), DP.sum(axis=1)) -> two (n_var,), int64 for
@@ -685,31 +689,35 @@ class SparseCounts:
 
     def suff_stats(self, W):
         """(AD @ W, DP @ W) for W (n_cell, N) -> two (n_var, N)."""
-        S1 = torch.zeros((self.n_var, W.shape[1]), dtype=W.dtype,
-                         device=W.device)
-        SS = torch.zeros_like(S1)
-        for b in self._blocks():
-            x = W.index_select(0, self.cols_r[b])
-            rows = (self.rows_r[b],)
-            S1.index_put_(rows, self.ad_r[b, None] * x, accumulate=True)
-            SS.index_put_(rows, self.dp_r[b, None] * x, accumulate=True)
-        return S1, SS
+        with span("suff_stats"):
+            S1 = torch.zeros((self.n_var, W.shape[1]), dtype=W.dtype,
+                             device=W.device)
+            SS = torch.zeros_like(S1)
+            for b in self._blocks():
+                x = W.index_select(0, self.cols_r[b])
+                rows = (self.rows_r[b],)
+                S1.index_put_(rows, self.ad_r[b, None] * x, accumulate=True)
+                SS.index_put_(rows, self.dp_r[b, None] * x, accumulate=True)
+            return S1, SS
 
     def cell_loglik(self, Wa, Wd):
         """AD.T @ Wa + DP.T @ Wd for (n_var, N) weights -> (n_cell, N)."""
-        out = torch.zeros((self.n_cell, Wa.shape[1]), dtype=Wa.dtype,
-                          device=Wa.device)
-        for b in self._blocks():
-            r = self.rows_c[b]
-            out.index_put_((self.cols_c[b],),
-                           self.ad_c[b, None] * Wa.index_select(0, r)
-                           + self.dp_c[b, None] * Wd.index_select(0, r),
-                           accumulate=True)
-        return out
+        with span("cell_loglik"):
+            out = torch.zeros((self.n_cell, Wa.shape[1]), dtype=Wa.dtype,
+                              device=Wa.device)
+            for b in self._blocks():
+                r = self.rows_c[b]
+                out.index_put_((self.cols_c[b],),
+                               self.ad_c[b, None] * Wa.index_select(0, r)
+                               + self.dp_c[b, None] * Wd.index_select(0, r),
+                               accumulate=True)
+            return out
 
     def binom_coeff_sum(self):
         """Sum of log C(DP, AD) over the nonzeros, in float64."""
-        return log_binom_coeff(self.dp_r.double(), self.ad_r.double()).sum()
+        with span("binom"):
+            return log_binom_coeff(self.dp_r.double(),
+                                   self.ad_r.double()).sum()
 
     def row_sums(self):
         """(AD.sum(axis=1), DP.sum(axis=1)) -> two float64 (n_var,)."""
@@ -848,16 +856,19 @@ class HybridCounts:
         return self.resid.nnz
 
     def suff_stats(self, W):
-        b1, b2 = self.base.suff_stats(W)
-        r1, r2 = self.resid.suff_stats(W)
-        return b1 + r1, b2 + r2
+        with span("suff_stats"):
+            b1, b2 = self.base.suff_stats(W)
+            r1, r2 = self.resid.suff_stats(W)
+            return b1 + r1, b2 + r2
 
     def cell_loglik(self, Wa, Wd):
-        return (self.base.cell_loglik(Wa, Wd)
-                + self.resid.cell_loglik(Wa, Wd))
+        with span("cell_loglik"):
+            return (self.base.cell_loglik(Wa, Wd)
+                    + self.resid.cell_loglik(Wa, Wd))
 
     def binom_coeff_sum(self):
-        return self.base.binom_coeff_sum() + self.binom_corr
+        with span("binom"):
+            return self.base.binom_coeff_sum() + self.binom_corr
 
     def row_sums(self):
         ba, bd = self.base.row_sums()
@@ -1077,20 +1088,21 @@ def _packed_shard_factor(mesh):
 def _rung_counts(rung, rows, cols, ad_v, dp_v, shape, vmax, device):
     """The counts object of `rung` for host triplets of a (V, C) block;
     the dense rung in `exact_count_dtype(vmax)`."""
-    if rung == "dense":
-        dtype = exact_count_dtype(vmax)
-        return DenseCounts(
-            _scatter_dense(rows, cols, ad_v, shape, dtype, device),
-            _scatter_dense(rows, cols, dp_v, shape, dtype, device))
-    if rung == "int8-hybrid":
-        return _hybrid_from_triplets(rows, cols, ad_v, dp_v, shape, 127,
-                                     "int8", device)
-    if rung == "packed":
-        return _pack_triplets(rows, cols, ad_v, dp_v, shape, device)
-    if rung == "packed-hybrid":
-        return _hybrid_from_triplets(rows, cols, ad_v, dp_v, shape, PACK_MAX,
-                                     "packed", device)
-    return _sparse_from_triplets(rows, cols, ad_v, dp_v, shape, device)
+    with span("place.upload"):
+        if rung == "dense":
+            dtype = exact_count_dtype(vmax)
+            return DenseCounts(
+                _scatter_dense(rows, cols, ad_v, shape, dtype, device),
+                _scatter_dense(rows, cols, dp_v, shape, dtype, device))
+        if rung == "int8-hybrid":
+            return _hybrid_from_triplets(rows, cols, ad_v, dp_v, shape, 127,
+                                         "int8", device)
+        if rung == "packed":
+            return _pack_triplets(rows, cols, ad_v, dp_v, shape, device)
+        if rung == "packed-hybrid":
+            return _hybrid_from_triplets(rows, cols, ad_v, dp_v, shape,
+                                         PACK_MAX, "packed", device)
+        return _sparse_from_triplets(rows, cols, ad_v, dp_v, shape, device)
 
 
 def _value_range(*mats):
@@ -1136,7 +1148,8 @@ def _mesh_counts(rung, AD, DP, shape, vmax, mesh, device):
         lay = Layout.even(mesh, (V, S * -(-C // S)))
         stored = lay.n_cell_local
     c0 = lay.cells[0]
-    block = _block_union(AD, DP, lay.vars, (c0, c0 + stored))
+    with span("place.union"):
+        block = _block_union(AD, DP, lay.vars, (c0, c0 + stored))
     local = _rung_counts(rung, *block, (lay.n_var_local, stored), vmax,
                          device)
     cls = MeshPackedCounts if rung == "packed" else ShardedCounts
@@ -1166,31 +1179,31 @@ def counts_from_scipy(AD, DP, device=None, dense_budget=None, verbose=False,
     the pool's, rounded up to the cell shards except on the packed
     rungs.
     """
-    if mesh is not None:
+    if mesh is None:
+        with span("place.union"):
+            rows, cols, ad_v, dp_v = _host_union_triplets(AD, DP)
+        values = (ad_v, dp_v)
+    else:
         device = mesh.device if device is None else device
         # each rank reads only its block, once the rung is known
-        vmin, vmax = _value_range(AD, DP)
-    else:
-        rows, cols, ad_v, dp_v = _host_union_triplets(AD, DP)
-        vmax = float(max(ad_v.max() if len(ad_v) else 0.0,
-                         dp_v.max() if len(dp_v) else 0.0))
-        vmin = float(min(ad_v.min() if len(ad_v) else 0.0,
-                         dp_v.min() if len(dp_v) else 0.0))
-    device = resolve_device(device)
-    if vmin < 0:
-        raise ValueError("counts must be non-negative")
-    shape = (int(AD.shape[0]), int(AD.shape[1]))
-    if dense_budget is not None:
-        budget = packed_budget = dense_budget
-    elif mesh is None:
-        budget = packed_budget = device_dense_budget(device)
-    else:
-        # the smallest rank's budget, so that every rank picks one rung
-        from ..parallel.mesh import world_min
-        least = world_min(device_dense_budget(device))
-        budget = least * _shard_factor(mesh)
-        packed_budget = least * _packed_shard_factor(mesh)
-    rung = ladder_rung(shape, vmax, budget, packed_budget)
+        values = (AD, DP)
+    with span("place.rung"):
+        vmin, vmax = _value_range(*values)
+        device = resolve_device(device)
+        if vmin < 0:
+            raise ValueError("counts must be non-negative")
+        shape = (int(AD.shape[0]), int(AD.shape[1]))
+        if dense_budget is not None:
+            budget = packed_budget = dense_budget
+        elif mesh is None:
+            budget = packed_budget = device_dense_budget(device)
+        else:
+            # the smallest rank's budget, so that every rank picks one rung
+            from ..parallel.mesh import world_min
+            least = world_min(device_dense_budget(device))
+            budget = least * _shard_factor(mesh)
+            packed_budget = least * _packed_shard_factor(mesh)
+        rung = ladder_rung(shape, vmax, budget, packed_budget)
     if verbose and (mesh is None or mesh.is_root):
         what = {
             "dense": "densified as %s (%.1f GiB)" % (

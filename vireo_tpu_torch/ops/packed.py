@@ -46,6 +46,7 @@ import torch
 from ._launch import launch, on_cpu
 from .math import log_binom_coeff
 from ..parallel.mesh import ShardedCounts
+from ..utils.timing import span
 
 __all__ = ["PACK_MAX", "PackedCounts", "pack_dense", "packed_suff_stats",
            "packed_cell_loglik", "suff_stats_reference",
@@ -250,11 +251,14 @@ class PackedCounts:
 
     def suff_stats(self, W):
         """(AD @ W, DP @ W) for W (n_cell, N) -> two (n_var, N)."""
-        return packed_suff_stats(self.ad_p, self.dp_p, self.n_cell, W)
+        with span("suff_stats"):
+            return packed_suff_stats(self.ad_p, self.dp_p, self.n_cell, W)
 
     def cell_loglik(self, Wa, Wd):
         """AD.T @ Wa + DP.T @ Wd for (n_var, N) weights -> (n_cell, N)."""
-        return packed_cell_loglik(self.ad_p, self.dp_p, self.n_cell, Wa, Wd)
+        with span("cell_loglik"):
+            return packed_cell_loglik(self.ad_p, self.dp_p, self.n_cell, Wa,
+                                      Wd)
 
     def _blocks(self, dtype):
         """(lo, hi) planes of AD and DP, one block of rows at a time."""
@@ -266,11 +270,13 @@ class PackedCounts:
     def binom_coeff_sum(self):
         """Sum of log C(DP, AD) over DP > 0 entries, accumulated in
         float64 (the zero padding nibble adds 0); a 0-d float64 tensor."""
-        total = torch.zeros((), dtype=torch.float64, device=self.device)
-        for _, _, (a_lo, a_hi), (d_lo, d_hi) in self._blocks(torch.float64):
-            total += log_binom_coeff(d_lo, a_lo).sum()
-            total += log_binom_coeff(d_hi, a_hi).sum()
-        return total
+        with span("binom"):
+            total = torch.zeros((), dtype=torch.float64, device=self.device)
+            for _, _, (a_lo, a_hi), (d_lo, d_hi) in self._blocks(
+                    torch.float64):
+                total += log_binom_coeff(d_lo, a_lo).sum()
+                total += log_binom_coeff(d_hi, a_hi).sum()
+            return total
 
     def row_sums(self):
         """(AD.sum(axis=1), DP.sum(axis=1)) -> two exact int64 (n_var,)."""

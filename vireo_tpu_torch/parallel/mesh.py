@@ -39,6 +39,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils.timing import span
+
 __all__ = ["CELL_AXIS", "VAR_AXIS", "Mesh", "Layout", "ShardedCounts",
            "make_mesh", "make_mesh2d", "count_spec", "n_cell_shards",
            "initialize_distributed", "shard_bounds", "shard_state",
@@ -500,21 +502,24 @@ class ShardedCounts:
     def suff_stats(self, W):
         """(AD @ W, DP @ W) for this rank's cells' weights (n_cell_local,
         N) -> two (n_var_local, N), summed over every cell."""
-        S1, SS = self.local.suff_stats(self._pad_cells(W))
-        S = self.mesh.all_reduce(torch.stack([S1, SS]), CELL_AXIS)
-        return S[0], S[1]
+        with span("suff_stats"):
+            S1, SS = self.local.suff_stats(self._pad_cells(W))
+            S = self.mesh.all_reduce(torch.stack([S1, SS]), CELL_AXIS)
+            return S[0], S[1]
 
     def cell_loglik(self, Wa, Wd):
         """AD.T @ Wa + DP.T @ Wd for this rank's variants' weights
         (n_var_local, N) -> (n_cell_local, N), summed over every
         variant."""
-        out = self.local.cell_loglik(Wa, Wd)[:self.layout.n_cell_local]
-        if self.mesh.has(VAR_AXIS):
-            out = self.mesh.all_reduce(out.contiguous(), VAR_AXIS)
-        return out
+        with span("cell_loglik"):
+            out = self.local.cell_loglik(Wa, Wd)[:self.layout.n_cell_local]
+            if self.mesh.has(VAR_AXIS):
+                out = self.mesh.all_reduce(out.contiguous(), VAR_AXIS)
+            return out
 
     def binom_coeff_sum(self):
-        return self.mesh.all_reduce(self.local.binom_coeff_sum())
+        with span("binom"):
+            return self.mesh.all_reduce(self.local.binom_coeff_sum())
 
     def row_sums(self):
         a, d = self.local.row_sums()
