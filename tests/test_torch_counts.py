@@ -200,3 +200,179 @@ def test_sparse_densify_promotes_a_narrow_dtype(capsys):
     assert dense.dp.dtype == exact_count_dtype(DP.max())
     np.testing.assert_array_equal(dense.dp.double().numpy(), DP.toarray())
     assert coo.densify(dtype=torch.float64).dp.dtype == torch.float64
+
+
+# ---- placement: the dense rung from each matrix's own arrays
+
+def _csc_by_hand(X, per_col):
+    """A CSC matrix of X's entries in the order (and with the splits)
+    `per_col(rows, vals)` gives each column, built from its arrays, so
+    scipy neither sorts nor sums them."""
+    X = sp.csc_matrix(X)
+    indptr, indices, data = [0], [], []
+    for j in range(X.shape[1]):
+        lo, hi = X.indptr[j], X.indptr[j + 1]
+        r, v = per_col(X.indices[lo:hi], X.data[lo:hi])
+        indices.extend(r)
+        data.extend(v)
+        indptr.append(len(indices))
+    M = sp.csc_matrix((np.asarray(data, X.dtype), np.asarray(indices),
+                       np.asarray(indptr)), shape=X.shape)
+    assert not M.has_canonical_format or len(data) == X.nnz
+    return M
+
+
+def _placement_case(case):
+    """An AD-DP pair in the form `case` names (see the test)."""
+    AD, DP = _pool(seed=8, V=37, C=53)
+    if case == "csc":
+        return AD, DP
+    if case == "csr":
+        return AD.tocsr(), DP.tocsr()
+    if case == "coo":
+        return AD.tocoo(), DP.tocoo()
+    if case == "numpy":
+        return AD.toarray(), DP.toarray()
+    if case == "mixed":
+        return AD.tocsr(), DP.toarray()
+    if case == "duplicates":
+        # every entry split in two entries at the same place
+        def split(rows, vals):
+            half = np.floor(vals / 2)
+            return np.repeat(rows, 2), np.stack([half, vals - half], 1).ravel()
+        return _csc_by_hand(AD, split), _csc_by_hand(DP, split)
+    if case == "unsorted":
+        flip = (lambda rows, vals: (rows[::-1], vals[::-1]))
+        # AD a CSC, DP a CSR (the transpose of one), both unsorted
+        return _csc_by_hand(AD, flip), _csc_by_hand(DP.T, flip).T
+    if case == "explicit_zeros":
+        AD = AD.copy()
+        AD.data[::3] = 0.0             # stored, not eliminated
+        return AD, DP
+    if case == "ad_not_in_dp":
+        extra = sp.random(37, 53, density=0.05, random_state=3,
+                          data_rvs=lambda n: np.arange(1, n + 1) % 4 + 1.0)
+        return (AD + extra.tocsc()).tocsc(), DP
+    if case == "empty_rows_and_cols":
+        keep = np.ones((37, 53))
+        keep[[0, 17, 36], :] = 0
+        keep[:, [0, 20, 52]] = 0
+        return (sp.csc_matrix(AD.multiply(keep)),
+                sp.csc_matrix(DP.multiply(keep)))
+    if case == "int16":
+        AD, DP = AD.toarray().astype(np.int16), DP.toarray().astype(np.int16)
+        DP[5, 7], AD[5, 7] = 200, 120
+        return sp.csc_matrix(AD), sp.csc_matrix(DP)
+    raise ValueError(case)
+
+
+def _host_arrays(X):
+    """Copies of the arrays that hold X's values and pattern."""
+    if sp.issparse(X):
+        return [np.array(a) for a in (getattr(X, k, None) for k in
+                                      ("data", "indices", "indptr", "row",
+                                       "col")) if a is not None]
+    return [np.array(X)]
+
+
+def _union_dense(AD, DP):
+    """The dense rung as placed through the union of the patterns: host
+    union triplets, each matrix scattered from them."""
+    from vireo_tpu_torch.ops import counts as tcounts
+    rows, cols, a, d = tcounts._host_union_triplets(AD, DP)
+    vmax = max(a.max(initial=0), d.max(initial=0))
+    dtype = exact_count_dtype(vmax)
+    return [tcounts._scatter_dense(rows, cols, v, AD.shape, dtype, "cpu")
+            for v in (a, d)]
+
+
+def _count_unions(monkeypatch):
+    from vireo_tpu_torch.ops import counts as tcounts
+    called = []
+    real = tcounts._host_union_triplets
+
+    def counted(*args):
+        called.append(1)
+        return real(*args)
+    monkeypatch.setattr(tcounts, "_host_union_triplets", counted)
+    return called
+
+
+@pytest.mark.parametrize("case", [
+    "csc", "csr", "coo", "numpy", "mixed", "duplicates", "unsorted",
+    "explicit_zeros", "ad_not_in_dp", "empty_rows_and_cols", "int16"])
+def test_dense_rung_placed_directly_equals_the_union_path(monkeypatch, case):
+    """The dense rung, placed from each matrix's own compressed arrays,
+    equals the union path's DenseCounts bit for bit, in values and type;
+    no union is computed, PLACEMENTS counts one direct placement, and
+    the caller's matrices are left as they were."""
+    from vireo_tpu_torch.ops.counts import PLACEMENTS
+    AD, DP = _placement_case(case)
+    before = [_host_arrays(X) for X in (AD, DP)]
+    want = _union_dense(AD, DP)
+    unions = _count_unions(monkeypatch)
+    placed = dict(PLACEMENTS)
+    got = counts_from_scipy(AD, DP)
+    assert unions == []
+    assert PLACEMENTS == dict(placed, direct=placed["direct"] + 1)
+    assert type(got) is DenseCounts
+    for g, w in zip((got.ad, got.dp), want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert got.ad.dtype == (torch.bfloat16 if case == "int16"
+                            else torch.int8)
+    dense = [X.toarray() if sp.issparse(X) else np.asarray(X)
+             for X in (AD, DP)]
+    np.testing.assert_array_equal(got.ad.double().numpy(), dense[0])
+    np.testing.assert_array_equal(got.dp.double().numpy(), dense[1])
+    for X, arrays in zip((AD, DP), before):
+        for a, b in zip(_host_arrays(X), arrays):
+            np.testing.assert_array_equal(a, b)
+
+
+def _same_object(got, want):
+    """Two counts objects with equal fields: tensors equal in type and
+    value, nested objects field by field."""
+    import dataclasses
+    assert type(got) is type(want)
+    if torch.is_tensor(want):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    elif dataclasses.is_dataclass(want):
+        for f in dataclasses.fields(want):
+            _same_object(getattr(got, f.name), getattr(want, f.name))
+    else:
+        assert got == want
+
+
+@pytest.mark.parametrize("case", ["csc", "duplicates"])
+@pytest.mark.parametrize("rung,budget,heavy", [
+    ("packed", 1, False), ("int8-hybrid", 2, True),
+    ("packed-hybrid", 1, True), ("coo", 0, True)])
+def test_other_rungs_keep_the_union(monkeypatch, rung, budget, heavy, case):
+    """Every rung but dense still places the union triplets: one union,
+    PLACEMENTS counts it, and the object is the one the union of the
+    caller's own matrices gives."""
+    from vireo_tpu_torch.ops import counts as tcounts
+    if heavy:
+        AD, DP = _heavy_pool()
+        if case == "duplicates":
+            AD, DP = (_csc_by_hand(X, lambda r, v: (
+                np.repeat(r, 2), np.stack([v - 1, np.ones_like(v)],
+                                          1).ravel())) for X in (AD, DP))
+    else:
+        AD, DP = _placement_case(case)
+        AD, DP = (sp.csc_matrix(np.minimum(X.toarray(), 15)) if case == "csc"
+                  else X for X in (AD, DP))
+        if case == "duplicates":
+            assert max(X.toarray().max() for X in (AD, DP)) <= 15
+    nbytes = max(budget * AD.shape[0] * AD.shape[1], 1)
+    shape = (AD.shape[0], AD.shape[1])
+    want = tcounts._rung_counts(
+        rung, *tcounts._host_union_triplets(AD, DP), shape, "cpu")
+    unions = _count_unions(monkeypatch)
+    placed = dict(tcounts.PLACEMENTS)
+    got = counts_from_scipy(AD, DP, dense_budget=nbytes)
+    assert len(unions) == 1
+    assert tcounts.PLACEMENTS == dict(placed, union=placed["union"] + 1)
+    assert tcounts.ladder_rung(shape, max(X.max() for X in (AD, DP)),
+                               nbytes) == rung
+    _same_object(got, want)

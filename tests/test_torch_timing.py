@@ -205,8 +205,9 @@ class _Calls:
 
 @pytest.mark.parametrize("device_mt", ["0", "1"])
 def test_vireo_wrap_spans_nest_in_its_phases(pool, monkeypatch, device_mt):
-    """From host scipy: placement's steps inside `vireo.data_placement`,
-    the inits' steps (on the host, or regenerated on the device) inside
+    """From host scipy: placement's steps inside `vireo.data_placement`
+    (the dense rung: the value range and rung, then the upload; no
+    union of the patterns), the inits' steps (on the host, or regenerated on the device) inside
     `vireo.inits` inside `vireo.warm_restarts`, and one contraction span
     for each call the class wrapper records."""
     from vireo_tpu_torch.engine.wrap import vireo_wrap
@@ -220,8 +221,7 @@ def test_vireo_wrap_spans_nest_in_its_phases(pool, monkeypatch, device_mt):
         assert len(_named(spans, "vireo." + name)) == 1, name
     place = _named(spans, "vireo.data_placement")
     steps = [sp for sp in spans if sp[0].startswith("vireo.place.")]
-    assert {sp[0] for sp in steps} == {"vireo.place.union",
-                                       "vireo.place.rung",
+    assert {sp[0] for sp in steps} == {"vireo.place.rung",
                                        "vireo.place.upload"}
     assert all(_inside(sp, place) for sp in steps)
     inits = _named(spans, "vireo.inits")
@@ -240,6 +240,26 @@ def test_vireo_wrap_spans_nest_in_its_phases(pool, monkeypatch, device_mt):
                                       _named(spans, "vireo.warm_restarts"))
     assert _inside(fits[1], _named(spans, "vireo.refit"))
     assert len(_named(spans, "vireo.binom")) == 2
+
+
+@pytest.mark.parametrize("rung,budget,heavy", [
+    ("packed", 1.0, False), ("int8-hybrid", 2.0, True),
+    ("packed-hybrid", 1.0, True), ("coo", 1 / 120 / 160, False)])
+def test_placement_off_the_dense_rung_opens_the_union(pool, rung, budget,
+                                                      heavy):
+    """Every rung but dense aligns AD and DP to the union of their
+    patterns: `place.union` opens once, between `place.rung` and
+    `place.upload`."""
+    from vireo_tpu_torch.ops.counts import (counts_from_scipy,
+                                            device_dense_budget, ladder_rung)
+    AD, DP = _heavy(pool) if heavy else (pool["AD"], pool["DP"])
+    budget *= AD.shape[0] * AD.shape[1]
+    assert ladder_rung(AD.shape, DP.max(), budget) == rung
+    _, spans = _traced(lambda: counts_from_scipy(AD, DP, device="cpu",
+                                                 dense_budget=budget))
+    assert [sp[0] for sp in spans] == ["vireo.place.rung",
+                                       "vireo.place.union",
+                                       "vireo.place.upload"]
 
 
 def _heavy(pool):

@@ -35,6 +35,11 @@ On a mesh (`counts_from_scipy(..., mesh=)`) the ladder picks one rung
 for the whole pool, from its global shape and largest count, with the
 budget of the ranks it spans, and each rank places its block of that
 rung, wrapped in a `parallel.mesh.ShardedCounts`.
+
+The dense rung is scattered on the device from each matrix's own
+compressed arrays (`_place_dense`); the other rungs store AD and DP as
+one set of triplets, aligned on the host to the union of their nonzero
+patterns (`_host_union_triplets`).
 """
 
 import ctypes
@@ -56,7 +61,7 @@ __all__ = ["Counts", "DenseCounts", "SparseCounts", "HybridCounts",
            "hybrid_from_coo", "ladder_rung", "exact_count_dtype",
            "device_dense_budget", "dense_suff_stats", "dense_cell_loglik",
            "suff_stats_reference", "cell_loglik_reference", "LAUNCHES",
-           "K0Plan", "k0_plan", "k0_k_order", "k0_operand",
+           "PLACEMENTS", "K0Plan", "k0_plan", "k0_k_order", "k0_operand",
            "k0_device_operand", "k0_producer", "k0_shape", "k0_control"]
 
 # No counterpart of vireo_tpu/ops/counts.py::_divisible_sharding: there a
@@ -71,6 +76,11 @@ _CHUNK_BYTES = 1 << 29
 
 # launches of each CUDA kernel of K0
 LAUNCHES = {"dense_suff_stats": 0, "dense_cell_loglik": 0}
+
+# placements by `counts_from_scipy`, by path (on a mesh, once a rank):
+# "direct", each dense matrix from its own compressed arrays (the dense
+# rung); "union", through `_host_union_triplets` (every other rung)
+PLACEMENTS = {"direct": 0, "union": 0}
 
 _LIB = None
 
@@ -581,28 +591,78 @@ def _host_union_triplets(AD, DP):
 _SCATTER_BLOCK = 1 << 22
 
 
+def _upload_vals(vals, dtype, device):
+    """Host count values on `device` as a `dtype` target takes them: up
+    in the smallest exact type (int8 for an int8 target, float32
+    otherwise), then converted. Values above 127 are clipped to 127 for
+    an int8 target (the hybrid base), as the JAX package's int8 scatter
+    clips them."""
+    if dtype == torch.int8:
+        vals = np.minimum(vals, 127).astype(np.int8)
+    else:
+        vals = np.asarray(vals).astype(np.float32)
+    return torch.from_numpy(vals).to(device).to(dtype)
+
+
 def _scatter_dense(rows, cols, vals, shape, dtype, device):
     """Dense (V, C) tensor of `dtype` on `device` from host triplets.
 
-    Indices go up as int32 and values in the smallest exact type (int8
-    for int8 targets, float32 otherwise), in blocks; each block is
-    scattered into a zero matrix on the device. Values above 127 are
-    clipped to 127 for an int8 target (the hybrid base), as the JAX
-    package's int8 scatter clips them.
+    Indices go up as int32 and values as `_upload_vals` sends them, in
+    blocks; each block is scattered into a zero matrix on the device.
     """
     V, C = shape
     out = torch.zeros((V, C), dtype=dtype, device=device)
     flat = out.view(-1)
     vals = np.asarray(vals)
-    if dtype == torch.int8:
-        vals = np.minimum(vals, 127)
-    send = np.int8 if dtype == torch.int8 else np.float32
     for lo in range(0, len(rows), _SCATTER_BLOCK):
         hi = min(lo + _SCATTER_BLOCK, len(rows))
         r = torch.from_numpy(rows[lo:hi].astype(np.int32)).to(device)
         c = torch.from_numpy(cols[lo:hi].astype(np.int32)).to(device)
-        v = torch.from_numpy(vals[lo:hi].astype(send)).to(device)
-        flat[r.long() * C + c.long()] = v.to(dtype)
+        flat[r.long() * C + c.long()] = _upload_vals(vals[lo:hi], dtype,
+                                                     device)
+    return out
+
+
+def _compressed(X):
+    """X as a canonical scipy CSC or CSR matrix (sorted indices, no
+    duplicates): CSC and CSR as they are, anything else (COO, other
+    formats, numpy) converted once by `sp.csc_matrix`. A non-canonical
+    matrix is summed on a copy: the caller's arrays never change."""
+    import scipy.sparse as sp
+    if not (sp.issparse(X) and X.format in ("csc", "csr")):
+        X = sp.csc_matrix(X)
+    if not X.has_canonical_format:
+        X = X.copy()
+        X.sum_duplicates()
+    return X
+
+
+def _place_dense(X, shape, dtype, device):
+    """Dense (V, C) tensor of `dtype` on `device` from the compressed
+    arrays of X, a CSC or CSR matrix without duplicates (`_compressed`,
+    or a block that `_cut_block` cuts from one). X may have fewer rows
+    or columns than `shape` (a mesh rank's block with its padded cells):
+    those stay zero.
+
+    indptr goes up once; then, in blocks of `_SCATTER_BLOCK` nonzeros,
+    the indices as int32 and the values as `_upload_vals` sends them.
+    On the device each nonzero's place in indptr gives its index along
+    the compressed axis (a CSC's column, a CSR's row), and the block is
+    scattered into a zero matrix: the tensor `_scatter_dense` makes from
+    the same entries as triplets, bit for bit."""
+    V, C = shape
+    out = torch.zeros((V, C), dtype=dtype, device=device)
+    flat = out.view(-1)
+    ptr = torch.from_numpy(X.indptr.astype(np.int64)).to(device)
+    nnz = int(X.indptr[-1])
+    for lo in range(0, nnz, _SCATTER_BLOCK):
+        hi = min(lo + _SCATTER_BLOCK, nnz)
+        minor = torch.from_numpy(X.indices[lo:hi].astype(np.int32)) \
+            .to(device).long()
+        major = torch.searchsorted(
+            ptr, torch.arange(lo, hi, device=device), right=True) - 1
+        r, c = (minor, major) if X.format == "csc" else (major, minor)
+        flat[r * C + c] = _upload_vals(X.data[lo:hi], dtype, device)
     return out
 
 
@@ -1085,15 +1145,19 @@ def _packed_shard_factor(mesh):
     return 1 if mesh is None else mesh.extent(_cell_axis_of(mesh))
 
 
-def _rung_counts(rung, rows, cols, ad_v, dp_v, shape, vmax, device):
-    """The counts object of `rung` for host triplets of a (V, C) block;
-    the dense rung in `exact_count_dtype(vmax)`."""
+def _dense_direct(AD, DP, shape, vmax, device):
+    """The dense rung of a (V, C) block in `exact_count_dtype(vmax)`
+    from canonical CSC or CSR matrices, each placed from its own
+    compressed arrays (`_place_dense`): no union of the two patterns."""
+    dtype = exact_count_dtype(vmax)
+    return DenseCounts(*(_place_dense(X, shape, dtype, device)
+                         for X in (AD, DP)))
+
+
+def _rung_counts(rung, rows, cols, ad_v, dp_v, shape, device):
+    """The counts object of `rung`, any but dense (`_dense_direct`), for
+    host union triplets of a (V, C) block."""
     with span("place.upload"):
-        if rung == "dense":
-            dtype = exact_count_dtype(vmax)
-            return DenseCounts(
-                _scatter_dense(rows, cols, ad_v, shape, dtype, device),
-                _scatter_dense(rows, cols, dp_v, shape, dtype, device))
         if rung == "int8-hybrid":
             return _hybrid_from_triplets(rows, cols, ad_v, dp_v, shape, 127,
                                          "int8", device)
@@ -1117,18 +1181,22 @@ def _value_range(*mats):
     return lo, hi
 
 
+def _cut_block(X, var_range, cell_range):
+    """The (variant range, cell range) block of X as scipy CSC, in block
+    coordinates: a range past X's edge (a mesh's padded cells) is cut
+    short."""
+    import scipy.sparse as sp
+    (v0, v1), (c0, c1) = var_range, cell_range
+    X = X.tocsc() if sp.issparse(X) else sp.csc_matrix(np.asarray(X))
+    return X[:, c0:c1][v0:v1]
+
+
 def _block_union(AD, DP, var_range, cell_range):
     """Host union triplets (`_host_union_triplets`) of the (variant range,
     cell range) block of AD and DP, in block coordinates: only the block
     is read, so a rank's host work is its share of the pool's."""
-    import scipy.sparse as sp
-    (v0, v1), (c0, c1) = var_range, cell_range
-
-    def cut(X):
-        X = X.tocsc() if sp.issparse(X) else sp.csc_matrix(np.asarray(X))
-        return X[:, c0:c1][v0:v1]
-
-    return _host_union_triplets(cut(AD), cut(DP))
+    return _host_union_triplets(_cut_block(AD, var_range, cell_range),
+                                _cut_block(DP, var_range, cell_range))
 
 
 def _mesh_counts(rung, AD, DP, shape, vmax, mesh, device):
@@ -1136,7 +1204,9 @@ def _mesh_counts(rung, AD, DP, shape, vmax, mesh, device):
     on the packed cell grid of vireo_tpu/ops/packed.py:616-620 (the
     model keeps the pool's n_cell; the grid's extra cells are zero),
     the others on equal ranges of cells, the pool padded with zero-count
-    cells to a multiple of the cell shards."""
+    cells to a multiple of the cell shards. The dense rung places the
+    block of each matrix on its own (`_dense_direct`), the others the
+    block's union triplets."""
     from ..parallel.mesh import Layout, ShardedCounts, CELL_AXIS
     from .packed import MeshPackedCounts, packed_cell_block
     V, C = shape
@@ -1147,11 +1217,19 @@ def _mesh_counts(rung, AD, DP, shape, vmax, mesh, device):
     else:
         lay = Layout.even(mesh, (V, S * -(-C // S)))
         stored = lay.n_cell_local
-    c0 = lay.cells[0]
-    with span("place.union"):
-        block = _block_union(AD, DP, lay.vars, (c0, c0 + stored))
-    local = _rung_counts(rung, *block, (lay.n_var_local, stored), vmax,
-                         device)
+    cells = (lay.cells[0], lay.cells[0] + stored)
+    local_shape = (lay.n_var_local, stored)
+    if rung == "dense":
+        PLACEMENTS["direct"] += 1
+        with span("place.upload"):
+            local = _dense_direct(
+                *(_cut_block(X, lay.vars, cells) for X in (AD, DP)),
+                local_shape, vmax, device)
+    else:
+        PLACEMENTS["union"] += 1
+        with span("place.union"):
+            block = _block_union(AD, DP, lay.vars, cells)
+        local = _rung_counts(rung, *block, local_shape, device)
     cls = MeshPackedCounts if rung == "packed" else ShardedCounts
     return cls(local, lay)
 
@@ -1179,16 +1257,14 @@ def counts_from_scipy(AD, DP, device=None, dense_budget=None, verbose=False,
     the pool's, rounded up to the cell shards except on the packed
     rungs.
     """
-    if mesh is None:
-        with span("place.union"):
-            rows, cols, ad_v, dp_v = _host_union_triplets(AD, DP)
-        values = (ad_v, dp_v)
-    else:
+    if mesh is not None:
         device = mesh.device if device is None else device
-        # each rank reads only its block, once the rung is known
-        values = (AD, DP)
     with span("place.rung"):
-        vmin, vmax = _value_range(*values)
+        AD, DP = _compressed(AD), _compressed(DP)
+        if AD.shape != DP.shape:
+            raise ValueError("AD and DP shapes differ: %s vs %s"
+                             % (AD.shape, DP.shape))
+        vmin, vmax = _value_range(AD, DP)
         device = resolve_device(device)
         if vmin < 0:
             raise ValueError("counts must be non-negative")
@@ -1225,5 +1301,13 @@ def counts_from_scipy(AD, DP, device=None, dense_budget=None, verbose=False,
                  "" if mesh is None else ", split over %d ranks (mesh %s)"
                  % (mesh.size, mesh.shape)))
     if mesh is not None:
+        # each rank reads only its block
         return _mesh_counts(rung, AD, DP, shape, vmax, mesh, device)
-    return _rung_counts(rung, rows, cols, ad_v, dp_v, shape, vmax, device)
+    if rung == "dense":
+        PLACEMENTS["direct"] += 1
+        with span("place.upload"):
+            return _dense_direct(AD, DP, shape, vmax, device)
+    PLACEMENTS["union"] += 1
+    with span("place.union"):
+        triplets = _host_union_triplets(AD, DP)
+    return _rung_counts(rung, *triplets, shape, device)
