@@ -17,7 +17,11 @@ its own (so the window's peak memory is the program's).
 
 Once the window has closed and its peak is read, the check runs the
 window's job once more with its contractions kept (`sampled.py`); its
-answer is judged with the window's.
+answer is judged with the window's, and its placement against the
+reference's counts. The program picks its layout from the card's free
+memory, so the check's job runs before anything of the check takes
+memory, as the window's jobs did, and must place its counts as the
+window's last job did.
 """
 
 import contextlib
@@ -32,7 +36,7 @@ from .pool import make_pool, to_host
 from .sampled import Sampled, widest_gap
 from .trace import Tracer, JOB, WINDOW
 
-__all__ = ["run_cell", "FORBIDDEN", "forbidden_modules"]
+__all__ = ["run_cell", "FORBIDDEN", "forbidden_modules", "layout"]
 
 # top-level module names that no run may hold once its window closes
 FORBIDDEN = ("jax", "jaxlib", "flax", "vireo_tpu")
@@ -93,6 +97,14 @@ def _launches():
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def layout(counts):
+    """The class of placed counts and the types of their tensors: the
+    path their contractions take."""
+    return (type(counts).__name__,) + tuple(
+        str(v.dtype) for v in vars(counts).values()
+        if isinstance(v, torch.Tensor))
 
 
 def _placement_mismatch(counts, ref):
@@ -180,20 +192,25 @@ def run_cell(workload, seed, seconds, trace, device, t_start, root=None,
             if device.type == "cuda" else 0
 
         # ---- the check's job, once the peak is read: the window's job
-        # once more, its contractions kept; the window's last placement
-        # is judged before this job places its own
+        # once more, its contractions kept, then its placement judged
         t_check = time.perf_counter()
-        ref_counts = RefCounts(AD, DP, device)
-        numbers = {"placement": _placement_mismatch(held.counts,
-                                                    ref_counts)}
+        window_layout = layout(held.counts)
         sampled = Sampled()
         sampled.install(type(held.counts))
         try:
             results.append(entry.job(inputs, config, fit_seed)[0])
         finally:
             sampled.remove()
-        log("[check] the check's job %.3f s, %d contraction calls kept"
-            % (time.perf_counter() - t_check, len(sampled.calls)))
+        if layout(held.counts) != window_layout:
+            raise RuntimeError(
+                "the check's job placed its counts as %s, the window's "
+                "last job as %s" % (layout(held.counts), window_layout))
+        log("[check] the check's job %.3f s, %d contraction calls kept, "
+            "counts placed as %s" % (time.perf_counter() - t_check,
+                                     len(sampled.calls), window_layout))
+        ref_counts = RefCounts(AD, DP, device)
+        numbers = {"placement": _placement_mismatch(held.counts,
+                                                    ref_counts)}
     loaded = forbidden_modules()
     if loaded:
         raise RuntimeError("modules of JAX or the JAX package were loaded: "

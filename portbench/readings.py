@@ -5,8 +5,11 @@ numbers compared for the program's sound run and for the control.
         [--arith tf32,float32]
 
 The program runs one job of the cell on the seed's pool, as the
-benchmark's window does, and is compared with the plain reference
-(float64), its contractions at each width too (`harness/sampled.py`).
+benchmark's window does (placing its own counts under host traffic),
+and is compared with the plain reference (float64), its placement and
+its contractions at each width too (`harness/sampled.py`). Each seed
+starts on an emptied card, and its job must place its counts as a
+placement alone does (`run_cell.layout`).
 The control is the reference itself put in the program's place in the
 nearest precision below the configuration's (float32 with TF32 off):
 float32 with the contractions' operands rounded to TF32. It is compared
@@ -35,37 +38,58 @@ def readings(workload, seed, arith=("tf32",), device=None, root=None,
     import torch
     from portbench.harness.manifest import Manifest
     from portbench.harness.pool import make_pool, to_host
-    from portbench.harness.run_cell import _placement_mismatch
+    from portbench.harness.run_cell import (_HeldPlacement,
+                                            _placement_mismatch, layout)
     from portbench.harness.sampled import Sampled, widest_gap
     from portbench.reference.counts import Arith, RefCounts
+    from vireo_tpu_torch.ops.counts import counts_from_scipy
+
+    def free():
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
 
     manifest = Manifest(root)
     cell = manifest.cell(workload)
     config, traffic = cell["config"], cell["traffic"]
     entry = manifest.entry(config["entry"])
     fit_seed = int(seed) % (1 << 32)
+    # the program picks its layout from the card's free memory: every
+    # seed finds the card as the first seed did
+    free()
     pool = make_pool(seed=seed, device=device, **config["pool"])
     AD, DP = to_host(pool)
     del pool
 
-    from vireo_tpu_torch.ops.counts import counts_from_scipy
     placed = counts_from_scipy(AD, DP, device=device)
-    inputs = (placed, None) if traffic["input"] == "placed" else (AD, DP)
+    placed_layout = layout(placed)
     sampled = Sampled()
     sampled.install(type(placed))
-    t0 = time.perf_counter()
-    try:
-        result, _ = entry.job(inputs, config, fit_seed)
-    finally:
-        sampled.remove()
-    log("[readings] seed %d: the program's job %.3f s"
-        % (seed, time.perf_counter() - t0))
+    held = _HeldPlacement()
+    with held:
+        if traffic["input"] == "placed":
+            inputs = (placed, None)
+            held.counts = placed
+        else:
+            # the job places its own counts, as the window's jobs do;
+            # the placement above only tells their layout
+            inputs, placed = (AD, DP), None
+            free()
+        t0 = time.perf_counter()
+        try:
+            result, _ = entry.job(inputs, config, fit_seed)
+        finally:
+            sampled.remove()
+    log("[readings] seed %d: the program's job %.3f s, counts placed as %s"
+        % (seed, time.perf_counter() - t0, layout(held.counts)))
+    if layout(held.counts) != placed_layout:
+        raise RuntimeError("the job placed its counts as %s, a placement "
+                           "alone as %s" % (layout(held.counts),
+                                            placed_layout))
     counts = RefCounts(AD, DP, device)
-    mismatch = _placement_mismatch(placed, counts)
-    inputs = placed = None
-    gc.collect()
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
+    mismatch = _placement_mismatch(held.counts, counts)
+    inputs = placed = held.counts = None
+    free()
 
     f64 = Arith("float64")
     out = []

@@ -1,10 +1,10 @@
 """The plain reference's count matrices and its two contractions.
 
 The counts are made dense again from the host's scipy matrices, the
-same matrices the program is given, as int8 on the device (every count
-of the benchmark's pools is below 128). The contractions convert one
-block of variant rows at a time to the arithmetic's type and hand it to
-`torch.matmul`:
+same matrices the program is given, exactly: as int8 on the device where
+every count is at most 127, else as int16 (counts up to 32,767; a
+heavy-tailed pool's). The contractions convert one block of variant
+rows at a time to the arithmetic's type and hand it to `torch.matmul`:
 
     stats(W)        = (AD @ W, DP @ W)          W: (n_cell, M)
     loglik(Wa, Wd)  = AD.T @ Wa + DP.T @ Wd     Wa, Wd: (n_var, M)
@@ -53,19 +53,32 @@ class Arith:
 
 
 class RefCounts:
-    """Dense int8 AD and DP on `device`, built from host scipy matrices."""
+    """Dense AD and DP on `device`, built from host scipy matrices: int8
+    where every count is at most 127, else int16."""
 
     def __init__(self, AD, DP, device):
         self.n_var, self.n_cell = (int(s) for s in DP.shape)
-        self.ad = self._dense(AD, device)
-        self.dp = self._dense(DP, device)
+        AD, DP = (self._coo(X) for X in (AD, DP))
+        vmax = max((float(X.data.max()) for X in (AD, DP) if X.nnz),
+                   default=0.0)
+        dtype = torch.int8 if vmax <= torch.iinfo(torch.int8).max \
+            else torch.int16
+        self.ad = self._dense(AD, dtype, device)
+        self.dp = self._dense(DP, dtype, device)
 
-    def _dense(self, X, device):
+    @staticmethod
+    def _coo(X):
         coo = X.tocoo()
         coo.sum_duplicates()
-        if coo.data.size and (coo.data.max() > 127 or coo.data.min() < 0):
-            raise ValueError("the reference holds counts in [0, 127]")
-        out = torch.zeros((self.n_var, self.n_cell), dtype=torch.int8,
+        data, top = coo.data, torch.iinfo(torch.int16).max
+        if data.size and (data.min() < 0 or data.max() > top
+                          or np.any(data != np.round(data))):
+            raise ValueError("the reference holds whole counts in [0, %d]"
+                             % top)
+        return coo
+
+    def _dense(self, coo, dtype, device):
+        out = torch.zeros((self.n_var, self.n_cell), dtype=dtype,
                           device=device)
         flat = out.view(-1)
         step = 1 << 24
@@ -74,7 +87,7 @@ class RefCounts:
             idx = (torch.from_numpy(coo.row[lo:hi].astype(np.int64))
                    * self.n_cell
                    + torch.from_numpy(coo.col[lo:hi].astype(np.int64)))
-            vals = torch.from_numpy(coo.data[lo:hi].astype(np.int8))
+            vals = torch.from_numpy(coo.data[lo:hi]).to(dtype)
             flat[idx.to(device)] = vals.to(device)
         return out
 

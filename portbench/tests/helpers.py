@@ -11,6 +11,12 @@ ROOT = BENCH.parent
 
 TINY_POOL = {"n_var": 120, "n_cell": 400, "n_donor": 4, "doublet_rate": 0.08,
              "density": 0.3, "mean_extra_depth": 0.6}
+# a heavy-tailed pool: 5% of the covered entries 200-1999 reads deeper
+TINY_HEAVY_POOL = {"n_var": 120, "n_cell": 400, "n_donor": 4,
+                   "doublet_rate": 0.08, "density": 0.3,
+                   "mean_extra_depth": 3.0, "max_depth": 16,
+                   "hot_share": 0.05, "hot_depth": [200, 2000],
+                   "theta": [0.02, 0.5, 0.98]}
 TINY_FITS = {
     "vireo_wrap": {"n_donor": 4, "n_init": 8, "max_iter_init": 20,
                    "delay_fit_theta": 3, "check_doublet": True},
@@ -20,17 +26,18 @@ TINY_FITS = {
 
 
 def tiny_checkout(tmp, entry="vireo_wrap", traffic="from_host",
-                  cell="tiny.cell"):
-    """A checkout under `tmp` with the cell `cell` of a tiny pool run by
-    `entry` under `traffic`, added as a configuration, a workload file
-    and entries of BENCHMARK.json; returns its root."""
+                  cell="tiny.cell", pool=TINY_POOL):
+    """A checkout under `tmp` with the cell `cell` of a tiny pool (the
+    configuration's `pool` keys) run by `entry` under `traffic`, added
+    as a configuration, a workload file and entries of BENCHMARK.json;
+    returns its root."""
     root = Path(tmp) / "checkout"
     shutil.copytree(BENCH, root / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
     name = cell.split(".")[0] + "_cfg"
     (root / "portbench" / "configs" / (name + ".json")).write_text(
-        json.dumps({"name": name, "pool": TINY_POOL, "entry": entry,
+        json.dumps({"name": name, "pool": pool, "entry": entry,
                     "fit": TINY_FITS[entry]}))
     like = "ksweep16.placed" if entry == "sweep_n_donor" \
         else "pool16.from_host"

@@ -1,6 +1,7 @@
 """The plain reference against the program on a tiny pool, both in
 float64 on the CPU: the same seeded inits, fits, choice, refit, doublet
-phase and sweep, to float64 round-off."""
+phase and sweep, to float64 round-off. The reference's counts hold a
+heavy-tailed pool exactly too."""
 
 import numpy as np
 import pytest
@@ -12,6 +13,8 @@ from portbench.reference.counts import Arith, RefCounts, to_tf32
 
 POOL = dict(n_var=150, n_cell=500, n_donor=4, doublet_rate=0.08,
             density=0.3, mean_extra_depth=0.6)
+HEAVY = dict(POOL, mean_extra_depth=3.0, max_depth=16, hot_share=0.05,
+             hot_depth=[200, 2000], theta=[0.02, 0.5, 0.98])
 
 
 @pytest.fixture(scope="module")
@@ -20,9 +23,19 @@ def pool():
     return to_host(p)
 
 
-def test_counts_and_contractions(pool):
-    AD, DP = pool
+@pytest.fixture(scope="module")
+def heavy_pool():
+    p = make_pool(seed=2**31 + 11, device=torch.device("cpu"), **HEAVY)
+    return to_host(p)
+
+
+@pytest.mark.parametrize("which,dtype", [("pool", torch.int8),
+                                         ("heavy_pool", torch.int16)])
+def test_counts_and_contractions(request, which, dtype):
+    AD, DP = request.getfixturevalue(which)
     c = RefCounts(AD, DP, "cpu")
+    assert c.ad.dtype == c.dp.dtype == dtype
+    assert (DP.max() > 256) == (which == "heavy_pool")
     np.testing.assert_array_equal(c.ad.numpy(), AD.toarray())
     np.testing.assert_array_equal(c.dp.numpy(), DP.toarray())
     g = torch.Generator().manual_seed(0)
@@ -35,6 +48,36 @@ def test_counts_and_contractions(pool):
     np.testing.assert_allclose(
         c.loglik(Wa, Wd, Arith("float64")).numpy(),
         AD.toarray().T @ Wa.numpy() + DP.toarray().T @ Wd.numpy())
+
+
+def test_binom_sum_of_a_heavy_pool(heavy_pool):
+    from scipy.special import gammaln
+    AD, DP = heavy_pool
+    a, d = AD.toarray(), DP.toarray()
+    val = np.minimum(gammaln(d + 1) - gammaln(a + 1) - gammaln(d - a + 1),
+                     700.0)
+    np.testing.assert_allclose(RefCounts(AD, DP, "cpu").binom_sum(),
+                               val[d > 0].sum(), rtol=1e-12)
+
+
+@pytest.mark.parametrize("value,dtype", [(127, torch.int8),
+                                         (128, torch.int16),
+                                         (32767, torch.int16)])
+def test_counts_take_the_smallest_type(value, dtype):
+    import scipy.sparse as sp
+    DP = sp.csc_matrix(np.array([[value, 0.0], [3.0, 1.0]]))
+    AD = sp.csc_matrix(np.array([[1.0, 0.0], [2.0, 1.0]]))
+    c = RefCounts(AD, DP, "cpu")
+    assert c.ad.dtype == c.dp.dtype == dtype
+    np.testing.assert_array_equal(c.dp.numpy(), DP.toarray())
+
+
+@pytest.mark.parametrize("value", [-1.0, 32768.0, 2.5])
+def test_counts_it_cannot_hold_are_refused(value):
+    import scipy.sparse as sp
+    X = sp.csc_matrix(np.array([[value, 0.0], [3.0, 1.0]]))
+    with pytest.raises(ValueError):
+        RefCounts(X, abs(X), "cpu")
 
 
 def test_tf32_rounding():
