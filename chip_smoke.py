@@ -419,7 +419,7 @@ PROBE_MM_LAMBDA = 8.0
 # sheet, H100 SXM
 PEAK_F32_FLOPS = 67e12
 # the packed main path's budget: int8 (6.0e9 B) does not fit, packed
-# (3.0e9 B) does; what a card with about 7 GiB free gives (55% of it)
+# (3.0e9 B) does; what a card of about 7 GiB gives (55% of it)
 PACKED_BUDGET_GB = "4"
 # the small heavy-tailed pool of the other rungs
 SMALL_RUNGS = dict(n_var=3000, n_cell=8000, n_donor=4)
@@ -2808,7 +2808,7 @@ def phase_heavy(torch):
            int((DP.data > 15).sum()), int(vmax), time.perf_counter() - t0))
     torch.cuda.empty_cache()
     budget = counts.device_dense_budget(cuda)
-    log("[heavy] default budget %.1f GiB (55%% of the card's free memory): "
+    log("[heavy] default budget %.1f GiB (55%% of the card's memory): "
         "rung %s (counts in %s)"
         % (budget / 2**30, counts.ladder_rung((V, C), vmax, budget),
            counts.exact_count_dtype(vmax)))

@@ -101,6 +101,8 @@ def test_the_readers_are_declared():
     declared = {m["name"]: m for m in spec["per_layer"]}
     assert declared["inits_idle_s"]["workloads"] == [
         w["name"] for w in spec["workloads"]]
-    assert declared["place_host_s"]["workloads"] == ["pool16.from_host"]
+    # the host placement it reads runs in the cells fed host counts
+    assert declared["place_host_s"]["workloads"] == [
+        w["name"] for w in spec["workloads"] if w["traffic"] == "from_host"]
     assert declared["place_host_s"]["layer"] == \
         declared["placement_s"]["layer"]

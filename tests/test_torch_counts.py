@@ -60,6 +60,31 @@ def test_contractions_match_jax(pool):
         rtol=RTOL, atol=1e-12)
 
 
+@pytest.mark.parametrize("vmax,dtype", [(None, torch.int8),
+                                        (200, torch.bfloat16),
+                                        (2000, torch.float32)])
+def test_plain_contractions_are_counted(vmax, dtype):
+    """MATMULS counts each call of DenseCounts' plain contractions of
+    non-int8 counts, and none of int8 counts (K0's); LAUNCHES counts K0's
+    kernels alone, which launch nothing on the CPU."""
+    from vireo_tpu_torch.ops.counts import LAUNCHES, MATMULS
+    AD, DP = _pool(vmax=vmax)
+    tc = counts_from_scipy(AD, DP)
+    assert isinstance(tc, DenseCounts) and tc.ad.dtype == dtype
+    matmuls, launches = dict(MATMULS), dict(LAUNCHES)
+    rng = np.random.RandomState(2)
+    W = torch.as_tensor(rng.rand(AD.shape[1], 3))
+    Wa, Wd = (torch.as_tensor(rng.randn(AD.shape[0], 3)) for _ in range(2))
+    tc.suff_stats(W)
+    tc.suff_stats(W)
+    tc.cell_loglik(Wa, Wd)
+    plain = dtype != torch.int8
+    assert {k: MATMULS[k] - matmuls[k] for k in MATMULS} == \
+        {"suff_stats": 2 * plain, "cell_loglik": 1 * plain}
+    assert LAUNCHES == launches
+    assert set(LAUNCHES) == {"dense_suff_stats", "dense_cell_loglik"}
+
+
 def test_reductions_match_jax(pool):
     AD, DP, jc, tc = pool
     np.testing.assert_allclose(float(tc.binom_coeff_sum()),

@@ -120,6 +120,113 @@ def test_default_budget_without_env(monkeypatch):
     assert tcounts.device_dense_budget("cpu") == 16 * 2**30
 
 
+GiB = 2**30
+CARD = 80 * GiB
+# 30k x 100k pools: a heavy tail (float32 counts, 22.35 GiB) and a
+# pool16-like one (int8, 5.59 GiB)
+HEAVY = ((30000, 100000), 2007.0)
+LIGHT = ((30000, 100000), 12.0)
+
+
+def _card(monkeypatch, free, reserved=0, allocated=0):
+    """An 80 GiB card as torch.cuda's queries see it: `free` bytes free,
+    the caching allocator holding `reserved` bytes, `allocated` of them
+    live; the budget from the card alone (no VIREO_DENSE_BUDGET_GB)."""
+    monkeypatch.delenv("VIREO_DENSE_BUDGET_GB", raising=False)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda device=None: (free, CARD))
+    monkeypatch.setattr(torch.cuda, "memory_reserved",
+                        lambda device=None: reserved)
+    monkeypatch.setattr(torch.cuda, "memory_allocated",
+                        lambda device=None: allocated)
+    return torch.device("cuda")
+
+
+def test_default_budget_is_55_percent_of_the_card(monkeypatch):
+    """JAX's rule (55% of the device's limit), whatever is free."""
+    cuda = _card(monkeypatch, free=3 * GiB, reserved=40 * GiB,
+                 allocated=12 * GiB)
+    assert tcounts.device_dense_budget(cuda) == 0.55 * CARD
+    assert tcounts.device_room(cuda) == (3 + 40 - 12) * GiB
+    assert tcounts.device_room("cpu") is None
+
+
+@pytest.mark.parametrize("pool,rung,dtype", [
+    (HEAVY, "dense", torch.float32), (LIGHT, "dense", torch.int8)])
+@pytest.mark.parametrize("free,reserved,allocated", [
+    (79 * GiB, 0, 0),                      # an empty card
+    (55 * GiB, 24 * GiB, 0),               # a previous job's counts cached
+    (33 * GiB, 46 * GiB, 11.2 * GiB)])     # and a reference's live beside
+def test_the_allocator_cache_does_not_move_the_rung(monkeypatch, pool,
+                                                    rung, dtype, free,
+                                                    reserved, allocated):
+    cuda = _card(monkeypatch, free, reserved, allocated)
+    assert tcounts.placement_rung(*pool, cuda) == (rung, 0.55 * CARD)
+    assert tcounts.exact_count_dtype(pool[1]) == dtype
+
+
+@pytest.mark.parametrize("pool,room,rung", [
+    (HEAVY, 20 * GiB, "int8-hybrid"),      # 22.35 GiB do not fit
+    (HEAVY, 8 * GiB, "packed-hybrid"),
+    (LIGHT, 5.5 * GiB, "packed"),          # 5.59 GiB do not fit
+    (LIGHT, 6 * GiB, "dense")])            # they fit, if barely
+def test_a_card_that_cannot_hold_the_rung_takes_the_next(monkeypatch, capsys,
+                                                        pool, room, rung):
+    """Where the card's free memory (and the allocator's unused cache)
+    cannot hold the rung the budget picks, the ladder picks again under
+    55% of that room."""
+    cuda = _card(monkeypatch, free=room - GiB, reserved=2 * GiB,
+                 allocated=GiB)
+    got, budget = tcounts.placement_rung(*pool, cuda, verbose=True)
+    assert got == rung
+    out = capsys.readouterr().out
+    if rung == "dense":
+        assert budget == 0.55 * CARD and out == ""
+    else:
+        assert budget == 0.55 * room
+        assert "the dense rung needs" in out and ("the %s rung" % rung) in out
+
+
+class _CellsMesh:
+    """What the placement reads of a mesh of `size` ranks on one cells
+    axis (no process group: `world_min` is each rank's own value)."""
+    is_root = True
+
+    def __init__(self, size):
+        self.size = size
+
+    def has(self, axis):
+        return axis == "cells"
+
+    def extent(self, axis):
+        return self.size if axis == "cells" else 1
+
+
+@pytest.mark.parametrize("room,rung", [(12 * GiB, "dense"),
+                                       (10 * GiB, "int8-hybrid")])
+def test_a_mesh_holds_each_rank_to_its_room(monkeypatch, room, rung):
+    """On two ranks each holds half the dense rung's 22.35 GiB: 12 GiB of
+    room a rank holds it, 10 GiB does not, and the ladder picks again
+    under 55% of the two ranks' room."""
+    cuda = _card(monkeypatch, free=room)
+    got, budget = tcounts.placement_rung(*HEAVY, cuda, mesh=_CellsMesh(2))
+    assert got == rung
+    assert budget == (2 * 0.55 * CARD if rung == "dense" else 2 * 0.55 * room)
+
+
+@pytest.mark.parametrize("gb,rung", [("44", "dense"),
+                                     ("4", "packed-hybrid")])
+def test_the_budget_env_wins_over_the_card(monkeypatch, gb, rung):
+    """VIREO_DENSE_BUDGET_GB is taken as it is, as is an explicit budget,
+    even where the card could not hold the rung."""
+    cuda = _card(monkeypatch, free=GiB)
+    monkeypatch.setenv("VIREO_DENSE_BUDGET_GB", gb)
+    assert tcounts.placement_rung(*HEAVY, cuda) == (rung, float(gb) * GiB)
+    monkeypatch.delenv("VIREO_DENSE_BUDGET_GB")
+    assert tcounts.placement_rung(*HEAVY, cuda, dense_budget=44 * GiB) \
+        == ("dense", 44 * GiB)
+
+
 @pytest.mark.parametrize("vmax", [12, 200])
 def test_ladder_never_refuses_a_pool(vmax, capsys):
     """The smallest budget still places the pool (on the COO rung)."""

@@ -262,40 +262,54 @@ def test_placement_off_the_dense_rung_opens_the_union(pool, rung, budget,
                                        "vireo.place.upload"]
 
 
-def _heavy(pool):
-    """The pool with a few counts above 127, for the hybrid rungs."""
+def _heavy(pool, extra=200.0):
+    """The pool with a few counts above 127 (`extra` reads deeper), for
+    the hybrid rungs; above 256 for the dense float32 rung."""
     AD, DP = pool["AD"].toarray(), pool["DP"].toarray()
     rows, cols = np.nonzero(DP)
-    DP[rows[:7], cols[:7]] += 200.0
-    AD[rows[:7], cols[:7]] += 150.0
+    DP[rows[:7], cols[:7]] += extra
+    AD[rows[:7], cols[:7]] += 0.75 * extra
     return sp.csc_matrix(AD), sp.csc_matrix(DP)
 
 
 @pytest.mark.parametrize("rung,budget,heavy", [
     ("dense", None, False), ("packed", 1.0, False),
     ("int8-hybrid", 2.0, True), ("packed-hybrid", 1.0, True),
-    ("coo", 1 / 120 / 160, False)])
+    ("coo", 1 / 120 / 160, False), ("dense", None, "float32")])
 def test_one_contraction_span_per_call_on_every_rung(pool, monkeypatch, rung,
                                                      budget, heavy):
     """A hybrid's base and residual calls open no span of their own: each
-    call of the placed counts' class lies inside exactly one span."""
+    call of the placed counts' class lies inside exactly one span. Dense
+    float32 counts (counts above 256) open one `vireo.matmul` inside each
+    call's span; K0's int8 counts none."""
     from vireo_tpu_torch.engine.wrap import vireo_wrap
-    from vireo_tpu_torch.ops.counts import (counts_from_scipy,
+    from vireo_tpu_torch.ops.counts import (MATMULS, counts_from_scipy,
                                             device_dense_budget, ladder_rung)
-    AD, DP = _heavy(pool) if heavy else (pool["AD"], pool["DP"])
+    AD, DP = (_heavy(pool, 400.0) if heavy == "float32" else _heavy(pool)) \
+        if heavy else (pool["AD"], pool["DP"])
     budget = None if budget is None else budget * AD.shape[0] * AD.shape[1]
     counts = counts_from_scipy(AD, DP, device="cpu", dense_budget=budget)
     assert ladder_rung(AD.shape, DP.max(),
                        budget or device_dense_budget("cpu")) == rung
+    plain = heavy == "float32"
+    assert (getattr(counts, "ad", None) is not None
+            and counts.ad.dtype == torch.float32) == plain
     calls = _Calls(monkeypatch, type(counts))
+    matmuls = dict(MATMULS)
     _, spans = _traced(lambda: vireo_wrap(
         counts, n_donor=3, n_init=2, random_seed=1, verbose=False,
         device="cpu"))
+    inner = _named(spans, "vireo.matmul")
     for kind, n_calls in calls.n.items():
         mine = _named(spans, "vireo." + kind)
         assert n_calls > 0 and len(mine) == n_calls, kind
         assert not any(_inside(a, [b]) for a in mine for b in mine
                        if a is not b)
+        assert MATMULS[kind] - matmuls[kind] == n_calls * plain, kind
+        assert sum(1 for a in mine if _inside(a, inner)) == 0
+        assert [sum(1 for m in inner if _inside(m, [a])) for a in mine] \
+            == [1 * plain] * n_calls, kind
+    assert len(inner) == sum(calls.n.values()) * plain
     assert len(_named(spans, "vireo.binom")) == 2
 
 

@@ -60,8 +60,9 @@ __all__ = ["Counts", "DenseCounts", "SparseCounts", "HybridCounts",
            "counts_from_scipy", "dense_counts", "sparse_counts",
            "hybrid_from_coo", "ladder_rung", "exact_count_dtype",
            "device_dense_budget", "dense_suff_stats", "dense_cell_loglik",
-           "suff_stats_reference", "cell_loglik_reference", "LAUNCHES",
-           "PLACEMENTS", "K0Plan", "k0_plan", "k0_k_order", "k0_operand",
+           "device_room", "placement_rung", "suff_stats_reference",
+           "cell_loglik_reference", "LAUNCHES", "MATMULS", "PLACEMENTS",
+           "K0Plan", "k0_plan", "k0_k_order", "k0_operand",
            "k0_device_operand", "k0_producer", "k0_shape", "k0_control"]
 
 # No counterpart of vireo_tpu/ops/counts.py::_divisible_sharding: there a
@@ -76,6 +77,10 @@ _CHUNK_BYTES = 1 << 29
 
 # launches of each CUDA kernel of K0
 LAUNCHES = {"dense_suff_stats": 0, "dense_cell_loglik": 0}
+
+# calls of DenseCounts' plain contractions of non-int8 counts (bfloat16
+# or float32: the pools with counts above 127), on any device
+MATMULS = {"suff_stats": 0, "cell_loglik": 0}
 
 # placements by `counts_from_scipy`, by path (on a mesh, once a rank):
 # "direct", each dense matrix from its own compressed arrays (the dense
@@ -425,10 +430,12 @@ class DenseCounts:
 
     The contractions of int8 counts are K0 (`dense_suff_stats`,
     `dense_cell_loglik`), on a card its CUDA kernels; those of other
-    types are the plain versions. `row_chunk` fixes the number of
-    variant rows the plain versions and the reductions convert per
-    block; None sizes blocks to about 512 MB of the target type
-    (`_CHUNK_BYTES`). The kernels convert nothing in device memory.
+    types are the plain versions, each call counted in `MATMULS` and
+    recorded as a `matmul` span inside the call's own. `row_chunk`
+    fixes the number of variant rows the plain versions and the
+    reductions convert per block; None sizes blocks to about 512 MB of
+    the target type (`_CHUNK_BYTES`). The kernels convert nothing in
+    device memory.
     """
     ad: torch.Tensor
     dp: torch.Tensor
@@ -457,7 +464,10 @@ class DenseCounts:
         with span("suff_stats"):
             if self.ad.dtype == torch.int8:
                 return dense_suff_stats(self.ad, self.dp, W, self.row_chunk)
-            return suff_stats_reference(self.ad, self.dp, W, self.row_chunk)
+            MATMULS["suff_stats"] += 1
+            with span("matmul"):
+                return suff_stats_reference(self.ad, self.dp, W,
+                                            self.row_chunk)
 
     def cell_loglik(self, Wa, Wd):
         """AD.T @ Wa + DP.T @ Wd for (n_var, N) weights -> (n_cell, N)."""
@@ -465,8 +475,10 @@ class DenseCounts:
             if self.ad.dtype == torch.int8:
                 return dense_cell_loglik(self.ad, self.dp, Wa, Wd,
                                          self.row_chunk)
-            return cell_loglik_reference(self.ad, self.dp, Wa, Wd,
-                                         self.row_chunk)
+            MATMULS["cell_loglik"] += 1
+            with span("matmul"):
+                return cell_loglik_reference(self.ad, self.dp, Wa, Wd,
+                                             self.row_chunk)
 
     def binom_coeff_sum(self):
         """Sum of log C(DP, AD) over DP > 0 entries, accumulated in
@@ -529,17 +541,30 @@ def exact_count_dtype(vmax):
 def device_dense_budget(device=None):
     """Device bytes available for the two dense count matrices:
     VIREO_DENSE_BUDGET_GB GiB when that is set (as in the JAX package),
-    else 55% of the card's free memory (`torch.cuda.mem_get_info`),
-    leaving room for posteriors and converted blocks; 16 GiB on the
-    CPU. `device` defaults to utils/device.py's."""
+    else 55% of the card's total memory (`torch.cuda.mem_get_info`'s
+    total; the JAX package takes 55% of the device's limit), leaving
+    room for posteriors and converted blocks; 16 GiB on the CPU.
+    `device` defaults to utils/device.py's."""
     env = os.environ.get("VIREO_DENSE_BUDGET_GB")
     if env:
         return float(env) * 2**30
     device = resolve_device(device)
     if device.type == "cuda":
-        free, _ = torch.cuda.mem_get_info(device)
-        return 0.55 * free
+        _, total = torch.cuda.mem_get_info(device)
+        return 0.55 * total
     return 16 * 2**30
+
+
+def device_room(device=None):
+    """Bytes this process can still get on the card `device`: its free
+    memory and what torch's caching allocator holds reserved but
+    unallocated; None off a card."""
+    device = resolve_device(device)
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    return free + torch.cuda.memory_reserved(device) \
+        - torch.cuda.memory_allocated(device)
 
 
 def _host_union_triplets(AD, DP):
@@ -1145,6 +1170,66 @@ def _packed_shard_factor(mesh):
     return 1 if mesh is None else mesh.extent(_cell_axis_of(mesh))
 
 
+def _rung_ways(rung, shape, vmax, mesh):
+    """(bytes, ways): what `ladder_rung` charges `rung` against its
+    budget, and the number of ranks of `mesh` that share those bytes."""
+    n_elems = int(shape[0]) * int(shape[1])
+    if rung == "dense":
+        return _dense_bytes(shape, vmax), _shard_factor(mesh)
+    if rung == "int8-hybrid":
+        return 2 * n_elems, _shard_factor(mesh)
+    if rung in ("packed", "packed-hybrid"):
+        return n_elems, _packed_shard_factor(mesh)
+    return 0, 1
+
+
+def placement_rung(shape, vmax, device=None, dense_budget=None, mesh=None,
+                   verbose=False):
+    """(rung, dense budget): the rung `counts_from_scipy` places a
+    (n_var, n_cell) pool with largest count `vmax` on.
+
+    `ladder_rung` picks it under `dense_budget` bytes, or by default
+    under `device_dense_budget`, which reads the card's total memory and
+    not what the process already holds (on a mesh, the smallest rank's
+    budget times the ranks that share each layout). The default then
+    holds the rung to `device_room`: where a rank's share of the rung's
+    bytes exceeds it, the rung is picked again under 55% of that room
+    (the smallest rank's), so a pool never fails to place where a lower
+    rung fits. An explicit `dense_budget` or VIREO_DENSE_BUDGET_GB is
+    taken as it is."""
+    if mesh is not None:
+        # the smallest rank's figures, so that every rank picks one rung
+        from ..parallel.mesh import world_min
+    if dense_budget is not None:
+        budget = packed_budget = dense_budget
+    elif mesh is None:
+        budget = packed_budget = device_dense_budget(device)
+    else:
+        least = world_min(device_dense_budget(device))
+        budget = least * _shard_factor(mesh)
+        packed_budget = least * _packed_shard_factor(mesh)
+    rung = ladder_rung(shape, vmax, budget, packed_budget)
+    if dense_budget is not None or os.environ.get("VIREO_DENSE_BUDGET_GB"):
+        return rung, budget
+    room = device_room(device)
+    if room is None:
+        return rung, budget
+    if mesh is not None:
+        room = world_min(room)
+    need, ways = _rung_ways(rung, shape, vmax, mesh)
+    if need <= room * ways:
+        return rung, budget
+    budget = 0.55 * room * _shard_factor(mesh)
+    again = ladder_rung(shape, vmax, budget,
+                        0.55 * room * _packed_shard_factor(mesh))
+    if verbose and (mesh is None or mesh.is_root):
+        print("[vireo] the %s rung needs %.1f GiB a rank, and the card "
+              "can still give %.1f GiB: the %s rung, picked under %.1f "
+              "GiB" % (rung, need / ways / 2**30, room / 2**30, again,
+                       0.55 * room / 2**30))
+    return again, budget
+
+
 def _dense_direct(AD, DP, shape, vmax, device):
     """The dense rung of a (V, C) block in `exact_count_dtype(vmax)`
     from canonical CSC or CSR matrices, each placed from its own
@@ -1237,8 +1322,10 @@ def _mesh_counts(rung, AD, DP, shape, vmax, mesh, device):
 def counts_from_scipy(AD, DP, device=None, dense_budget=None, verbose=False,
                       mesh=None):
     """Place a scipy/numpy AD-DP pair on `device` (default:
-    utils/device.py's) on the rung that `ladder_rung` picks under
-    `dense_budget` bytes (default `device_dense_budget(device)`).
+    utils/device.py's) on the rung that `placement_rung` picks: the one
+    `ladder_rung` picks under `dense_budget` bytes (default
+    `device_dense_budget(device)`, held to what the card can still
+    give).
 
     The dense rung holds the counts in `exact_count_dtype` of their
     largest value, at every size (the JAX package keeps pools of at most
@@ -1269,17 +1356,8 @@ def counts_from_scipy(AD, DP, device=None, dense_budget=None, verbose=False,
         if vmin < 0:
             raise ValueError("counts must be non-negative")
         shape = (int(AD.shape[0]), int(AD.shape[1]))
-        if dense_budget is not None:
-            budget = packed_budget = dense_budget
-        elif mesh is None:
-            budget = packed_budget = device_dense_budget(device)
-        else:
-            # the smallest rank's budget, so that every rank picks one rung
-            from ..parallel.mesh import world_min
-            least = world_min(device_dense_budget(device))
-            budget = least * _shard_factor(mesh)
-            packed_budget = least * _packed_shard_factor(mesh)
-        rung = ladder_rung(shape, vmax, budget, packed_budget)
+        rung, budget = placement_rung(shape, vmax, device, dense_budget,
+                                      mesh, verbose)
     if verbose and (mesh is None or mesh.is_root):
         what = {
             "dense": "densified as %s (%.1f GiB)" % (
