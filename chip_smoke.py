@@ -8,8 +8,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. environment: torch, CUDA and nvcc versions, the card's name and power
    limit; there is no CPU path;
 2. build: the CUDA kernels, K0 (csrc/dense_counts.cu), K1
-   (csrc/fused_estep.cu), K2/K3 (csrc/packed_counts.cu) and the probes'
-   A/B (csrc/probe_nibbles.cu) and C/D (csrc/probe_coo.cu), from the
+   (csrc/fused_estep.cu), K2/K3 (csrc/packed_counts.cu), the seeded
+   inits' stream (csrc/mt19937.cu) and the probes' A/B
+   (csrc/probe_nibbles.cu) and C/D (csrc/probe_coo.cu), from the
    sources in the checkout, one nvcc for each, started together;
 3. K1 against its plain PyTorch version on the card, at the slice's
    shapes (two edge shapes, one with K above 256 and an unaligned C;
@@ -88,9 +89,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    The probes lie on no path of vireo_wrap: their launches in phases 7
    and 8 must be 0;
 5. `[mt]`: the main call's seeded inits (20 restarts, 60.8M doubles of
-   numpy's stream) drawn on the host and regenerated on the card
-   (ops/mt19937.py): equal bit for bit, numpy's position equal after,
-   both timed, the card's peak memory;
+   numpy's stream) and the CLI's (50 restarts, 152M) drawn on the host
+   and made on the card by csrc/mt19937.cu (ops/mt19937.py): equal bit
+   for bit, numpy's position equal after, one launch a card init, both
+   timed, the card's peak memory, the kernel alone and its time a step;
 6. `[synth]`: synth_pool_dense_device at the main pool's size on the
    card: time, peak memory, and density, mean depth, doublet share and
    allele fractions against the numpy pool within the stated tolerances;
@@ -566,17 +568,17 @@ def phase_environment(torch):
 
 
 def phase_build():
-    """The five kernel libraries, their nvcc runs started together."""
+    """The six kernel libraries, their nvcc runs started together."""
     from concurrent.futures import ThreadPoolExecutor
-    from vireo_tpu_torch.ops import counts, fused_em, packed
+    from vireo_tpu_torch.ops import counts, fused_em, mt19937, packed
     from vireo_tpu_torch.probes import coo_pallas_probe, nibbles
     t0 = time.perf_counter()
-    libs = (counts, fused_em, packed, nibbles, coo_pallas_probe)
+    libs = (counts, fused_em, packed, mt19937, nibbles, coo_pallas_probe)
     with ThreadPoolExecutor(len(libs)) as pool:
         for f in [pool.submit(m._library) for m in libs]:
             f.result()
-    log("[build] K0, K1, K2/K3 and the probes' A/B and C/D built and loaded "
-        "in %.2f s" % (time.perf_counter() - t0))
+    log("[build] K0, K1, K2/K3, the MT stream and the probes' A/B and C/D "
+        "built and loaded in %.2f s" % (time.perf_counter() - t0))
 
 
 def _k1_inputs(torch, V, C, K, seed, device):
@@ -1830,48 +1832,78 @@ def _main_pool():
 
 
 def phase_mt(torch):
-    """The main call's seeded inits (20 restarts, 60.8M doubles), drawn
-    on the host and regenerated on the card: equal bit for bit in
-    float32, with numpy's generator at the same position after; both
-    timed in turns (host, card, card, host), each ending in a sync."""
+    """The seeded inits of the main call (20 restarts, 60.8M doubles of
+    numpy's stream, heavy16's) and of the CLI's 50 restarts (152M,
+    pool16's), drawn on the host and made on the card by csrc/mt19937.cu:
+    equal bit for bit in float32, with numpy's generator at the same
+    position after, and one launch a card init; both timed in turns
+    (host, card, card, host), each ending in a sync; the card's peak
+    above the resident; the kernel alone against numpy's `rand` of the
+    same stream (`_timed_pair`), and its time a step. Returns the main
+    call's kernel row for the kernel table."""
     from vireo_tpu_torch.engine import wrap
     from vireo_tpu_torch.models.vireo import VireoConfig
-    V, C, K, R = (MAIN["n_var"], MAIN["n_cell"], MAIN["n_donor"],
-                  MAIN["n_init"])
+    from vireo_tpu_torch.ops import mt19937
+    V, C, K = MAIN["n_var"], MAIN["n_cell"], MAIN["n_donor"]
     cfg = VireoConfig(n_var=V, n_cell=C, n_donor=K)
     dev = torch.device("cuda")
-    n_doubles = R * (C * K + V * K * 3)
-    times = {"host": [], "card": []}
-    out, peak = {}, 0
-    for which in ("host", "card", "card", "host"):
-        fn = wrap._host_batched_init if which == "host" \
-            else wrap._mt_batched_init
-        out.pop(which, None)
+    rows = {}
+    for R in (MAIN["n_init"], 50):
+        n_doubles = R * (C * K + V * K * 3)
+        times = {"host": [], "card": []}
+        out, peak, launches = {}, 0, 0
+        for which in ("host", "card", "card", "host"):
+            fn = wrap._host_batched_init if which == "host" \
+                else wrap._mt_batched_init
+            out.pop(which, None)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            before = mt19937.LAUNCHES
+            np.random.seed(0)
+            t0 = time.perf_counter()
+            st = fn(cfg, R, None, np.random, torch.float32, dev)
+            torch.cuda.synchronize()
+            times[which].append(time.perf_counter() - t0)
+            if which == "card":
+                peak = max(peak, torch.cuda.max_memory_allocated() - base)
+            launches += mt19937.LAUNCHES - before
+            out[which] = (st, np.random.get_state())
+        (h, pos_h), (c, pos_c) = out["host"], out["card"]
+        same = {k: bool(torch.equal(getattr(h, k), getattr(c, k)))
+                for k in ("id_prob", "gt_prob", "beta_mu", "beta_sum")}
+        same_pos = pos_h[2] == pos_c[2] and np.array_equal(pos_h[1],
+                                                           pos_c[1])
+        del out, h, c, st
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
         np.random.seed(0)
-        t0 = time.perf_counter()
-        st = fn(cfg, R, None, np.random, torch.float32, dev)
-        torch.cuda.synchronize()
-        times[which].append(time.perf_counter() - t0)
-        if which == "card":
-            peak = max(peak, torch.cuda.max_memory_allocated() - base)
-        out[which] = (st, np.random.get_state())
-    (h, pos_h), (c, pos_c) = out["host"], out["card"]
-    same = {k: bool(torch.equal(getattr(h, k), getattr(c, k)))
-            for k in ("id_prob", "gt_prob", "beta_mu", "beta_sum")}
-    same_pos = pos_h[2] == pos_c[2] and np.array_equal(pos_h[1], pos_c[1])
-    log("[mt] %d restarts, %d doubles: host %s s, card %s s (CUDA "
-        "device stream, float64 transform), card peak %.3f GiB above the "
-        "resident; equal bit for bit %s, numpy position equal %s"
-        % (R, n_doubles, ["%.3f" % t for t in times["host"]],
-           ["%.3f" % t for t in times["card"]], peak / 2**30,
-           json.dumps(same), same_pos))
-    if not all(same.values()) or not same_pos:
-        raise AssertionError("the card's inits differ from the host's")
-    del out, h, c, st
-    torch.cuda.empty_cache()
+        plan = mt19937.take_state(n_doubles, np.random, dev)
+        calls, steps0 = mt19937.LAUNCHES, mt19937.STEPS
+        ms, plain_ms, _ = _timed_pair(
+            torch, lambda: mt19937.kernel_stream(plan),
+            lambda: np.random.rand(n_doubles))
+        steps = (mt19937.STEPS - steps0) // (mt19937.LAUNCHES - calls)
+        bound_ms, bound_by = _bound(0.0, 8.0 * n_doubles)
+        rows[R] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=0.0,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=None)
+        log("[mt] %d restarts, %d doubles: host %s s, card %s s (inits "
+            "made by csrc/mt19937.cu, float64 transform), card peak %.3f "
+            "GiB above the resident; kernel %.3f ms against numpy's rand "
+            "%.3f ms, %d steps, %.1f ns a step, bound by its stores %.3f "
+            "ms (8 bytes a double at 3.35 TB/s); launches %d for 2 card "
+            "inits; equal bit for bit %s, numpy position equal %s"
+            % (R, n_doubles, ["%.3f" % t for t in times["host"]],
+               ["%.3f" % t for t in times["card"]], peak / 2**30, ms,
+               plain_ms, steps, ms * 1e6 / steps, bound_ms, launches,
+               json.dumps(same), same_pos))
+        if not all(same.values()) or not same_pos:
+            raise AssertionError("the card's inits differ from the host's")
+        if launches != 2:
+            raise AssertionError("2 card inits launched the kernel %d times"
+                                 % launches)
+        torch.cuda.empty_cache()
+    return rows[MAIN["n_init"]]
 
 
 def phase_synth(torch, d):
@@ -2048,19 +2080,21 @@ def phase_cli_full(torch, d, cell):
 
 
 def _reset_launches():
-    from vireo_tpu_torch.ops import counts, fused_em, packed
+    from vireo_tpu_torch.ops import counts, fused_em, mt19937, packed
     fused_em.LAUNCHES = 0
+    mt19937.LAUNCHES = 0
     for launches in (counts.LAUNCHES, packed.LAUNCHES) + _probe_counters():
         for key in launches:
             launches[key] = 0
 
 
 def _launches():
-    """K1's, K2's, K3's and K0's two kernels' launches (K0 by its
-    wrappers' names, dense_suff_stats and dense_cell_loglik)."""
-    from vireo_tpu_torch.ops import counts, fused_em, packed
+    """K1's, K2's, K3's, the MT stream's and K0's two kernels' launches
+    (K0 by its wrappers' names, dense_suff_stats and dense_cell_loglik)."""
+    from vireo_tpu_torch.ops import counts, fused_em, mt19937, packed
     return dict(K1=fused_em.LAUNCHES, K2=packed.LAUNCHES["suff_stats"],
-                K3=packed.LAUNCHES["cell_loglik"], **counts.LAUNCHES)
+                K3=packed.LAUNCHES["cell_loglik"], MT=mt19937.LAUNCHES,
+                **counts.LAUNCHES)
 
 
 def _k0_launched(launches):
@@ -2196,6 +2230,9 @@ def _run_main(torch, d, tag, keep=None):
         log("[%s] phase %-15s %.3f s" % (tag, name, sec))
     log("[%s] vireo_wrap wall %.3f s, peak device memory %.3f GiB, "
         "launches %s" % (tag, wall, peak / 2**30, json.dumps(launches)))
+    if launches["MT"] != 1:
+        raise AssertionError("its one seeded init launched the MT stream "
+                             "kernel %d times" % launches["MT"])
 
     ID_prob, dbl = res["ID_prob"], res["doublet_prob"]
     assert ID_prob.shape == (C, K) and dbl.shape == (C, K * (K - 1) // 2)
@@ -2620,6 +2657,10 @@ def phase_ksweep(torch):
             out = sweep_n_donor(c, n_donor_list=KSWEEP_KS, verbose=False,
                                 **KSWEEP_FIT)
         wall = time.perf_counter() - t0
+        if _launches()["MT"] != len(KSWEEP_KS):
+            raise AssertionError("the sweep's %d seeded inits launched the "
+                                 "MT stream kernel %d times"
+                                 % (len(KSWEEP_KS), _launches()["MT"]))
         sweeps[label] = out
         for f in fits:
             log("[ksweep] %s K=%d: fit %.3f s, K0 launches %s; ELBOs of "
@@ -3159,8 +3200,9 @@ def phase_known_packed(torch, d, dense_known):
     iteration launches K2 and K3 once; the doublet phase K3 (its
     log-likelihood) and K2 + K3 (the genotype refresh); the ambient
     phase's SNP gate K2 once (PR 5, without the ambient phase: K2 15 =
-    14 + 1, K3 16 = 14 + 2). Gate 2: argmax psi agrees with the dense
-    run's. Returns the packed counts."""
+    14 + 1, K3 16 = 14 + 2); its one seeded init the MT stream once.
+    Gate 2: argmax psi agrees with the dense run's. Returns the packed
+    counts."""
     from vireo_tpu_torch.ops.counts import counts_from_scipy
     with _dense_budget(PACKED_BUDGET_GB):
         packed = counts_from_scipy(d["AD"], d["DP"],
@@ -3172,7 +3214,7 @@ def phase_known_packed(torch, d, dense_known):
     res, launches, _, own, fits, _ = _run_mode(torch, packed, d,
                                                "known (packed)", kw)
     fit_iters = sum(max(f) for f in fits)
-    want = dict(K1=0, K2=fit_iters + 2, K3=fit_iters + 2,
+    want = dict(K1=0, K2=fit_iters + 2, K3=fit_iters + 2, MT=1,
                 dense_suff_stats=0, dense_cell_loglik=0, K0_widths={})
     log("[modes] known (packed): launches %s, expected %s (%d fit "
         "iterations; doublet K2 1, K3 2; ambient gate K2 1)"
@@ -3816,12 +3858,13 @@ def phase_mesh_packed(d, cell, packed_launches, packed8):
     # launches equal phase 8's less its refit's and doublet phase's; the
     # refit may stop up to MESH_REFIT_SLACK iterations away from phase
     # 8's, since each rank's float32 sums round apart from one device's;
-    # the best warm ELBO is phase 8's to SCALAR_RTOL.
+    # the best warm ELBO is phase 8's to SCALAR_RTOL. Each rank makes the
+    # whole init stream: one MT launch.
     fits, fits8 = root["fits"], packed8["fits"]
     refit, refit8 = (sum(f[0] for f in x[1:]) for x in (fits, fits8))
     want = max(fits[0]) + refit + 1
     counted = all(rec["launches"] == {"K1": 0, "K2": want, "K3": want + 1,
-                                      "dense_suff_stats": 0,
+                                      "MT": 1, "dense_suff_stats": 0,
                                       "dense_cell_loglik": 0}
                   and rec["fits"] == fits for rec in recs)
     warm8 = packed_launches["K2"] - refit8 - 1
@@ -3892,7 +3935,7 @@ def main():
     k23 = phase_k23(torch)
     k0 = phase_k0(torch)
     probes, probe_launches = phase_probes(torch)
-    phase_mt(torch)
+    mt = phase_mt(torch)
     d = _main_pool()
     phase_synth(torch, d)
     dense_res, dense_launches, dense_fits, keep = phase_main_path(torch, d)
@@ -3937,7 +3980,8 @@ def main():
     # restarts' (N = 20 x 16) with all of that run's launches, and its
     # cell_loglik again at the doublet phase's N = 136 with the launches
     # at that width; K2 and K3 (on the packed rung) at the warm restarts';
-    # K0 at the K sweep's widths 96 and 128 with [ksweep]'s launches there
+    # K0 at the K sweep's widths 96 and 128 with [ksweep]'s launches there;
+    # the MT stream at the main call's 60.8M doubles with that run's launch
     table = [
         ("fused_estep_stats", "vireo_tpu_torch/csrc/fused_estep.cu",
          "vireo_tpu/ops/pallas_em.py:145",
@@ -3972,7 +4016,12 @@ def main():
          ksweep["K0_widths"].get("dense_%s N=%d" % (name, N), 0),
          k0[("sweep%d" % N, name)])
         for N in (96, 128)
-        for name, line in (("suff_stats", 78), ("cell_loglik", 87))]
+        for name, line in (("suff_stats", 78), ("cell_loglik", 87))] + [
+        ("mt_stream", "vireo_tpu_torch/csrc/mt19937.cu",
+         "none (vireo_tpu/ops/mt19937.py makes the stream with XLA ops)",
+         "vireo_wrap dense, seeded inits (%d restarts; plain: numpy's "
+         "rand of the same stream on the host)" % MAIN["n_init"],
+         dense_launches["MT"], mt)]
     # the probes' kernels: their launches in the runs of the probes' entry
     # points; beside them their launches in the two vireo_wrap runs (0:
     # they lie on no path of vireo_wrap)

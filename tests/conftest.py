@@ -24,6 +24,11 @@ import pytest  # noqa: E402
 REFERENCE_PATH = "/root/reference"
 
 
+def pytest_configure(config):
+    config.addinivalue_line("markers",
+                            "cuda: needs a CUDA card; skips without one")
+
+
 @pytest.fixture(scope="session")
 def reference():
     """Import the reference vireoSNP package (numpy implementation) for

@@ -5,7 +5,11 @@ host generator where a plain draw does; `_mt_batched_init` equals JAX's
 `_host_batched_init` and `_mt_batched_init` bit for bit; seeded
 `vireo_wrap` and `sweep_n_donor` give the same results under
 VIREO_DEVICE_MT=1 and =0, and JAX's (LB_list and ELBOs rtol 1e-9, calls
-and iterations identical)."""
+and iterations identical). The kernel's wrapper (`take_state`,
+`kernel_stream`) on CPU keys runs its plain version: the same stream,
+and the end state it sets equals numpy's after the draw; a CPU stream
+never reaches the kernel, a card's always does. The kernel itself:
+test_torch_mt19937_cuda.py on a card."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -19,8 +23,10 @@ from vireo_tpu.ops import mt19937 as jmt
 from vireo_tpu_torch.engine import wrap as twrap
 from vireo_tpu_torch.engine import select as tsel
 from vireo_tpu_torch.models import vireo as tvireo
+from vireo_tpu_torch.ops import mt19937 as tmt
 from vireo_tpu_torch.ops.mt19937 import (plan_stream, device_stream,
-                                         np_pairwise_sum_last)
+                                         np_pairwise_sum_last, take_state,
+                                         kernel_stream, stream_walk)
 
 torch.set_num_threads(1)
 
@@ -60,6 +66,117 @@ def test_stream_bit_parity_and_host_position(seed, n, pre_words):
     np.random.set_state(saved)
     np.testing.assert_array_equal(
         np.asarray(jmt.device_stream(jmt.plan_stream(n, max_lanes=7))), want)
+
+
+@pytest.mark.parametrize("seed,n,pre_words", [
+    (2, 1000, 0),
+    (7, 312 * 5, 0),
+    (3, 987654, 0),
+    (3, 12345, 1),
+    (11, 624 * 3 + 7, 3),
+    (5, 312 * 7, 0),     # p0 + 2n ends a 624 round: numpy's pos 624
+    (5, 311, 1),         # within the keys: no round twisted
+])
+def test_kernel_plain_version_rebuilds_numpy_state(seed, n, pre_words):
+    """The kernel's wrapper on CPU keys (its plain version): the stream
+    of `rand(n)` bit for bit, and the end state it sets from the keys the
+    plain `_twist` rounds reach is exactly numpy's after `rand(n)`,
+    position and Gaussian cache included."""
+    np.random.seed(seed)
+    if pre_words:
+        np.random.bytes(4 * pre_words)
+    np.random.standard_normal()          # leaves a cached Gaussian
+    saved = np.random.get_state()
+    want = np.random.rand(n)
+    state_want = np.random.get_state()
+
+    np.random.set_state(saved)
+    before = tmt.LAUNCHES
+    plan = take_state(n, device="cpu")
+    assert np.random.get_state()[2] == saved[2]     # the plan draws nothing
+    got = kernel_stream(plan)
+    state_got = np.random.get_state()
+
+    assert tmt.LAUNCHES == before
+    assert got.dtype == torch.float64 and got.shape == (n,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert state_got[0] == state_want[0]
+    np.testing.assert_array_equal(state_got[1], state_want[1])
+    assert state_got[2:] == state_want[2:]
+    assert stream_walk(n, int(saved[2]))["pos"] == state_want[2]
+
+
+def test_kernel_plain_version_with_randomstate_object():
+    rng = np.random.RandomState(42)
+    rng.rand(7)
+    ref = np.random.RandomState(42)
+    ref.rand(7)
+    want = ref.rand(5000)
+    got = kernel_stream(take_state(5000, rng=rng, device="cpu"), rng)
+    np.testing.assert_array_equal(got.numpy(), want)
+    state, state_ref = rng.get_state(), ref.get_state()
+    np.testing.assert_array_equal(state[1], state_ref[1])
+    assert state[2:] == state_ref[2:]
+    np.testing.assert_array_equal(rng.rand(10), ref.rand(10))
+
+
+def test_stream_walk_ends_where_numpy_does():
+    """`stream_walk`'s end position is numpy's after `rand(n)` from any
+    position, a round's end (624) included, and its round holds the last
+    drawn word."""
+    keys = np.random.RandomState(9).get_state()[1]
+    rng = np.random.RandomState()
+    for p0 in (0, 1, 2, 311, 622, 623, 624):
+        for n in (1, 2, 311, 312, 313, 624, 5000, 123457):
+            rng.set_state(("MT19937", keys, p0))
+            rng.rand(n)
+            w = stream_walk(n, p0)
+            assert w["pos"] == rng.get_state()[2], (p0, n)
+            assert 624 * w["rounds"] <= p0 + 2 * n - 1 < 624 * (w["rounds"]
+                                                                + 1)
+
+
+def test_card_streams_always_take_the_kernel_path(monkeypatch):
+    """A seeded init on a card takes `_mt_batched_init` (the kernel) at
+    any size and under VIREO_DEVICE_MT=0; only the CPU keeps the size
+    rule and the knob."""
+    calls = []
+    for name in ("_mt_batched_init", "_host_batched_init"):
+        monkeypatch.setattr(twrap, name,
+                            lambda *a, _name=name, **k: calls.append(_name))
+    cfg = tvireo.VireoConfig(n_var=6, n_cell=4, n_donor=2)
+    for knob in (None, "0", "1"):
+        with monkeypatch.context() as mp:
+            if knob is not None:
+                mp.setenv("VIREO_DEVICE_MT", knob)
+            for device in ("cuda", torch.device("cuda", 0), "cpu"):
+                twrap._seeded_batched_init(cfg, 2, None, np.random,
+                                           torch.float32, device)
+    want_cpu = {None: "_host_batched_init", "0": "_host_batched_init",
+                "1": "_mt_batched_init"}
+    assert calls == [c for knob in (None, "0", "1")
+                     for c in ("_mt_batched_init", "_mt_batched_init",
+                               want_cpu[knob])]
+
+
+def test_cpu_stream_never_reaches_the_kernel(monkeypatch):
+    """On the CPU, _mt_batched_init plans lanes on the host and
+    regenerates them with torch ops: the kernel's plan and wrapper are
+    never called, and LAUNCHES stays 0."""
+    def refuse(*a, **k):
+        raise AssertionError("the CPU stream reached the kernel's path")
+    monkeypatch.setattr(tmt, "take_state", refuse)
+    monkeypatch.setattr(tmt, "kernel_stream", refuse)
+    monkeypatch.setattr(tmt, "LAUNCHES", 0)
+    cfg = tvireo.VireoConfig(n_var=60, n_cell=40, n_donor=3)
+    np.random.seed(5)
+    got = twrap._mt_batched_init(cfg, 4, None, np.random, torch.float64,
+                                 "cpu")
+    np.random.seed(5)
+    want = twrap._host_batched_init(cfg, 4, None, np.random, torch.float64,
+                                    "cpu")
+    np.testing.assert_array_equal(got.id_prob.numpy(), want.id_prob.numpy())
+    assert tmt.LAUNCHES == 0
 
 
 @pytest.mark.parametrize("K", [2, 3, 4, 7, 8, 12, 16, 24, 100, 128])

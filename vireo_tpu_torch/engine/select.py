@@ -3,8 +3,9 @@
 
 Each K's restarts run as one batched fit on counts placed once for the
 whole sweep. Seeded sweeps draw every K's inits from numpy's global
-stream in the reference's order (`wrap._seeded_batched_init`: on the
-host, or regenerated on the device for large streams); unseeded sweeps
+stream in the reference's order (`wrap._seeded_batched_init`: on a
+card by one kernel launch; on the CPU on the host, or regenerated by
+torch ops for large streams); unseeded sweeps
 seed a device generator per K from that stream (`rng.randint(2**31)`).
 JAX's forced device-init path (VIREO_DEVICE_INIT=1), which reuses one
 seed for every K, is not ported.

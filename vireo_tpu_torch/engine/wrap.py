@@ -5,10 +5,11 @@ The n_init random restarts run as one batched fit: the restart axis is
 folded into the matmul's column dimension (R*K columns), each restart
 stops at its own convergence, and the best ELBO is refit to
 convergence, followed by the doublet E-step. Seeded runs draw their
-inits from numpy's global stream in the reference's order, on the host
-or, for streams of 2^23 doubles or more, regenerated on the device
-(ops/mt19937.py; VIREO_DEVICE_MT=1/0 forces a path); unseeded runs draw
-them on the device from a torch.Generator.
+inits from numpy's global stream in the reference's order: on a card
+made by one kernel launch (ops/mt19937.py); on the CPU drawn on the host
+or, for streams of 2^23 doubles or more, regenerated by torch ops
+(VIREO_DEVICE_MT=1/0 forces a path there); unseeded runs draw them on
+the device from a torch.Generator.
 
 On a mesh (parallel/mesh.py; one process per rank under
 torch.distributed) every rank calls `vireo_wrap` with the same
@@ -244,22 +245,27 @@ def _host_batched_init(cfg, n_init, GT_prior_use, rng, dtype, device,
 def _mt_batched_init(cfg, n_init, GT_prior_use, rng, dtype, device,
                      n_cell_draw=None):
     """`_host_batched_init`'s draws regenerated on `device` from the
-    generator's states (ops/mt19937.py) instead of uploaded: the host
-    generator advances exactly as if it had drawn them, and each restart
-    is normalised in float64 in numpy's summation order before the cast
-    to `dtype`, so the state equals `_host_batched_init`'s bit for bit,
-    in float32 as in float64 (the JAX package's rounds its stream to
-    float32 without x64; the card has float64)."""
-    from ..ops.mt19937 import (plan_stream, device_stream,
-                               np_pairwise_sum_last)
+    generator's state (ops/mt19937.py) instead of uploaded: on a card by
+    one kernel launch from its keys, on the CPU from the lane states the
+    host plans. The host generator advances exactly as if it had drawn
+    them, and each restart is normalised in float64 in numpy's summation
+    order before the cast to `dtype`, so the state equals
+    `_host_batched_init`'s bit for bit, in float32 as in float64 (the JAX
+    package's rounds its stream to float32 without x64; the card has
+    float64)."""
+    from ..ops.mt19937 import (plan_stream, device_stream, take_state,
+                               kernel_stream, np_pairwise_sum_last)
     K, C, V, G = cfg.n_donor, cfg.n_cell, cfg.n_var, cfg.n_GT
     c_draw = C if n_cell_draw is None else int(n_cell_draw)
     gt_draw = 0 if GT_prior_use is not None else V * K * G
     per = c_draw * K + gt_draw
+    on_card = resolve_device(device).type == "cuda"
     with span("inits.plan"):
-        plan = plan_stream(n_init * per, rng=rng, device=device)
+        plan = (take_state(n_init * per, rng, device) if on_card
+                else plan_stream(n_init * per, rng=rng, device=device))
     with span("inits.stream"):
-        flat = device_stream(plan).reshape(n_init, per)
+        flat = (kernel_stream(plan, rng) if on_card
+                else device_stream(plan)).reshape(n_init, per)
 
     with span("inits.normalise"):
         idp = flat[:, :c_draw * K].reshape(n_init, c_draw, K)
@@ -290,24 +296,27 @@ def _env_tristate(name, on_default):
     return on_default
 
 
-# seeded init streams of at least this many doubles are regenerated on
-# the device; smaller ones are drawn on the host. VIREO_DEVICE_MT=1/0
-# forces either path.
+# on the CPU, seeded init streams of at least this many doubles are
+# regenerated by torch ops; smaller ones are drawn on the host.
+# VIREO_DEVICE_MT=1/0 forces either path there.
 _MT_STREAM_MIN_DOUBLES = 1 << 23
 
 
 def _seeded_batched_init(cfg, n_init, GT_prior_use, rng, dtype, device,
                          n_cell_draw=None):
     """The seeded runs' inits, numpy's stream in the reference's order,
-    drawn on the host (`_host_batched_init`) or regenerated on the
-    device (`_mt_batched_init`); both give the same state. A failure of
-    the device path raises: it never falls back to the host."""
+    made on the device (`_mt_batched_init`: on a card always, by one
+    kernel launch) or, on the CPU, drawn on the host
+    (`_host_batched_init`) below _MT_STREAM_MIN_DOUBLES; both give the
+    same state. A failure of the device path raises: it never falls back
+    to the host."""
     c_draw = cfg.n_cell if n_cell_draw is None else int(n_cell_draw)
     n_total = n_init * (c_draw * cfg.n_donor
                         + (0 if GT_prior_use is not None
                            else cfg.n_var * cfg.n_donor * cfg.n_GT))
-    use_mt = _env_tristate("VIREO_DEVICE_MT",
-                           n_total >= _MT_STREAM_MIN_DOUBLES)
+    use_mt = (resolve_device(device).type == "cuda"
+              or _env_tristate("VIREO_DEVICE_MT",
+                               n_total >= _MT_STREAM_MIN_DOUBLES))
     init = _mt_batched_init if use_mt else _host_batched_init
     with span("inits"):
         return init(cfg, n_init, GT_prior_use, rng, dtype, device,

@@ -4,8 +4,18 @@ vireo_tpu/ops/mt19937.py).
 Seeded runs draw their warm-restart inits from numpy's global MT19937
 stream, in the reference's order. Assembled on the host, those draws are
 60.8M doubles for 20 restarts of the 30k x 100k x 16 pool and 152M for
-the CLI's 50, uploaded as a float array. Here the host only plans the
-stream, and the device regenerates it from the generator's states:
+the CLI's 50, uploaded as a float array. Here the device makes them,
+by one of two paths, chosen by the device of the stream:
+
+- On a card, `take_state` uploads the generator's 624 keys and
+  `kernel_stream` makes the whole stream in one launch of
+  csrc/mt19937.cu (`LAUNCHES` counts them, `STEPS` their steps), then
+  sets the host generator where a plain `rng.rand(n_total)` leaves it.
+  The host draws nothing.
+- On the CPU, the plain version the tests hold the kernel against (and
+  the float32 transform the JAX comparison uses), the host only plans
+  the stream, and the device regenerates it from the generator's
+  states:
 
 - `plan_stream` advances the host generator through exactly the draws
   it owes (numpy's C loop), capturing its 624-word state every `chunk`
@@ -31,18 +41,44 @@ the per-restart normalisations built from the stream equal the host's
 bit for bit as well.
 """
 
+import ctypes
+
 import numpy as np
 import torch
 
+from ._launch import launch, on_cpu
 from ..utils.device import resolve_device
 
-__all__ = ["plan_stream", "device_stream", "np_pairwise_sum_last"]
+__all__ = ["plan_stream", "device_stream", "take_state", "kernel_stream",
+           "stream_walk", "np_pairwise_sum_last", "LAUNCHES", "STEPS"]
 
 _N = 624
 _M = 397
 _UPPER = 0x80000000
 _LOWER = 0x7FFFFFFF
 _MAG = 0x9908B0DF
+
+# number of kernel_stream calls that launched the CUDA kernel, and the
+# steps of the recurrence those launches made
+LAUNCHES = 0
+STEPS = 0
+
+_LIB = None
+
+
+def _library():
+    global _LIB
+    if _LIB is None:
+        from ._build import load_library
+        lib = load_library("mt19937")
+        ptr, ll = ctypes.c_void_p, ctypes.c_longlong
+        lib.vireo_mt19937_stream.argtypes = [ptr, ptr, ptr, ll, ctypes.c_int,
+                                             ctypes.POINTER(ll), ptr]
+        lib.vireo_mt19937_stream.restype = ctypes.c_int
+        lib.vireo_mt19937_error_string.argtypes = [ctypes.c_int]
+        lib.vireo_mt19937_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
 
 
 def plan_stream(n_total, rng=None, max_lanes=1024, device=None):
@@ -133,6 +169,73 @@ def device_stream(plan, dtype=torch.float64):
     del w
     vals = (a * 67108864.0 + b) / 9007199254740992.0
     return vals.reshape(-1)[:plan["n_total"]]
+
+
+def take_state(n_total, rng=None, device=None):
+    """The kernel's plan: the host generator's 624 keys on `device` (as
+    int32 bits), its position `p0` and `n_total`. The generator does not
+    move; `kernel_stream` moves it."""
+    if rng is None:
+        rng = np.random
+    name, keys, pos, _, _ = rng.get_state()
+    assert name == "MT19937", "legacy MT19937 stream required"
+    assert int(n_total) > 0
+    keys = np.ascontiguousarray(keys, np.uint32).view(np.int32)
+    return {"keys": torch.from_numpy(keys).to(resolve_device(device)),
+            "p0": int(pos), "n_total": int(n_total)}
+
+
+def stream_walk(n_total, p0):
+    """Where `n_total` draws from position `p0` end: `rounds`, the twist
+    round that holds the last word (0: the keys themselves), and `pos`,
+    the generator's position in it after (624 when the last word ends
+    it)."""
+    last = p0 + 2 * n_total - 1
+    rounds = last // _N
+    return {"rounds": rounds, "pos": last - _N * rounds + 1}
+
+
+def _kernel_stream_reference(keys, p0, n_total, rounds):
+    """The kernel's plain version: one lane of `device_stream` from the
+    keys, and the keys `rounds` twist rounds on."""
+    words = keys.to(torch.int64) & 0xFFFFFFFF
+    vals = device_stream({"states": words[None], "p0": p0,
+                          "c_blocks": -(-2 * n_total // _N),
+                          "n_total": n_total})
+    mt = words[None]
+    for _ in range(rounds):
+        mt = _twist(mt)
+    return vals, mt[0]
+
+
+def kernel_stream(plan, rng=None):
+    """The `rand()` doubles of a `take_state` plan as one (n_total,)
+    float64 tensor, equal to `rng.rand(n_total)` bit for bit, with `rng`
+    then set where that draw leaves it (its Gaussian cache kept). Keys on
+    a card launch csrc/mt19937.cu, keys on the CPU run the plain version;
+    either way the end state is read back to the host."""
+    global LAUNCHES, STEPS
+    if rng is None:
+        rng = np.random
+    keys, p0, n = plan["keys"], plan["p0"], plan["n_total"]
+    walk = stream_walk(n, p0)
+    if on_cpu("kernel_stream", keys):
+        vals, end = _kernel_stream_reference(keys, p0, n, walk["rounds"])
+    else:
+        lib = _library()
+        vals = torch.empty((n,), dtype=torch.float64, device=keys.device)
+        end = torch.empty((_N,), dtype=torch.int32, device=keys.device)
+        steps = ctypes.c_longlong()
+        launch("kernel_stream", lib.vireo_mt19937_stream,
+               (keys.data_ptr(), vals.data_ptr(), end.data_ptr(), n, p0,
+                ctypes.byref(steps)), keys.device,
+               lib.vireo_mt19937_error_string)
+        LAUNCHES += 1
+        STEPS += steps.value
+    name, _, _, has_gauss, gauss = rng.get_state()
+    rng.set_state((name, end.cpu().numpy().astype(np.uint32), walk["pos"],
+                   has_gauss, gauss))
+    return vals
 
 
 def np_pairwise_sum_last(x):
