@@ -300,27 +300,21 @@ def _host_arrays(X):
     return [np.array(X)]
 
 
-def _union_dense(AD, DP):
-    """The dense rung as placed through the union of the patterns: host
-    union triplets, each matrix scattered from them."""
-    from vireo_tpu_torch.ops import counts as tcounts
-    rows, cols, a, d = tcounts._host_union_triplets(AD, DP)
-    vmax = max(a.max(initial=0), d.max(initial=0))
-    dtype = exact_count_dtype(vmax)
-    return [tcounts._scatter_dense(rows, cols, v, AD.shape, dtype, "cpu")
-            for v in (a, d)]
-
-
 def _count_unions(monkeypatch):
+    """The aligned triplets of every `_host_union_triplets` call."""
     from vireo_tpu_torch.ops import counts as tcounts
     called = []
     real = tcounts._host_union_triplets
 
     def counted(*args):
-        called.append(1)
-        return real(*args)
+        called.append(real(*args))
+        return called[-1]
     monkeypatch.setattr(tcounts, "_host_union_triplets", counted)
     return called
+
+
+def _dense(X):
+    return X.toarray() if sp.issparse(X) else np.asarray(X)
 
 
 @pytest.mark.parametrize("case", [
@@ -328,44 +322,59 @@ def _count_unions(monkeypatch):
     "explicit_zeros", "ad_not_in_dp", "empty_rows_and_cols", "int16"])
 def test_dense_rung_placed_directly_equals_the_union_path(monkeypatch, case):
     """The dense rung, placed from each matrix's own compressed arrays,
-    equals the union path's DenseCounts bit for bit, in values and type;
-    no union is computed, PLACEMENTS counts one direct placement, and
-    the caller's matrices are left as they were."""
-    from vireo_tpu_torch.ops.counts import PLACEMENTS
+    holds the host's dense arrays bit for bit in the smallest exact type
+    (`exact_count_dtype`); no union is computed, and the caller's
+    matrices are left as they were."""
     AD, DP = _placement_case(case)
     before = [_host_arrays(X) for X in (AD, DP)]
-    want = _union_dense(AD, DP)
     unions = _count_unions(monkeypatch)
-    placed = dict(PLACEMENTS)
     got = counts_from_scipy(AD, DP)
     assert unions == []
-    assert PLACEMENTS == dict(placed, direct=placed["direct"] + 1)
     assert type(got) is DenseCounts
-    for g, w in zip((got.ad, got.dp), want):
-        assert g.dtype == w.dtype and torch.equal(g, w)
-    assert got.ad.dtype == (torch.bfloat16 if case == "int16"
-                            else torch.int8)
-    dense = [X.toarray() if sp.issparse(X) else np.asarray(X)
-             for X in (AD, DP)]
-    np.testing.assert_array_equal(got.ad.double().numpy(), dense[0])
-    np.testing.assert_array_equal(got.dp.double().numpy(), dense[1])
+    dense = [_dense(X) for X in (AD, DP)]
+    dtype = exact_count_dtype(max(x.max() for x in dense))
+    assert dtype == (torch.bfloat16 if case == "int16" else torch.int8)
+    for g, want in zip((got.ad, got.dp), dense):
+        assert g.dtype == dtype
+        np.testing.assert_array_equal(g.double().numpy(), want)
     for X, arrays in zip((AD, DP), before):
         for a, b in zip(_host_arrays(X), arrays):
             np.testing.assert_array_equal(a, b)
 
 
-def _same_object(got, want):
-    """Two counts objects with equal fields: tensors equal in type and
-    value, nested objects field by field."""
-    import dataclasses
-    assert type(got) is type(want)
-    if torch.is_tensor(want):
-        assert got.dtype == want.dtype and torch.equal(got, want)
-    elif dataclasses.is_dataclass(want):
-        for f in dataclasses.fields(want):
-            _same_object(getattr(got, f.name), getattr(want, f.name))
+def _same_as_jax(got, want):
+    """A port counts object against the JAX package's of the same rung,
+    field by field and exactly: the JAX arrays cut to the port's extent
+    (its COO triplets to `nnz`, its packed bytes to the pool's rows and
+    bytes; the rest is padding)."""
+    from vireo_tpu_torch.ops.counts import (HybridCounts, PackedCounts,
+                                            SparseCounts)
+    assert type(got).__name__ == type(want).__name__
+    if isinstance(got, HybridCounts):
+        assert got.cap == want.cap
+        assert got.binom_corr.dtype == torch.float64
+        assert float(got.binom_corr) == float(want.binom_corr)
+        _same_as_jax(got.base, want.base)
+        _same_as_jax(got.resid, want.resid)
+    elif isinstance(got, SparseCounts):
+        assert got.shape == want.shape and got.nnz == want.nnz
+        for f in ("rows_r", "cols_r", "ad_r", "dp_r",
+                  "rows_c", "cols_c", "ad_c", "dp_c"):
+            np.testing.assert_array_equal(
+                getattr(got, f).numpy(),
+                np.asarray(getattr(want, f))[:want.nnz], err_msg=f)
+    elif isinstance(got, PackedCounts):
+        assert got.shape == want.shape
+        V, Cb = got.ad_p.shape
+        for f in ("ad_p", "dp_p"):
+            np.testing.assert_array_equal(
+                getattr(got, f).numpy(),
+                np.asarray(getattr(want, f))[:V, :Cb].view(np.uint8))
     else:
-        assert got == want
+        for f in ("ad", "dp"):
+            g, w = getattr(got, f), np.asarray(getattr(want, f))
+            assert g.dtype == torch.int8 and w.dtype == np.int8
+            np.testing.assert_array_equal(g.numpy(), w)
 
 
 @pytest.mark.parametrize("case", ["csc", "duplicates"])
@@ -373,9 +382,12 @@ def _same_object(got, want):
     ("packed", 1, False), ("int8-hybrid", 2, True),
     ("packed-hybrid", 1, True), ("coo", 0, True)])
 def test_other_rungs_keep_the_union(monkeypatch, rung, budget, heavy, case):
-    """Every rung but dense still places the union triplets: one union,
-    PLACEMENTS counts it, and the object is the one the union of the
-    caller's own matrices gives."""
+    """Every rung places each matrix on its own; AD and DP are aligned
+    to the union of their patterns only where one layout holds both: no
+    union on the packed rung, one of only the entries above the cap on a
+    hybrid (its residual), one of the whole pool on COO. The object
+    equals the JAX package's of the same rung, field by field, and
+    densifies to the host's dense arrays."""
     from vireo_tpu_torch.ops import counts as tcounts
     if heavy:
         AD, DP = _heavy_pool()
@@ -391,13 +403,26 @@ def test_other_rungs_keep_the_union(monkeypatch, rung, budget, heavy, case):
             assert max(X.toarray().max() for X in (AD, DP)) <= 15
     nbytes = max(budget * AD.shape[0] * AD.shape[1], 1)
     shape = (AD.shape[0], AD.shape[1])
-    want = tcounts._rung_counts(
-        rung, *tcounts._host_union_triplets(AD, DP), shape, "cpu")
+    dense = [X.toarray() for X in (AD, DP)]
     unions = _count_unions(monkeypatch)
-    placed = dict(tcounts.PLACEMENTS)
     got = counts_from_scipy(AD, DP, dense_budget=nbytes)
-    assert len(unions) == 1
-    assert tcounts.PLACEMENTS == dict(placed, union=placed["union"] + 1)
-    assert tcounts.ladder_rung(shape, max(X.max() for X in (AD, DP)),
+    assert tcounts.ladder_rung(shape, max(x.max() for x in dense),
                                nbytes) == rung
-    _same_object(got, want)
+    cap = {"int8-hybrid": 127, "packed-hybrid": 15}.get(rung)
+    over = (dense[0] > cap) | (dense[1] > cap) if cap else None
+    if rung == "packed":
+        assert unions == []
+    elif cap:
+        (rows, cols, a, d), = unions
+        assert len(rows) == over.sum() > 0
+        assert over[rows, cols].all()
+        np.testing.assert_array_equal(a, dense[0][rows, cols])
+        np.testing.assert_array_equal(d, dense[1][rows, cols])
+    else:
+        (rows, cols, a, d), = unions
+        assert len(rows) == ((dense[0] != 0) | (dense[1] != 0)).sum()
+    _same_as_jax(got, jax_counts_from_scipy(
+        AD, DP, dtype=jnp.float64, max_dense_elems=0, dense_budget=nbytes))
+    flat = got.densify()
+    for g, want in zip((flat.ad, flat.dp), dense):
+        np.testing.assert_array_equal(g.double().numpy(), want)

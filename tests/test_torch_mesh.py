@@ -248,14 +248,12 @@ def ranks4(tmp_path_factory):
         # 27-28: the packed rung's cells' variant counts, gathered
         ("builtins:getattr", (Ref(2), "layout"), {}),
         (Ref(27, "gather"), (Ref(5), "cells", 0), {}),
-        # 29-32: the dense rung on a 2 x 2 mesh from 39 cells (one padded
-        # cell), each rank's block placed directly; its layout's ranges;
-        # the placements by path
+        # 29-31: the dense rung on a 2 x 2 mesh from 39 cells (one padded
+        # cell), each rank's block placed directly; its layout's ranges
         ("vireo_tpu_torch.ops.counts:counts_from_scipy",
          (AD[:, :39], DP[:, :39]), dict(mesh=m22)),
         ("builtins:getattr", (Ref(29, "layout"), "vars"), {}),
         ("builtins:getattr", (Ref(29, "layout"), "cells"), {}),
-        ("vireo_tpu_torch.ops.counts:PLACEMENTS.copy", {}),
     ]
     out = run_calls(calls, 4, str(tmp_path_factory.mktemp("ranks4")),
                     timeout=300)
@@ -331,27 +329,23 @@ def test_ladder_budget_aggregates_across_mesh(ranks4):
 
 def test_mesh_dense_block_placed_directly_equals_the_union_block(ranks4):
     """A rank's dense block, placed from each matrix's own block without
-    a union of the patterns, equals the block the union path gives,
-    padded cell included; each rank counts its placements by path
-    (calls 13 and 29 direct, 10 and 14 through the union)."""
+    a union of the patterns, holds the cut block of the host's dense
+    arrays bit for bit in int8, its padded cell zero."""
     AD, DP = ranks4["AD"][:, :39], ranks4["DP"][:, :39]
-    vmax = max(AD.max(), DP.max())
-    dtype = tcounts.exact_count_dtype(vmax)
     blocks = set()
     for rank_out in ranks4["out"]:
         (v0, v1), (c0, c1) = rank_out[30], rank_out[31]
         blocks.add((v0, c0))
         local = rank_out[29]["local"]
         assert rank_out[29]["layout"]["shape"] == (60, 40)
-        rows, cols, a, d = tcounts._block_union(AD, DP, (v0, v1), (c0, c1))
-        for got, vals in ((local["ad"], a), (local["dp"], d)):
-            want = tcounts._scatter_dense(rows, cols, vals, (v1 - v0, c1 - c0),
-                                          dtype, "cpu").numpy()
-            assert got.dtype == want.dtype == np.int8
+        for got, X in ((local["ad"], AD), (local["dp"], DP)):
+            want = np.zeros((v1 - v0, c1 - c0))
+            cut = (X.toarray() if sp.issparse(X) else X)[v0:v1, c0:c1]
+            want[:, :cut.shape[1]] = cut
+            assert got.dtype == np.int8
             np.testing.assert_array_equal(got, want)
         if c1 > 39:
             assert not local["ad"][:, 39 - c0:].any()
-        assert rank_out[32] == {"direct": 2, "union": 2}
     assert blocks == {(0, 0), (0, 20), (30, 0), (30, 20)}
 
 

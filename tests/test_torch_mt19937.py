@@ -1,15 +1,16 @@
 """The device MT19937 stream (ops/mt19937.py) and the seeded-init routing
 of engine/wrap.py against numpy and the JAX package, on the CPU in
-float64: the stream equals `np.random.rand` bit for bit and leaves the
-host generator where a plain draw does; `_mt_batched_init` equals JAX's
-`_host_batched_init` and `_mt_batched_init` bit for bit; seeded
-`vireo_wrap` and `sweep_n_donor` give the same results under
-VIREO_DEVICE_MT=1 and =0, and JAX's (LB_list and ELBOs rtol 1e-9, calls
-and iterations identical). The kernel's wrapper (`take_state`,
-`kernel_stream`) on CPU keys runs its plain version: the same stream,
-and the end state it sets equals numpy's after the draw; a CPU stream
-never reaches the kernel, a card's always does. The kernel itself:
-test_torch_mt19937_cuda.py on a card."""
+float64. The kernel's wrapper (`take_state`, `kernel_stream`) on CPU
+keys runs its plain version: the stream equals `np.random.rand` (and
+the JAX package's lane stream) bit for bit, and the end state it sets
+equals numpy's after the draw; it never launches the kernel.
+`_mt_batched_init` equals JAX's `_host_batched_init` and
+`_mt_batched_init` bit for bit. Seeded inits take `_mt_batched_init` on
+a card and `_host_batched_init` on any other device; seeded `vireo_wrap`
+and `sweep_n_donor` forced through `_mt_batched_init` give the host
+path's results, and JAX's (LB_list and ELBOs rtol 1e-9, calls and
+iterations identical). The kernel itself: test_torch_mt19937_cuda.py on
+a card."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -24,9 +25,9 @@ from vireo_tpu_torch.engine import wrap as twrap
 from vireo_tpu_torch.engine import select as tsel
 from vireo_tpu_torch.models import vireo as tvireo
 from vireo_tpu_torch.ops import mt19937 as tmt
-from vireo_tpu_torch.ops.mt19937 import (plan_stream, device_stream,
-                                         np_pairwise_sum_last, take_state,
-                                         kernel_stream, stream_walk)
+from vireo_tpu_torch.ops.mt19937 import (device_stream, np_pairwise_sum_last,
+                                         take_state, kernel_stream,
+                                         stream_walk)
 
 torch.set_num_threads(1)
 
@@ -34,7 +35,6 @@ torch.set_num_threads(1)
 @pytest.fixture(autouse=True)
 def _ask_for_the_cpu(monkeypatch):
     monkeypatch.setenv("VIREO_PLATFORM", "cpu")
-    monkeypatch.delenv("VIREO_DEVICE_MT", raising=False)
 
 
 @pytest.mark.parametrize("seed,n,pre_words", [
@@ -53,16 +53,17 @@ def test_stream_bit_parity_and_host_position(seed, n, pre_words):
     pos_want = np.random.get_state()
 
     np.random.set_state(saved)
-    plan = plan_stream(n, max_lanes=7)
-    got = device_stream(plan)
+    before = tmt.LAUNCHES
+    got = kernel_stream(take_state(n, device="cpu"))
     pos_got = np.random.get_state()
 
+    assert tmt.LAUNCHES == before
     assert got.dtype == torch.float64 and got.shape == (n,)
     np.testing.assert_array_equal(got.numpy(), want)
     assert pos_want[2] == pos_got[2]
     np.testing.assert_array_equal(pos_want[1], pos_got[1])
 
-    # the JAX package's plan and stream, from the same state
+    # the JAX package's lane plan and stream, from the same state
     np.random.set_state(saved)
     np.testing.assert_array_equal(
         np.asarray(jmt.device_stream(jmt.plan_stream(n, max_lanes=7))), want)
@@ -137,46 +138,48 @@ def test_stream_walk_ends_where_numpy_does():
 
 
 def test_card_streams_always_take_the_kernel_path(monkeypatch):
-    """A seeded init on a card takes `_mt_batched_init` (the kernel) at
-    any size and under VIREO_DEVICE_MT=0; only the CPU keeps the size
-    rule and the knob."""
+    """A seeded init on a card takes `_mt_batched_init` (the kernel), on
+    the CPU `_host_batched_init`, at any size: the device alone picks."""
     calls = []
     for name in ("_mt_batched_init", "_host_batched_init"):
         monkeypatch.setattr(twrap, name,
                             lambda *a, _name=name, **k: calls.append(_name))
-    cfg = tvireo.VireoConfig(n_var=6, n_cell=4, n_donor=2)
-    for knob in (None, "0", "1"):
-        with monkeypatch.context() as mp:
-            if knob is not None:
-                mp.setenv("VIREO_DEVICE_MT", knob)
-            for device in ("cuda", torch.device("cuda", 0), "cpu"):
-                twrap._seeded_batched_init(cfg, 2, None, np.random,
-                                           torch.float32, device)
-    want_cpu = {None: "_host_batched_init", "0": "_host_batched_init",
-                "1": "_mt_batched_init"}
-    assert calls == [c for knob in (None, "0", "1")
-                     for c in ("_mt_batched_init", "_mt_batched_init",
-                               want_cpu[knob])]
+    small = tvireo.VireoConfig(n_var=6, n_cell=4, n_donor=2)
+    large = tvireo.VireoConfig(n_var=30_000, n_cell=100_000, n_donor=16)
+    for cfg in (small, large):
+        for device in ("cuda", torch.device("cuda", 0), "cpu"):
+            twrap._seeded_batched_init(cfg, 50, None, np.random,
+                                       torch.float32, device)
+    assert calls == ["_mt_batched_init", "_mt_batched_init",
+                     "_host_batched_init"] * 2
 
 
 def test_cpu_stream_never_reaches_the_kernel(monkeypatch):
-    """On the CPU, _mt_batched_init plans lanes on the host and
-    regenerates them with torch ops: the kernel's plan and wrapper are
-    never called, and LAUNCHES stays 0."""
-    def refuse(*a, **k):
-        raise AssertionError("the CPU stream reached the kernel's path")
-    monkeypatch.setattr(tmt, "take_state", refuse)
-    monkeypatch.setattr(tmt, "kernel_stream", refuse)
+    """On the CPU, _mt_batched_init plans with `take_state` and streams
+    with `kernel_stream`'s plain version: the state and numpy's position
+    equal `_host_batched_init`'s bit for bit, and LAUNCHES stays 0."""
     monkeypatch.setattr(tmt, "LAUNCHES", 0)
+    plain = []
+    real = tmt._kernel_stream_reference
+
+    def counted(*a):
+        plain.append(1)
+        return real(*a)
+    monkeypatch.setattr(tmt, "_kernel_stream_reference", counted)
     cfg = tvireo.VireoConfig(n_var=60, n_cell=40, n_donor=3)
     np.random.seed(5)
     got = twrap._mt_batched_init(cfg, 4, None, np.random, torch.float64,
                                  "cpu")
+    pos = np.random.get_state()
     np.random.seed(5)
     want = twrap._host_batched_init(cfg, 4, None, np.random, torch.float64,
                                     "cpu")
-    np.testing.assert_array_equal(got.id_prob.numpy(), want.id_prob.numpy())
-    assert tmt.LAUNCHES == 0
+    for key in ("beta_mu", "beta_sum", "gt_prob", "id_prob"):
+        np.testing.assert_array_equal(getattr(got, key).numpy(),
+                                      getattr(want, key).numpy(), err_msg=key)
+    np.testing.assert_array_equal(pos[1], np.random.get_state()[1])
+    assert pos[2:] == np.random.get_state()[2:]
+    assert plain == [1] and tmt.LAUNCHES == 0
 
 
 @pytest.mark.parametrize("K", [2, 3, 4, 7, 8, 12, 16, 24, 100, 128])
@@ -187,32 +190,29 @@ def test_pairwise_sum_matches_numpy_bitwise(K):
     np.testing.assert_array_equal(np_pairwise_sum_last(x), np.sum(x, -1))
 
 
+def _one_lane(n):
+    """A `device_stream` plan of one lane: the `n` draws from the global
+    generator's keys and position (which do not move)."""
+    _, keys, pos, _, _ = np.random.get_state()
+    return {"states": torch.from_numpy(keys.astype(np.int64))[None],
+            "p0": int(pos), "c_blocks": -(-2 * n // 624), "n_total": n}
+
+
 def test_float32_stream_is_jax_float32_stream():
-    """dtype=float32: JAX's transform without x64, deterministic and
-    within 2e-7 of the float64 stream."""
+    """dtype=float32 on a one-lane stream: JAX's transform without x64,
+    deterministic and within 2e-7 of the float64 stream, which is
+    numpy's."""
     np.random.seed(9)
     saved = np.random.get_state()
-    f64 = device_stream(plan_stream(5000, max_lanes=4)).numpy()
-    np.random.set_state(saved)
-    f32 = device_stream(plan_stream(5000, max_lanes=4),
-                        dtype=torch.float32).numpy()
+    f64 = device_stream(_one_lane(5000)).numpy()
+    f32 = device_stream(_one_lane(5000), dtype=torch.float32).numpy()
+    np.testing.assert_array_equal(f64, np.random.rand(5000))
     np.random.set_state(saved)
     j32 = np.asarray(jmt.device_stream(jmt.plan_stream(5000, max_lanes=4),
                                        dtype=jnp.float32))
     assert f32.dtype == np.float32
     np.testing.assert_array_equal(f32, j32)
     np.testing.assert_allclose(f32, f64, rtol=2e-7, atol=2e-7)
-
-
-def test_plan_stream_with_randomstate_object():
-    rng = np.random.RandomState(42)
-    rng.rand(7)
-    ref = np.random.RandomState(42)
-    ref.rand(7)
-    want = ref.rand(5000)
-    got = device_stream(plan_stream(5000, rng=rng, max_lanes=5)).numpy()
-    np.testing.assert_array_equal(got, want)
-    np.testing.assert_array_equal(rng.rand(10), ref.rand(10))
 
 
 def _state(st):
@@ -273,31 +273,28 @@ def _spy(monkeypatch, calls):
         monkeypatch.setattr(twrap, name, spy)
 
 
+def _force_mt(mp):
+    """Send the CPU's seeded inits through what is `_mt_batched_init`
+    now (a spy, where one is set): the card's path, which runs the
+    kernel's plain version on the CPU."""
+    mp.setattr(twrap, "_host_batched_init", twrap._mt_batched_init)
+
+
 def test_seeded_inits_route_by_stream_size(small_data, monkeypatch):
-    """Seeded runs take the device stream from _MT_STREAM_MIN_DOUBLES
-    doubles on (lowered here), the host below it; VIREO_DEVICE_MT=1/0
-    overrides either way; unseeded runs take neither."""
+    """Seeded runs on the CPU take the host's draws, whatever the size of
+    the stream; unseeded runs take neither path."""
     AD, DP, _ = small_data
     kw = dict(n_donor=3, n_init=2, random_seed=1, check_doublet=False,
               verbose=False, device="cpu")
-    n_total = 2 * (40 * 3 + 60 * 3 * 3)
-    cases = [(n_total + 1, None, "_host_batched_init"),
-             (n_total, None, "_mt_batched_init"),
-             (n_total, "0", "_host_batched_init"),
-             (n_total + 1, "1", "_mt_batched_init")]
-    for threshold, knob, want in cases:
+    for n_init in (1, 2, 9):
         calls = []
         with monkeypatch.context() as mp:
             _spy(mp, calls)
-            mp.setattr(twrap, "_MT_STREAM_MIN_DOUBLES", threshold)
-            if knob is not None:
-                mp.setenv("VIREO_DEVICE_MT", knob)
-            twrap.vireo_wrap(AD, DP, **kw)
-        assert calls == [want], (threshold, knob, calls)
+            twrap.vireo_wrap(AD, DP, **dict(kw, n_init=n_init))
+        assert calls == ["_host_batched_init"], (n_init, calls)
     calls = []
     with monkeypatch.context() as mp:
         _spy(mp, calls)
-        mp.setenv("VIREO_DEVICE_MT", "1")
         twrap.vireo_wrap(AD, DP, **dict(kw, random_seed=None))
     assert calls == []
 
@@ -314,30 +311,31 @@ def _record_fits(monkeypatch, modules, calls):
 
 
 def test_wrap_device_mt_equals_host_path_and_jax(small_data, monkeypatch):
-    """vireo_wrap under VIREO_DEVICE_MT=1 and =0: identical fits and
-    results (the later host draws of the doublet-free run included), and
-    JAX's vireo_wrap on the same seed."""
+    """vireo_wrap through the host's draws and forced through
+    `_mt_batched_init`: identical fits and results (the later host draws
+    of the doublet-free run included), and JAX's vireo_wrap on the same
+    seed."""
     AD, DP, _ = small_data
     kw = dict(n_donor=3, n_init=3, random_seed=6, check_doublet=False,
               verbose=False)
     res, fits = {}, {}
-    for knob in ("0", "1"):
+    for path in ("host", "mt"):
         calls = []
         with monkeypatch.context() as mp:
-            mp.setenv("VIREO_DEVICE_MT", knob)
+            if path == "mt":
+                _force_mt(mp)
             _record_fits(mp, (twrap, tvireo), calls)
-            res[knob] = twrap.vireo_wrap(AD, DP, device="cpu", **kw)
-            res[knob]["next_draw"] = np.random.rand(3)
-        fits[knob] = calls
-    assert fits["0"] == fits["1"] and len(fits["1"]) == 2
+            res[path] = twrap.vireo_wrap(AD, DP, device="cpu", **kw)
+            res[path]["next_draw"] = np.random.rand(3)
+        fits[path] = calls
+    assert fits["host"] == fits["mt"] and len(fits["mt"]) == 2
     for key in ("ID_prob", "GT_prob", "doublet_prob", "LB_list",
                 "theta_shapes", "next_draw"):
-        np.testing.assert_array_equal(res["0"][key], res["1"][key],
+        np.testing.assert_array_equal(res["host"][key], res["mt"][key],
                                       err_msg=key)
 
-    monkeypatch.setenv("VIREO_DEVICE_MT", "1")
     rj = jwrap.vireo_wrap(AD, DP, dtype=jnp.float64, mesh=None, **kw)
-    rt = res["1"]
+    rt = res["mt"]
     np.testing.assert_allclose(rt["LB_list"], rj["LB_list"], rtol=1e-9)
     np.testing.assert_allclose(rt["LB_doublet"], rj["LB_doublet"],
                                rtol=1e-9)
@@ -349,9 +347,9 @@ def test_wrap_device_mt_equals_host_path_and_jax(small_data, monkeypatch):
 
 def test_seeded_sweep_under_device_mt_matches_jax(small_data, monkeypatch):
     AD, DP, _ = small_data
-    monkeypatch.setenv("VIREO_DEVICE_MT", "1")
     calls = []
     _spy(monkeypatch, calls)
+    _force_mt(monkeypatch)
     kw = dict(n_donor_list=(2, 3), n_init=3, max_iter_init=15,
               random_seed=4, verbose=False)
     want = jsel.sweep_n_donor(AD, DP, dtype=jnp.float64, **kw)

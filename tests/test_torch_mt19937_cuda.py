@@ -66,12 +66,9 @@ def test_kernel_with_randomstate_object(card):
     _compare(card, rng, 4321)            # from where the first call left it
 
 
-@pytest.mark.parametrize("knob", [None, "0"])
-def test_small_card_init_takes_the_kernel(card, monkeypatch, knob):
-    """A seeded init far below 2^23 doubles, under VIREO_DEVICE_MT=0 too,
-    is made by one launch on a card, equal to the host's draws."""
-    if knob is not None:
-        monkeypatch.setenv("VIREO_DEVICE_MT", knob)
+def test_small_card_init_takes_the_kernel(card):
+    """A small seeded init is made by one launch on a card, equal to the
+    host's draws."""
     cfg = VireoConfig(n_var=60, n_cell=40, n_donor=3)
     np.random.seed(5)
     before = tmt.LAUNCHES

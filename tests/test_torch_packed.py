@@ -168,16 +168,22 @@ def test_row_blocks_do_not_change_results(nibble, monkeypatch):
 def test_pack_scatter_is_block_and_order_independent(nibble, block,
                                                      monkeypatch):
     """The even and odd cells of one byte may land in different scatter
-    blocks, in either order: the OR of disjoint nibbles gives the same
-    bytes."""
+    blocks, in either order: the per-matrix writer's OR of disjoint
+    nibbles gives the same bytes from a CSR whose entries lie in any
+    order within their rows, and from a CSC."""
     AD, DP, _, tp = nibble
     from vireo_tpu_torch.ops import counts as tcounts
-    rows, cols, ad_v, dp_v = tcounts._host_union_triplets(AD, DP)
-    order = np.random.RandomState(block).permutation(len(rows))
     monkeypatch.setattr(tcounts, "_SCATTER_BLOCK", block)
-    got = tcounts._pack_triplets(rows[order], cols[order], ad_v[order],
-                                 dp_v[order], AD.shape, "cpu")
-    assert torch.equal(got.ad_p, tp.ad_p) and torch.equal(got.dp_p, tp.dp_p)
+    rng = np.random.RandomState(block)
+    for X, want in ((AD, tp.ad_p), (DP, tp.dp_p)):
+        M = sp.csr_matrix(X)
+        rows = np.repeat(np.arange(M.shape[0]), np.diff(M.indptr))
+        order = np.lexsort((rng.rand(M.nnz), rows))
+        shuffled = sp.csr_matrix((M.data[order], M.indices[order],
+                                  M.indptr), shape=M.shape)
+        for Y in (shuffled, sp.csc_matrix(X)):
+            assert torch.equal(tcounts._place_packed(Y, X.shape, "cpu"),
+                               want)
 
 
 def test_pack_dense_rejects_counts_above_a_nibble():

@@ -203,16 +203,19 @@ class _Calls:
             monkeypatch.setattr(cls, kind, call)
 
 
-@pytest.mark.parametrize("device_mt", ["0", "1"])
-def test_vireo_wrap_spans_nest_in_its_phases(pool, monkeypatch, device_mt):
+@pytest.mark.parametrize("init", ["_host_batched_init", "_mt_batched_init"])
+def test_vireo_wrap_spans_nest_in_its_phases(pool, monkeypatch, init):
     """From host scipy: placement's steps inside `vireo.data_placement`
     (the dense rung: the value range and rung, then the upload; no
-    union of the patterns), the inits' steps (on the host, or regenerated on the device) inside
-    `vireo.inits` inside `vireo.warm_restarts`, and one contraction span
-    for each call the class wrapper records."""
+    union of the patterns), the inits' steps inside `vireo.inits` inside
+    `vireo.warm_restarts` (the CPU's host draws, or the card's path,
+    forced here, which runs the kernel's plain version on the CPU), and
+    one contraction span for each call the class wrapper records."""
+    from vireo_tpu_torch.engine import wrap
     from vireo_tpu_torch.engine.wrap import vireo_wrap
     from vireo_tpu_torch.ops.counts import DenseCounts
-    monkeypatch.setenv("VIREO_DEVICE_MT", device_mt)
+    # the CPU's dispatch sends the seeded inits to `init`
+    monkeypatch.setattr(wrap, "_host_batched_init", getattr(wrap, init))
     calls = _Calls(monkeypatch, DenseCounts)
     _, spans = _traced(lambda: vireo_wrap(
         pool["AD"], pool["DP"], n_donor=3, n_init=2, random_seed=1,
@@ -228,7 +231,7 @@ def test_vireo_wrap_spans_nest_in_its_phases(pool, monkeypatch, device_mt):
     assert len(inits) == 1
     assert _inside(inits[0], _named(spans, "vireo.warm_restarts"))
     subs = {sp[0] for sp in spans if sp[0].startswith("vireo.inits.")}
-    assert subs == ({"vireo.inits.host"} if device_mt == "0" else
+    assert subs == ({"vireo.inits.host"} if init == "_host_batched_init" else
                     {"vireo.inits.plan", "vireo.inits.stream",
                      "vireo.inits.normalise"})
     assert all(_inside(sp, inits) for sp in spans
@@ -247,9 +250,10 @@ def test_vireo_wrap_spans_nest_in_its_phases(pool, monkeypatch, device_mt):
     ("packed-hybrid", 1.0, True), ("coo", 1 / 120 / 160, False)])
 def test_placement_off_the_dense_rung_opens_the_union(pool, rung, budget,
                                                       heavy):
-    """Every rung but dense aligns AD and DP to the union of their
-    patterns: `place.union` opens once, between `place.rung` and
-    `place.upload`."""
+    """`place.union` opens once, between `place.rung` and
+    `place.upload`, where AD and DP are aligned to the union of their
+    patterns (a hybrid's residual, the COO rung); the packed rung, like
+    the dense one, goes from `place.rung` to `place.upload`."""
     from vireo_tpu_torch.ops.counts import (counts_from_scipy,
                                             device_dense_budget, ladder_rung)
     AD, DP = _heavy(pool) if heavy else (pool["AD"], pool["DP"])
@@ -257,9 +261,9 @@ def test_placement_off_the_dense_rung_opens_the_union(pool, rung, budget,
     assert ladder_rung(AD.shape, DP.max(), budget) == rung
     _, spans = _traced(lambda: counts_from_scipy(AD, DP, device="cpu",
                                                  dense_budget=budget))
-    assert [sp[0] for sp in spans] == ["vireo.place.rung",
-                                       "vireo.place.union",
-                                       "vireo.place.upload"]
+    union = [] if rung == "packed" else ["vireo.place.union"]
+    assert [sp[0] for sp in spans] == (["vireo.place.rung"] + union
+                                       + ["vireo.place.upload"])
 
 
 def _heavy(pool, extra=200.0):

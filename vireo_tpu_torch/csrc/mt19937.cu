@@ -2,9 +2,9 @@
 //
 // Replaces no TPU kernel: the JAX package regenerates the stream with
 // XLA ops from host-captured lane states (vireo_tpu/ops/mt19937.py).
-// The port did the same (ops/mt19937.py::plan_stream, device_stream):
-// the host advanced numpy's generator through every double it owed to
-// capture those states, then ~10 launches a twist round made the words.
+// The port first did the same with torch ops: the host advanced numpy's
+// generator through every double it owed to capture those states, then
+// ~10 launches a twist round made the words.
 // Here one launch makes the whole stream from the generator's current
 // state and returns the state a plain `rand(n)` leaves.
 //

@@ -6,10 +6,9 @@ folded into the matmul's column dimension (R*K columns), each restart
 stops at its own convergence, and the best ELBO is refit to
 convergence, followed by the doublet E-step. Seeded runs draw their
 inits from numpy's global stream in the reference's order: on a card
-made by one kernel launch (ops/mt19937.py); on the CPU drawn on the host
-or, for streams of 2^23 doubles or more, regenerated by torch ops
-(VIREO_DEVICE_MT=1/0 forces a path there); unseeded runs draw them on
-the device from a torch.Generator.
+made by one kernel launch (ops/mt19937.py), on any other device drawn
+on the host; unseeded runs draw them on the device from a
+torch.Generator.
 
 On a mesh (parallel/mesh.py; one process per rank under
 torch.distributed) every rank calls `vireo_wrap` with the same
@@ -245,27 +244,23 @@ def _host_batched_init(cfg, n_init, GT_prior_use, rng, dtype, device,
 def _mt_batched_init(cfg, n_init, GT_prior_use, rng, dtype, device,
                      n_cell_draw=None):
     """`_host_batched_init`'s draws regenerated on `device` from the
-    generator's state (ops/mt19937.py) instead of uploaded: on a card by
-    one kernel launch from its keys, on the CPU from the lane states the
-    host plans. The host generator advances exactly as if it had drawn
-    them, and each restart is normalised in float64 in numpy's summation
-    order before the cast to `dtype`, so the state equals
+    generator's keys (ops/mt19937.py) instead of uploaded: on a card by
+    one kernel launch, on the CPU by the kernel's plain version. The host
+    generator advances exactly as if it had drawn them, and each restart
+    is normalised in float64 in numpy's summation order before the cast
+    to `dtype`, so the state equals
     `_host_batched_init`'s bit for bit, in float32 as in float64 (the JAX
     package's rounds its stream to float32 without x64; the card has
     float64)."""
-    from ..ops.mt19937 import (plan_stream, device_stream, take_state,
-                               kernel_stream, np_pairwise_sum_last)
+    from ..ops.mt19937 import take_state, kernel_stream, np_pairwise_sum_last
     K, C, V, G = cfg.n_donor, cfg.n_cell, cfg.n_var, cfg.n_GT
     c_draw = C if n_cell_draw is None else int(n_cell_draw)
     gt_draw = 0 if GT_prior_use is not None else V * K * G
     per = c_draw * K + gt_draw
-    on_card = resolve_device(device).type == "cuda"
     with span("inits.plan"):
-        plan = (take_state(n_init * per, rng, device) if on_card
-                else plan_stream(n_init * per, rng=rng, device=device))
+        plan = take_state(n_init * per, rng, device)
     with span("inits.stream"):
-        flat = (kernel_stream(plan, rng) if on_card
-                else device_stream(plan)).reshape(n_init, per)
+        flat = kernel_stream(plan, rng).reshape(n_init, per)
 
     with span("inits.normalise"):
         idp = flat[:, :c_draw * K].reshape(n_init, c_draw, K)
@@ -285,39 +280,15 @@ def _mt_batched_init(cfg, n_init, GT_prior_use, rng, dtype, device,
                       id_prob=idn)
 
 
-def _env_tristate(name, on_default):
-    """Three-way environment knob: "1/on/yes" -> True, "0/off/no" ->
-    False, anything else -> `on_default` (vireo_tpu/engine/wrap.py:225)."""
-    knob = os.environ.get(name, "").lower()
-    if knob in ("1", "on", "yes"):
-        return True
-    if knob in ("0", "off", "no"):
-        return False
-    return on_default
-
-
-# on the CPU, seeded init streams of at least this many doubles are
-# regenerated by torch ops; smaller ones are drawn on the host.
-# VIREO_DEVICE_MT=1/0 forces either path there.
-_MT_STREAM_MIN_DOUBLES = 1 << 23
-
-
 def _seeded_batched_init(cfg, n_init, GT_prior_use, rng, dtype, device,
                          n_cell_draw=None):
-    """The seeded runs' inits, numpy's stream in the reference's order,
-    made on the device (`_mt_batched_init`: on a card always, by one
-    kernel launch) or, on the CPU, drawn on the host
-    (`_host_batched_init`) below _MT_STREAM_MIN_DOUBLES; both give the
-    same state. A failure of the device path raises: it never falls back
+    """The seeded runs' inits, numpy's stream in the reference's order:
+    on a card made by one kernel launch (`_mt_batched_init`), on any
+    other device drawn on the host (`_host_batched_init`); both give the
+    same state. A failure of the card's path raises: it never falls back
     to the host."""
-    c_draw = cfg.n_cell if n_cell_draw is None else int(n_cell_draw)
-    n_total = n_init * (c_draw * cfg.n_donor
-                        + (0 if GT_prior_use is not None
-                           else cfg.n_var * cfg.n_donor * cfg.n_GT))
-    use_mt = (resolve_device(device).type == "cuda"
-              or _env_tristate("VIREO_DEVICE_MT",
-                               n_total >= _MT_STREAM_MIN_DOUBLES))
-    init = _mt_batched_init if use_mt else _host_batched_init
+    on_card = resolve_device(device).type == "cuda"
+    init = _mt_batched_init if on_card else _host_batched_init
     with span("inits"):
         return init(cfg, n_init, GT_prior_use, rng, dtype, device,
                     n_cell_draw=n_cell_draw)

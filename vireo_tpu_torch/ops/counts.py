@@ -36,10 +36,13 @@ for the whole pool, from its global shape and largest count, with the
 budget of the ranks it spans, and each rank places its block of that
 rung, wrapped in a `parallel.mesh.ShardedCounts`.
 
-The dense rung is scattered on the device from each matrix's own
-compressed arrays (`_place_dense`); the other rungs store AD and DP as
-one set of triplets, aligned on the host to the union of their nonzero
-patterns (`_host_union_triplets`).
+Every rung is placed by one route (`_place_rung`): each matrix from its
+own compressed arrays, scattered on the device by the writer of its
+layout (`_place_dense`, `_place_packed`), the hybrids' bases clipped.
+AD and DP are aligned on the host to the union of their nonzero
+patterns (`_host_union_triplets`) only where one layout holds both on
+one pattern: the COO rung, and a hybrid's residual, from the entries
+above its cap alone.
 """
 
 import ctypes
@@ -61,7 +64,7 @@ __all__ = ["Counts", "DenseCounts", "SparseCounts", "HybridCounts",
            "hybrid_from_coo", "ladder_rung", "exact_count_dtype",
            "device_dense_budget", "dense_suff_stats", "dense_cell_loglik",
            "device_room", "placement_rung", "suff_stats_reference",
-           "cell_loglik_reference", "LAUNCHES", "MATMULS", "PLACEMENTS",
+           "cell_loglik_reference", "LAUNCHES", "MATMULS",
            "K0Plan", "k0_plan", "k0_k_order", "k0_operand",
            "k0_device_operand", "k0_producer", "k0_shape", "k0_control"]
 
@@ -81,11 +84,6 @@ LAUNCHES = {"dense_suff_stats": 0, "dense_cell_loglik": 0}
 # calls of DenseCounts' plain contractions of non-int8 counts (bfloat16
 # or float32: the pools with counts above 127), on any device
 MATMULS = {"suff_stats": 0, "cell_loglik": 0}
-
-# placements by `counts_from_scipy`, by path (on a mesh, once a rank):
-# "direct", each dense matrix from its own compressed arrays (the dense
-# rung); "union", through `_host_union_triplets` (every other rung)
-PLACEMENTS = {"direct": 0, "union": 0}
 
 _LIB = None
 
@@ -629,25 +627,6 @@ def _upload_vals(vals, dtype, device):
     return torch.from_numpy(vals).to(device).to(dtype)
 
 
-def _scatter_dense(rows, cols, vals, shape, dtype, device):
-    """Dense (V, C) tensor of `dtype` on `device` from host triplets.
-
-    Indices go up as int32 and values as `_upload_vals` sends them, in
-    blocks; each block is scattered into a zero matrix on the device.
-    """
-    V, C = shape
-    out = torch.zeros((V, C), dtype=dtype, device=device)
-    flat = out.view(-1)
-    vals = np.asarray(vals)
-    for lo in range(0, len(rows), _SCATTER_BLOCK):
-        hi = min(lo + _SCATTER_BLOCK, len(rows))
-        r = torch.from_numpy(rows[lo:hi].astype(np.int32)).to(device)
-        c = torch.from_numpy(cols[lo:hi].astype(np.int32)).to(device)
-        flat[r.long() * C + c.long()] = _upload_vals(vals[lo:hi], dtype,
-                                                     device)
-    return out
-
-
 def _compressed(X):
     """X as a canonical scipy CSC or CSR matrix (sorted indices, no
     duplicates): CSC and CSR as they are, anything else (COO, other
@@ -662,22 +641,13 @@ def _compressed(X):
     return X
 
 
-def _place_dense(X, shape, dtype, device):
-    """Dense (V, C) tensor of `dtype` on `device` from the compressed
-    arrays of X, a CSC or CSR matrix without duplicates (`_compressed`,
-    or a block that `_cut_block` cuts from one). X may have fewer rows
-    or columns than `shape` (a mesh rank's block with its padded cells):
-    those stay zero.
-
-    indptr goes up once; then, in blocks of `_SCATTER_BLOCK` nonzeros,
-    the indices as int32 and the values as `_upload_vals` sends them.
-    On the device each nonzero's place in indptr gives its index along
-    the compressed axis (a CSC's column, a CSR's row), and the block is
-    scattered into a zero matrix: the tensor `_scatter_dense` makes from
-    the same entries as triplets, bit for bit."""
-    V, C = shape
-    out = torch.zeros((V, C), dtype=dtype, device=device)
-    flat = out.view(-1)
+def _entries(X, device):
+    """The nonzeros of X, a CSC or CSR matrix without duplicates, in
+    blocks of `_SCATTER_BLOCK`: (rows, cols, values), the indices int64
+    tensors on `device`, the values X's host array. indptr goes up once;
+    then each block's indices go up as int32, and on the device each
+    nonzero's place in indptr gives its index along the compressed axis
+    (a CSC's column, a CSR's row)."""
     ptr = torch.from_numpy(X.indptr.astype(np.int64)).to(device)
     nnz = int(X.indptr[-1])
     for lo in range(0, nnz, _SCATTER_BLOCK):
@@ -687,40 +657,62 @@ def _place_dense(X, shape, dtype, device):
         major = torch.searchsorted(
             ptr, torch.arange(lo, hi, device=device), right=True) - 1
         r, c = (minor, major) if X.format == "csc" else (major, minor)
-        flat[r * C + c] = _upload_vals(X.data[lo:hi], dtype, device)
+        yield r, c, X.data[lo:hi]
+
+
+def _place_dense(X, shape, dtype, device):
+    """Dense (V, C) tensor of `dtype` on `device` from the compressed
+    arrays of X, a CSC or CSR matrix without duplicates (`_compressed`,
+    or a block that `_cut_block` cuts from one): each block of
+    `_entries` scattered into a zero matrix, the values as `_upload_vals`
+    sends them. X may have fewer rows or columns than `shape` (a mesh
+    rank's block with its padded cells): those stay zero."""
+    V, C = shape
+    out = torch.zeros((V, C), dtype=dtype, device=device)
+    flat = out.view(-1)
+    for r, c, vals in _entries(X, device):
+        flat[r * C + c] = _upload_vals(vals, dtype, device)
     return out
 
 
-def _pack_triplets(rows, cols, ad_v, dp_v, shape, device, clip=False):
-    """PackedCounts on `device` from host triplets with unique (row, col).
+def _place_packed(X, shape, device, clip=False):
+    """One matrix of PackedCounts, two cells a byte ((V, ceil(C / 2))
+    uint8 on `device`), from the compressed arrays of X as `_place_dense`
+    takes them.
 
-    Per block of triplets, the values of even columns, then those of odd
-    columns shifted by 4, are OR-ed into zeroed bytes. Within one parity
-    the byte indices are unique, so each read-or-write is exact and no
-    atomic byte add is needed. Every value must be <= PACK_MAX unless
-    `clip` saturates it there (the packed hybrid base).
+    Per block of `_entries`, the values of even columns, then those of
+    odd columns shifted by 4, are OR-ed into zeroed bytes. Within one
+    parity the byte indices are unique, so each read-or-write is exact
+    and no atomic byte add is needed. Every value must be <= PACK_MAX
+    unless `clip` saturates it there (the packed hybrid base).
     """
-    if clip:
-        ad_v = np.minimum(ad_v, PACK_MAX)
-        dp_v = np.minimum(dp_v, PACK_MAX)
-    V, C = (int(s) for s in shape)
+    V, C = shape
     Cb = (C + 1) // 2
-    ad_p = torch.zeros((V, Cb), dtype=torch.uint8, device=device)
-    dp_p = torch.zeros_like(ad_p)
-    flats = (ad_p.view(-1), dp_p.view(-1))
-    vals = (np.asarray(ad_v), np.asarray(dp_v))
-    for lo in range(0, len(rows), _SCATTER_BLOCK):
-        hi = min(lo + _SCATTER_BLOCK, len(rows))
-        r = torch.from_numpy(rows[lo:hi].astype(np.int32)).to(device)
-        c = torch.from_numpy(cols[lo:hi].astype(np.int32)).to(device)
-        idx = r.long() * Cb + (c >> 1).long()
+    out = torch.zeros((V, Cb), dtype=torch.uint8, device=device)
+    flat = out.view(-1)
+    for r, c, vals in _entries(X, device):
+        if clip:
+            vals = np.minimum(vals, PACK_MAX)
+        v = torch.from_numpy(vals.astype(np.uint8)).to(device)
+        idx = r * Cb + (c >> 1)
         odd = (c & 1).bool()
-        for flat, v in zip(flats, vals):
-            v = torch.from_numpy(v[lo:hi].astype(np.uint8)).to(device)
-            for sel, shift in ((~odd, 0), (odd, 4)):
-                i = idx[sel]
-                flat[i] = flat[i] | (v[sel] << shift)
-    return PackedCounts(ad_p, dp_p, (V, C))
+        for sel, shift in ((~odd, 0), (odd, 4)):
+            i = idx[sel]
+            flat[i] = flat[i] | (v[sel] << shift)
+    return out
+
+
+def _csr_pair(coo):
+    """A SparseCounts' AD and DP as host CSR matrices: its (row,
+    col)-sorted unique triplets are a canonical CSR once an indptr is
+    counted from the rows."""
+    import scipy.sparse as sp
+    rows = coo.rows_r.cpu().numpy()
+    indptr = np.concatenate(
+        [[0], np.cumsum(np.bincount(rows, minlength=coo.n_var))])
+    cols = coo.cols_r.cpu().numpy()
+    return tuple(sp.csr_matrix((v.cpu().numpy(), cols, indptr),
+                               shape=coo.shape) for v in (coo.ad_r, coo.dp_r))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -825,14 +817,12 @@ class SparseCounts:
         return float(torch.maximum(self.ad_r.max(), self.dp_r.max()))
 
     def pack(self, clip=False):
-        """The triplets scattered straight into PackedCounts (two cells a
-        byte) on this device. Every count must be <= PACK_MAX unless
-        `clip` saturates it there (vireo_tpu/ops/counts.py:280-288)."""
-        return _pack_triplets(self.rows_r.cpu().numpy(),
-                              self.cols_r.cpu().numpy(),
-                              self.ad_r.cpu().numpy(),
-                              self.dp_r.cpu().numpy(), self.shape,
-                              self.device, clip=clip)
+        """PackedCounts (two cells a byte) on this device, each matrix
+        written from its CSR form (`_csr_pair`, `_place_packed`). Every
+        count must be <= PACK_MAX unless `clip` saturates it there
+        (vireo_tpu/ops/counts.py:280-288)."""
+        return PackedCounts(*(_place_packed(X, self.shape, self.device, clip)
+                              for X in _csr_pair(self)), self.shape)
 
     def densify(self, dtype=None, check_overflow=True):
         """Dense (n_var, n_cell) DenseCounts scattered on the device.
@@ -1057,32 +1047,54 @@ def _np_log_binom_coeff(dp, ad, max_val=700.0):
     return np.where(dp > 0, val, 0.0)
 
 
-def _hybrid_from_triplets(rows, cols, ad_v, dp_v, shape, cap, kind, device):
-    """HybridCounts on `device` from host triplets: an "int8" base
-    (cap 127) or a "packed" base (cap 15), and the residual."""
-    ar = np.asarray(ad_v, np.float64)
-    dr = np.asarray(dp_v, np.float64)
-    rows = np.asarray(rows)
-    cols = np.asarray(cols)
-    m = (ar > cap) | (dr > cap)
-    at, dt = ar[m], dr[m]
+def _over_cap(AD, DP, cap):
+    """Aligned host triplets (`_host_union_triplets`) of the entries
+    where compressed AD or DP exceeds `cap`, with their true values:
+    both matrices are restricted to that pattern before they are
+    aligned, so the union spans the residual and not the pool."""
+    over = (AD > cap) + (DP > cap)
+    return _host_union_triplets(AD.multiply(over), DP.multiply(over))
+
+
+def _union_nnz(AD, DP):
+    """Entries in the union of the stored patterns of two compressed
+    matrices, explicit zeros included: the length of
+    `_host_union_triplets`' arrays."""
+    def stored(X):
+        return type(X)((np.ones(X.nnz, bool), X.indices, X.indptr),
+                       shape=X.shape)
+    return (stored(AD) + stored(DP)).nnz
+
+
+def _hybrid(AD, DP, over, shape, cap, kind, device):
+    """HybridCounts on `device` of compressed AD and DP: the base each
+    matrix on its own, clipped at `cap` (an "int8" base, cap 127, by
+    `_place_dense`; a "packed" base, cap 15, by `_place_packed`), and
+    the residual and `binom_corr` from `over`, the over-cap entries'
+    triplets (`_over_cap`)."""
+    rows, cols, ad_v, dp_v = over
+    at = np.asarray(ad_v, np.float64)
+    dt = np.asarray(dp_v, np.float64)
     corr = float(np.sum(_np_log_binom_coeff(dt, at))
                  - np.sum(_np_log_binom_coeff(np.minimum(dt, cap),
                                               np.minimum(at, cap))))
-    n_over = int(m.sum())
-    if n_over > 0.1 * max(len(ar), 1):
-        print("[vireo] warning: %.0f%% of counts exceed the %s cap %d "
-              "- the hybrid residual is unusually large and per-"
-              "iteration cost grows with it"
-              % (100 * n_over / len(ar), kind, cap))
-    resid = _sparse_from_triplets(rows[m], cols[m], np.maximum(at - cap, 0.0),
+    n_over = len(at)
+    # the share of the union of the patterns, which holds either matrix
+    if n_over > 0.1 * max(AD.nnz, DP.nnz, 1):
+        total = _union_nnz(AD, DP)
+        if n_over > 0.1 * total:
+            print("[vireo] warning: %.0f%% of counts exceed the %s cap %d "
+                  "- the hybrid residual is unusually large and per-"
+                  "iteration cost grows with it"
+                  % (100 * n_over / total, kind, cap))
+    resid = _sparse_from_triplets(rows, cols, np.maximum(at - cap, 0.0),
                                   np.maximum(dt - cap, 0.0), shape, device)
     if kind == "int8":
-        base = DenseCounts(
-            _scatter_dense(rows, cols, ar, shape, torch.int8, device),
-            _scatter_dense(rows, cols, dr, shape, torch.int8, device))
+        base = DenseCounts(*(_place_dense(X, shape, torch.int8, device)
+                             for X in (AD, DP)))
     elif kind == "packed":
-        base = _pack_triplets(rows, cols, ar, dr, shape, device, clip=True)
+        base = PackedCounts(*(_place_packed(X, shape, device, clip=True)
+                              for X in (AD, DP)), shape)
     else:
         raise ValueError("unknown hybrid base kind %r" % (kind,))
     return HybridCounts(base, resid, torch.tensor(corr, dtype=torch.float64,
@@ -1092,10 +1104,9 @@ def _hybrid_from_triplets(rows, cols, ad_v, dp_v, shape, cap, kind, device):
 def hybrid_from_coo(coo, cap, kind):
     """HybridCounts from a SparseCounts' full-precision triplets, on its
     device: `kind` "int8" (cap 127) or "packed" (cap 15)."""
-    return _hybrid_from_triplets(
-        coo.rows_r.cpu().numpy(), coo.cols_r.cpu().numpy(),
-        coo.ad_r.cpu().numpy(), coo.dp_r.cpu().numpy(), coo.shape, cap,
-        kind, coo.device)
+    AD, DP = _csr_pair(coo)
+    return _hybrid(AD, DP, _over_cap(AD, DP, cap), coo.shape, cap, kind,
+                   coo.device)
 
 
 def dense_counts(AD, DP, dtype=torch.float32, device=None):
@@ -1230,28 +1241,38 @@ def placement_rung(shape, vmax, device=None, dense_budget=None, mesh=None,
     return again, budget
 
 
-def _dense_direct(AD, DP, shape, vmax, device):
-    """The dense rung of a (V, C) block in `exact_count_dtype(vmax)`
-    from canonical CSC or CSR matrices, each placed from its own
-    compressed arrays (`_place_dense`): no union of the two patterns."""
-    dtype = exact_count_dtype(vmax)
-    return DenseCounts(*(_place_dense(X, shape, dtype, device)
-                         for X in (AD, DP)))
+# the hybrid rungs' caps and base layouts
+_HYBRIDS = {"int8-hybrid": (127, "int8"),
+            "packed-hybrid": (PACK_MAX, "packed")}
 
 
-def _rung_counts(rung, rows, cols, ad_v, dp_v, shape, device):
-    """The counts object of `rung`, any but dense (`_dense_direct`), for
-    host union triplets of a (V, C) block."""
+def _place_rung(rung, AD, DP, shape, vmax, device):
+    """The counts object of `rung` for a (V, C) block of compressed AD
+    and DP (`_compressed`, or the blocks `_cut_block` cuts from them),
+    each matrix placed on its own by the writer of its layout: the dense
+    rung in `exact_count_dtype(vmax)` by `_place_dense`, the packed rung
+    by `_place_packed`, the hybrids' bases by either, clipped. Only what
+    holds AD and DP on one pattern aligns them (`_host_union_triplets`):
+    a hybrid's residual, from its over-cap entries (`_over_cap`), and
+    the COO rung, from the whole block."""
+    if rung in _HYBRIDS:
+        cap, kind = _HYBRIDS[rung]
+        with span("place.union"):
+            over = _over_cap(AD, DP, cap)
+        with span("place.upload"):
+            return _hybrid(AD, DP, over, shape, cap, kind, device)
+    if rung == "coo":
+        with span("place.union"):
+            triplets = _host_union_triplets(AD, DP)
+        with span("place.upload"):
+            return _sparse_from_triplets(*triplets, shape, device)
     with span("place.upload"):
-        if rung == "int8-hybrid":
-            return _hybrid_from_triplets(rows, cols, ad_v, dp_v, shape, 127,
-                                         "int8", device)
         if rung == "packed":
-            return _pack_triplets(rows, cols, ad_v, dp_v, shape, device)
-        if rung == "packed-hybrid":
-            return _hybrid_from_triplets(rows, cols, ad_v, dp_v, shape,
-                                         PACK_MAX, "packed", device)
-        return _sparse_from_triplets(rows, cols, ad_v, dp_v, shape, device)
+            return PackedCounts(*(_place_packed(X, shape, device)
+                                  for X in (AD, DP)), shape)
+        dtype = exact_count_dtype(vmax)
+        return DenseCounts(*(_place_dense(X, shape, dtype, device)
+                             for X in (AD, DP)))
 
 
 def _value_range(*mats):
@@ -1276,22 +1297,14 @@ def _cut_block(X, var_range, cell_range):
     return X[:, c0:c1][v0:v1]
 
 
-def _block_union(AD, DP, var_range, cell_range):
-    """Host union triplets (`_host_union_triplets`) of the (variant range,
-    cell range) block of AD and DP, in block coordinates: only the block
-    is read, so a rank's host work is its share of the pool's."""
-    return _host_union_triplets(_cut_block(AD, var_range, cell_range),
-                                _cut_block(DP, var_range, cell_range))
-
-
 def _mesh_counts(rung, AD, DP, shape, vmax, mesh, device):
     """This rank's block of `rung` as a ShardedCounts: the packed rungs
     on the packed cell grid of vireo_tpu/ops/packed.py:616-620 (the
     model keeps the pool's n_cell; the grid's extra cells are zero),
     the others on equal ranges of cells, the pool padded with zero-count
-    cells to a multiple of the cell shards. The dense rung places the
-    block of each matrix on its own (`_dense_direct`), the others the
-    block's union triplets."""
+    cells to a multiple of the cell shards: the rung placed from each
+    matrix's block (`_place_rung`), so a rank reads only its share of
+    the pool."""
     from ..parallel.mesh import Layout, ShardedCounts, CELL_AXIS
     from .packed import MeshPackedCounts, packed_cell_block
     V, C = shape
@@ -1304,17 +1317,8 @@ def _mesh_counts(rung, AD, DP, shape, vmax, mesh, device):
         stored = lay.n_cell_local
     cells = (lay.cells[0], lay.cells[0] + stored)
     local_shape = (lay.n_var_local, stored)
-    if rung == "dense":
-        PLACEMENTS["direct"] += 1
-        with span("place.upload"):
-            local = _dense_direct(
-                *(_cut_block(X, lay.vars, cells) for X in (AD, DP)),
-                local_shape, vmax, device)
-    else:
-        PLACEMENTS["union"] += 1
-        with span("place.union"):
-            block = _block_union(AD, DP, lay.vars, cells)
-        local = _rung_counts(rung, *block, local_shape, device)
+    local = _place_rung(rung, *(_cut_block(X, lay.vars, cells)
+                                for X in (AD, DP)), local_shape, vmax, device)
     cls = MeshPackedCounts if rung == "packed" else ShardedCounts
     return cls(local, lay)
 
@@ -1381,11 +1385,4 @@ def counts_from_scipy(AD, DP, device=None, dense_budget=None, verbose=False,
     if mesh is not None:
         # each rank reads only its block
         return _mesh_counts(rung, AD, DP, shape, vmax, mesh, device)
-    if rung == "dense":
-        PLACEMENTS["direct"] += 1
-        with span("place.upload"):
-            return _dense_direct(AD, DP, shape, vmax, device)
-    PLACEMENTS["union"] += 1
-    with span("place.union"):
-        triplets = _host_union_triplets(AD, DP)
-    return _rung_counts(rung, *triplets, shape, device)
+    return _place_rung(rung, AD, DP, shape, vmax, device)

@@ -4,32 +4,24 @@ vireo_tpu/ops/mt19937.py).
 Seeded runs draw their warm-restart inits from numpy's global MT19937
 stream, in the reference's order. Assembled on the host, those draws are
 60.8M doubles for 20 restarts of the 30k x 100k x 16 pool and 152M for
-the CLI's 50, uploaded as a float array. Here the device makes them,
-by one of two paths, chosen by the device of the stream:
+the CLI's 50, uploaded as a float array. Here the card makes them:
 
-- On a card, `take_state` uploads the generator's 624 keys and
-  `kernel_stream` makes the whole stream in one launch of
-  csrc/mt19937.cu (`LAUNCHES` counts them, `STEPS` their steps), then
-  sets the host generator where a plain `rng.rand(n_total)` leaves it.
-  The host draws nothing.
-- On the CPU, the plain version the tests hold the kernel against (and
-  the float32 transform the JAX comparison uses), the host only plans
-  the stream, and the device regenerates it from the generator's
-  states:
-
-- `plan_stream` advances the host generator through exactly the draws
-  it owes (numpy's C loop), capturing its 624-word state every `chunk`
-  doubles. A chunk is a multiple of 312 doubles (one 624-word twist
-  round), so every lane starts at the same offset in its pool, and the
-  host ends where a plain `rng.rand(n_total)` leaves it.
-- `device_stream` runs the lanes side by side: each tempers the rest of
-  its captured pool, then twists and tempers round after round, written
-  into one preallocated (lanes, 624 * c_blocks) word buffer. The twist's
-  in-place dependencies split into four vectorised sub-steps (new[i]
-  needs new[i-227] for i >= 227, and new[0] at i = 623).
+- `take_state` uploads the generator's 624 keys and `kernel_stream`
+  makes the whole stream in one launch of csrc/mt19937.cu (`LAUNCHES`
+  counts them, `STEPS` their steps), then sets the host generator where
+  a plain `rng.rand(n_total)` leaves it. The host draws nothing.
+- Keys on the CPU run the kernel's plain version, which the tests hold
+  the kernel against: `device_stream` regenerates the stream as one
+  lane from the keys, tempering the rest of the pool, then twisting and
+  tempering round after round (`_words`); the twist's in-place
+  dependencies split into four vectorised sub-steps (new[i] needs
+  new[i-227] for i >= 227, and new[0] at i = 623). The end state is the
+  keys the plain `_twist` rounds reach.
 - Word pairs become doubles by numpy's exact transform
   ``((a >> 5) * 2^26 + (b >> 6)) / 2^53``, in float64 on the CPU and on
   the card alike: the stream equals `np.random.rand` bit for bit.
+  `device_stream` also forms it in float32, as the JAX package does
+  without x64.
 
 The words live in int64 tensors holding values below 2^32: every mask
 of the generator has 32 bits, so no operation leaves that range, and a
@@ -49,8 +41,8 @@ import torch
 from ._launch import launch, on_cpu
 from ..utils.device import resolve_device
 
-__all__ = ["plan_stream", "device_stream", "take_state", "kernel_stream",
-           "stream_walk", "np_pairwise_sum_last", "LAUNCHES", "STEPS"]
+__all__ = ["device_stream", "take_state", "kernel_stream", "stream_walk",
+           "np_pairwise_sum_last", "LAUNCHES", "STEPS"]
 
 _N = 624
 _M = 397
@@ -79,46 +71,6 @@ def _library():
         lib.vireo_mt19937_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
-
-
-def plan_stream(n_total, rng=None, max_lanes=1024, device=None):
-    """Advance the host generator by exactly `n_total` `rand()` draws,
-    capturing the start state of each lane.
-
-    Returns a dict with `states` ((D, 624) int64 words on `device`,
-    default utils/device.py's), `p0` (the in-pool word offset, the same
-    for every lane), `c_blocks` (twist rounds per lane), `chunk`
-    (doubles per lane) and `n_total`. The host generator then stands
-    where a plain `rng.rand(n_total)` leaves it, so later host draws
-    (refit inits, the ambient phase's Dirichlet, checkpoints' RNG state)
-    follow the same stream.
-    """
-    if rng is None:
-        rng = np.random
-    n_total = int(n_total)
-    assert n_total > 0
-    c_blocks = -(-n_total // (312 * max_lanes))
-    chunk = 312 * c_blocks
-    n_lanes = -(-n_total // chunk)
-
-    states = np.empty((n_lanes, _N), np.uint32)
-    p0 = None
-    for i in range(n_lanes):
-        name, keys, pos, _, _ = rng.get_state()
-        assert name == "MT19937", "legacy MT19937 stream required"
-        states[i] = keys
-        if p0 is None:
-            p0 = int(pos)
-        else:
-            assert int(pos) == p0, "lane offsets diverged"
-        # every lane but the last advances a whole chunk; the device's
-        # surplus past n_total is dropped, so the host ends at n_total
-        todo = chunk if i < n_lanes - 1 else n_total - (n_lanes - 1) * chunk
-        rng.rand(todo)
-    return {"states": torch.from_numpy(states.astype(np.int64)).to(
-                resolve_device(device)),
-            "p0": p0, "c_blocks": c_blocks, "chunk": chunk,
-            "n_total": n_total}
 
 
 def _twist(mt):
@@ -160,9 +112,11 @@ def _words(states, p0, c_blocks):
 
 def device_stream(plan, dtype=torch.float64):
     """The `rand()` doubles of `plan` as one (n_total,) tensor on the
-    device of its states. float64 equals numpy's stream bit for bit;
-    float32 forms the same transform in float32, as the JAX package does
-    without x64 (one rounding, deterministic)."""
+    device of its states ((D, 624) int64 words, each lane's generator
+    keys), from in-pool word `p0` of every lane, `c_blocks` twist rounds
+    a lane, `n_total` doubles kept. float64 equals numpy's stream bit
+    for bit; float32 forms the same transform in float32, as the JAX
+    package does without x64 (one rounding, deterministic)."""
     w = _words(plan["states"], plan["p0"], plan["c_blocks"])
     a = (w[:, 0::2] >> 5).to(dtype)
     b = (w[:, 1::2] >> 6).to(dtype)

@@ -411,11 +411,12 @@ def pack_scipy_sharded(AD, DP, mesh, axis=None, block_c=2048,
     columns [lo, hi) of an n_cell pool split into ranges of c_local.
     `axis` names the cell axis (default "cells")."""
     from ..parallel.mesh import Layout, CELL_AXIS
-    from .counts import _value_range, _block_union, _pack_triplets
+    from .counts import _compressed, _cut_block, _place_rung, _value_range
     if axis not in (None, CELL_AXIS):
         raise ValueError("the packed layout splits the cell axis, %r"
                          % (CELL_AXIS,))
     device = mesh.device if device is None else torch.device(device)
+    AD, DP = _compressed(AD), _compressed(DP)
     vmin, vmax = _value_range(AD, DP)
     if vmin < 0 or vmax > PACK_MAX:
         raise ValueError("packed counts hold values in [0, %d]" % PACK_MAX)
@@ -433,6 +434,7 @@ def pack_scipy_sharded(AD, DP, mesh, axis=None, block_c=2048,
             raise ValueError("cells [%d, %d) are not this rank's range %s"
                              % (lo, hi, lay.cells))
         c0 = 0
-    r, c, a, d = _block_union(AD, DP, lay.vars, (c0, c0 + block))
-    local = _pack_triplets(r, c, a, d, (lay.n_var_local, block), device)
+    local = _place_rung("packed", *(_cut_block(X, lay.vars, (c0, c0 + block))
+                                    for X in (AD, DP)),
+                        (lay.n_var_local, block), vmax, device)
     return MeshPackedCounts(local, lay)
