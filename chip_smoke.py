@@ -54,7 +54,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    in the call by the weights' first bf16 term (lower precision); and
    beside the two library yardsticks that K2 and K3 also get: cuBLAS
    float32 and cuBLAS bf16 with one term, on the counts converted ahead
-   of the timing;
+   of the timing; then K0 on int16 counts at heavy16's shapes and tail
+   and at the edge shapes, with K0_INT16_SHAPES' checks and times;
 4b. `[probes]`: the kernels of the probes of benchmarks/
    (vireo_tpu_torch/probes/) against their plain versions: A
    (nibble_unpack) in its three variants bit for bit at the probe's 256
@@ -197,7 +198,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    128, suff_stats' tiles 48 and 64);
 21. `[heavy]` (after phase 20): benchmarks/e2e_hybrid.py's heavy-tailed
    pool at full width through vireo_wrap on its default rung (dense
-   float32 on an 80 GB card), int8-hybrid, packed-hybrid and COO
+   int16 through K0 on an 80 GB card), int8-hybrid, packed-hybrid and COO
    (HEAVY's note, phase_heavy's gates): launches by rung, sums bit for
    bit on a second run, calls, ELBO and accuracy against the default
    rung's from its warm restarts; placement, phases, residual
@@ -363,6 +364,33 @@ K0_TERMS_GAIN = 2.0
 # than float32's 24: so K0's check runs on the pool's counts halved (0 to
 # 63), one nonzero a column, each output one product below 2^24.
 K0_SPLIT_NNZ = 1
+# K0 on int16 counts (two exact 7-bit planes: c = lo + 128 hi), at
+# heavy16's shape and tail (portbench/configs/heavy16.json: 1% of the
+# entries covered, depth 1 + Poisson(3) capped at 16, 0.2% of the covered
+# entries 200 to 1999 reads deeper; K0_HEAVY): the warm restarts' N = 20
+# x 16, the refit's N = 16 and the doublet phase's N = 136; and K0_SHAPES'
+# edge shapes (and the view from an odd column) on counts over the whole
+# range K0 takes as int16, 0 to 16383, a tenth of the first third of the
+# rows above 127, so some warpgroup tiles run the high plane and some
+# skip it. Checks: bit for bit on integer weights and on a second
+# launch; each plane alone (the counts' bits 0-5 and bits 7-12) on
+# weights that need all three bf16 terms (K0_SPLIT_NNZ); Higham's bound
+# against the plain version with twice the products (both planes); three
+# terms K0_TERMS_GAIN times as close to float64 sums as one; K0_HIGH's
+# counts equal to those the counts give (`_k0_high_model`). Timed in
+# turns with the plain version (the counts converted to float32 a block
+# at a time, cuBLAS float32), beside cuBLAS float32 on the counts held as
+# float32 (the dense float32 rung's contraction that heavy16 ran before
+# int16 reached K0) and the bound where the high plane runs everywhere.
+K0_INT16_SHAPES = (
+    ("edge", 1001, 1999, 21, K0_BOTH),
+    ("edge aligned", 1001, 2000, 21, K0_BOTH),
+    ("warm", 30000, 100000, 320, K0_BOTH),
+    ("refit", 30000, 100000, 16, K0_BOTH),
+    ("doublet", 30000, 100000, 136, ("cell_loglik",)),
+)
+K0_HEAVY = dict(density=0.01, mean_extra_depth=3.0, max_depth=16,
+                hot_share=0.002, hot_depth=(200, 2000))
 # --- the probes of benchmarks/ (vireo_tpu_torch/probes/): kernels A-D ---
 # A (nibble_unpack) bit for bit at the probe's (256, 512) bytes and at
 # the main pool's packed AD, 30000 x 50000 bytes, timed there; B
@@ -529,7 +557,7 @@ KSWEEP_FIT = dict(n_init=8, max_iter_init=20, random_seed=0)
 # [heavy]: benchmarks/e2e_hybrid.py's heavy-tailed pool (`_heavy_pool`,
 # its generator's lines; the largest count ~2000) through vireo_wrap
 # with HEAVY_FIT on the rung counts_from_scipy picks by default (dense
-# float32 on an 80 GB card) and on the rungs of HEAVY_RUNGS, forced by a
+# int16 on an 80 GB card) and on the rungs of HEAVY_RUNGS, forced by a
 # dense_budget in units of n_var x n_cell bytes (0: one byte). Each
 # forced rung's calls against the default rung's: the [rungs] gates
 # (RUNG_AGREE, RUNG_ELBO_RTOL); singlet accuracy by the script's
@@ -1086,6 +1114,81 @@ def _k0_inputs(torch, V, C, seed, device, start=0):
     return dc.cell_slice(start, start + C) if start else dc
 
 
+def _k0_inputs16(torch, V, C, seed, device, start=0, heavy=True):
+    """DenseCounts of int16 counts drawn in row blocks on the card: with
+    `heavy`, K0_HEAVY's pool (depth at 1% of the entries, the hot share
+    deeper; AD a binomial draw of DP at 0.02, 0.5 or 0.98); else counts
+    uniform in [0, 127], a tenth of the first third of the rows uniform
+    in [128, 16383] instead, AD uniform in [0, DP]. `start` as for
+    `_k0_inputs`."""
+    from vireo_tpu_torch.ops.counts import DenseCounts
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    W = start + C
+    ad = torch.empty((V, W), dtype=torch.int16, device=device)
+    dp = torch.empty_like(ad)
+    h = K0_HEAVY
+    for r0 in range(0, V, 2048):
+        r1 = min(r0 + 2048, V)
+        shape = (r1 - r0, W)
+
+        def rand():
+            return torch.rand(shape, generator=g, device=device)
+        if heavy:
+            cov = rand() < h["density"]
+            d = (1 + torch.poisson(torch.full(shape, h["mean_extra_depth"],
+                                              device=device), generator=g)
+                 ).clamp(max=h["max_depth"])
+            lo, hi = h["hot_depth"]
+            d = d + (rand() < h["hot_share"]) * torch.randint(
+                lo, hi, shape, generator=g, device=device)
+            d = d * cov
+            p = torch.tensor([0.02, 0.5, 0.98], device=device)[
+                torch.randint(0, 3, shape, generator=g, device=device)]
+            a = torch.binomial(d, p, generator=g)
+        else:
+            d = torch.randint(0, 128, shape, generator=g,
+                              device=device).float()
+            rows = torch.arange(r0, r1, device=device)[:, None] < V // 3
+            hot = rows & (rand() < 0.1)
+            d = torch.where(hot, torch.randint(128, 16384, shape, generator=g,
+                                               device=device).float(), d)
+            a = (rand() * (d + 1)).floor().clamp(max=d)
+        dp[r0:r1] = d.to(torch.int16)
+        ad[r0:r1] = a.to(torch.int16)
+    dc = DenseCounts(ad, dp)
+    return dc.cell_slice(start, start + C) if start else dc
+
+
+def _k0_high_model(torch, name, dc, N, sms):
+    """K0_HIGH's additions for one int16 call of K0's `name` on
+    DenseCounts dc at width N, from the counts: (k_blocks, high). Each
+    unit of the plan (ops/counts.py::k0_plan) runs each of its k-blocks
+    on two warpgroup tiles, suff_stats' of 64 variants x 64 cells,
+    cell_loglik's of 128 cells x 64 variants, past the counts' edge too;
+    a tile runs the high plane where AD or DP holds a count above 127."""
+    from vireo_tpu_torch.ops import counts
+    V, C = dc.n_var, dc.n_cell
+    plan = counts.k0_plan(name, V, C, N, sms, 2)
+    if name == "suff_stats":
+        rows, cols = 2 * plan.m_tiles * 64, plan.nkb * 64
+        tile = (64, 64)
+    else:
+        rows, cols = plan.nkb * 64, 2 * plan.m_tiles * 128
+        tile = (64, 128)
+    high = 0
+    for r0 in range(0, V, 64 * 64):
+        r1 = min(r0 + 64 * 64, V)
+        hot = (dc.ad[r0:r1] > 127) | (dc.dp[r0:r1] > 127)
+        pad = torch.zeros((-(-(r1 - r0) // 64) * 64, cols), dtype=torch.bool,
+                          device=hot.device)
+        pad[:r1 - r0, :C] = hot
+        high += int(pad.view(-1, tile[0], cols // tile[1], tile[1])
+                    .any(3).any(1).sum())
+    tiles = rows // tile[0] * (cols // tile[1])
+    return tiles * plan.n_tiles, high * plan.n_tiles
+
+
 def _k0_calls():
     """(kernel, plain) calls of K0 on a DenseCounts, by name; each
     returns a tuple of outputs. The kernel is reached as the model
@@ -1180,8 +1283,9 @@ def _k0_layout(torch, name, dc, N, w, res):
     fragments alone) and without the float32 adds of the k-block sums;
     into res, logged."""
     from vireo_tpu_torch.ops import counts
-    plan = counts.k0_plan(name, dc.n_var, dc.n_cell, N, _sms(torch))
-    shape = counts.k0_shape(name, plan.bn)
+    width = dc.ad.element_size()
+    plan = counts.k0_plan(name, dc.n_var, dc.n_cell, N, _sms(torch), width)
+    shape = counts.k0_shape(name, plan.bn, width)
     res["plan"], res["shape"] = plan, shape
     log("[k0]   plan: tile %d x %d, %d x %d tiles, %d slices of %d "
         "k-blocks (%d), %d units on %d blocks (%.1f%% of the last wave); "
@@ -1327,6 +1431,153 @@ def phase_k0(torch):
                 torch.cuda.empty_cache()
             del half
     del dc, pools, X32
+    torch.cuda.empty_cache()
+    return results
+
+
+def _planes_split_check(torch, name, kern, plain, pc, N, g, dev):
+    """`_split_check` on each plane of int16 counts alone: the counts'
+    bits 0-5 (low plane) and bits 7-12 (high plane, 128 h with h < 64),
+    so each output, one product of a count and an 18-bit weight, is exact
+    in float32."""
+    from vireo_tpu_torch.ops.counts import DenseCounts
+    for bits in (0x003F, 0x1F80):
+        part = DenseCounts(pc.ad & bits, pc.dp & bits)
+        log("[k0]   the counts' bits %#06x alone:" % bits)
+        _split_check(torch, name, kern, plain, part, N, g, dev,
+                     nnz=K0_SPLIT_NNZ, tag="k0")
+        del part
+
+
+def phase_k0_int16(torch):
+    """K0 on int16 counts against its plain versions at K0_INT16_SHAPES,
+    with the checks and times of K0_INT16_SHAPES' note; by (label, name)
+    the results, with K0_HIGH's share of k-blocks that ran the high
+    plane."""
+    from vireo_tpu_torch.ops import counts
+    from vireo_tpu_torch.ops.counts import DenseCounts
+    dev = torch.device("cuda")
+    kern, plain = _k0_calls()
+    results = {}
+    dc = f32 = None
+    for label, V, C, N, names in K0_INT16_SHAPES:
+        heavy = not label.startswith("edge")
+        if dc is None or (dc.n_var, dc.n_cell) != (V, C):
+            dc = f32 = None
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            pools = [(label, _k0_inputs16(torch, V, C, V + C, dev,
+                                          heavy=heavy))]
+            if label == "edge":
+                pools.append(("edge view", _k0_inputs16(
+                    torch, V, C, V + C + 1, dev, start=K0_VIEW_START,
+                    heavy=False)))
+            torch.cuda.synchronize()
+            dc = pools[0][1]
+            log("[k0] %d x %d int16 counts drawn on the card in %.2f s "
+                "(%s): largest %d, %d above 127"
+                % (V, C, time.perf_counter() - t0,
+                   "heavy16's tail" if heavy else "0 to 16383",
+                   int(dc.dp.max()), int((dc.dp > 127).sum())))
+            if heavy:
+                # the dense float32 rung's layout of the same counts
+                torch.cuda.empty_cache()
+                free, _ = torch.cuda.mem_get_info()
+                if 8.0 * V * C <= LIBRARY_MEM_SHARE * free:
+                    f32 = DenseCounts(dc.ad.float(), dc.dp.float())
+                else:
+                    log("[k0]   float32 layout not timed: it takes %.1f GB"
+                        % (8.0 * V * C / 1e9))
+        else:
+            pools = [(label, dc)]
+        g = torch.Generator(device=dev)
+        g.manual_seed(V + C + N)
+        for tag, pc in pools:
+            for name in names:
+                log("[k0] int16 %s %s V=%d C=%d N=%d" % (tag, name, V, C, N))
+                w = _k23_weights(torch, name, V, C, N, g, dev, exact=True)
+                top = max(float(x.max()) for x in plain[name](
+                    pc, *(x.abs() for x in w)))
+                if top >= 2.0 ** 24:
+                    raise AssertionError("K0 int16 %s integer weights: "
+                                         "sum|terms| %.0f is not exact in "
+                                         "float32" % (name, top))
+                counts.K0_HIGH.reset()
+                got = kern[name](pc, *w)
+                k_blocks, high = (counts.K0_HIGH[k]
+                                  for k in ("k_blocks", "high"))
+                want = _k0_high_model(torch, name, pc, N, _sms(torch))
+                log("[k0]   K0_HIGH: %d of %d k-blocks ran the high plane "
+                    "(%.2f%%); from the counts %d of %d"
+                    % (high, k_blocks, 100.0 * high / max(k_blocks, 1),
+                       want[1], want[0]))
+                if (k_blocks, high) != want:
+                    raise AssertionError("K0_HIGH counted other k-blocks "
+                                         "than the counts give")
+                for gt, rf in zip(got, plain[name](pc, *w)):
+                    if not torch.equal(gt, rf):
+                        raise AssertionError(
+                            "K0 int16 %s on integer weights differs from "
+                            "its plain version by %.3e"
+                            % (name, float((gt - rf).abs().max())))
+                log("[k0]   integer weights: equal to the plain version "
+                    "(largest sum|terms| %.0f, exact below 2^24)" % top)
+                del got
+                _planes_split_check(torch, name, kern[name], plain[name], pc,
+                                    N, g, dev)
+                w = _k23_weights(torch, name, V, C, N, g, dev, exact=False)
+                got = kern[name](pc, *w)
+                ref = plain[name](pc, *w)
+                mag = plain[name](pc, *(x.abs() for x in w))
+                sides = ((6 * C, C) if name == "suff_stats"
+                         else (12 * V, 2 * V))
+                gamma = sum(_gamma(n) for n in sides)
+                err = max(_bound_check("%s[%d] float" % (name, i), gt, rf,
+                                       gamma * m, "k0")
+                          for i, (gt, rf, m) in enumerate(zip(got, ref, mag)))
+                del ref, mag
+                if not all(torch.equal(a, b)
+                           for a, b in zip(got, kern[name](pc, *w))):
+                    raise AssertionError("K0 int16 %s gave other sums on a "
+                                         "second launch" % name)
+                log("[k0]   a second launch: equal bit for bit")
+                res = dict(max_abs_err=err, high_share=high / max(k_blocks, 1))
+                res["err_vs_f64"] = _term_errors(
+                    torch, name, kern[name], plain[name], pc, w, got,
+                    label="K0 int16 " + name, gain=K0_TERMS_GAIN, tag="k0")
+                del got
+                if heavy:
+                    _k0_layout(torch, name, pc, N, w, res)
+                    lib = None
+                    if f32 is not None:
+                        ref = plain[name](pc, *w)
+                        lib = lambda: kern[name](f32, *w)
+                        diff = max(float((a - b).abs().max())
+                                   for a, b in zip(lib(), ref))
+                        log("[k0]   library call: cuBLAS float32 on the "
+                            "counts held as float32 (the dense float32 "
+                            "rung's contraction), max |diff| from the plain "
+                            "version %.3e" % diff)
+                        del ref
+                    # three bf16 terms of both planes, 2 x 2 V C N flops
+                    # each, where the high plane runs everywhere; the int16
+                    # counts, the float32 weights and outputs once
+                    _probe_times(
+                        torch, "K0 int16 %s N=%d" % (name, N), res,
+                        lambda: kern[name](pc, *w),
+                        lambda: plain[name](pc, *w), lib,
+                        2 * 3 * 2.0 * 2 * V * C * N,
+                        4.0 * V * C + 4.0 * C * N + 8.0 * V * N,
+                        kernels=_k0_kernels(res["plan"]), phase="k0")
+                    log("[k0]   the bound at K0_HIGH's share (%.2f%% of the "
+                        "k-blocks with the high plane): %.4f ms"
+                        % (100 * res["high_share"], _bound(
+                            (1 + res["high_share"]) * 3 * 2.0 * 2 * V * C
+                            * N, 4.0 * V * C + 4.0 * C * N + 8.0 * V * N)[0]))
+                results[(tag, name)] = res
+                del w
+                torch.cuda.empty_cache()
+    del dc, pools, f32
     torch.cuda.empty_cache()
     return results
 
@@ -2819,11 +3070,12 @@ def phase_heavy(torch):
     """`[heavy]`, HEAVY's note: the pool on its default rung and on each
     rung of HEAVY_RUNGS, each placed by counts_from_scipy (the ladder's
     rung checked), its two contractions run twice (equal bit for bit)
-    and handed to vireo_wrap prebuilt. Each rung's own run: the
-    int8-hybrid base launches both of K0's kernels, the packed-hybrid
-    base K2 and K3, the default and COO rungs none of K0-K3, and no rung
-    K1; its placement, phases, residual nonzeros, peak memory and
-    accuracy are logged, and its calls beside the default run's.
+    and handed to vireo_wrap prebuilt. Each rung's own run: the default
+    rung (dense int16) and the int8-hybrid base launch both of K0's
+    kernels, the packed-hybrid base K2 and K3, the COO rung none of
+    K0-K3, and no rung K1; its placement, phases, residual nonzeros,
+    peak memory and accuracy are logged, and its calls beside the
+    default run's.
 
     In float32 the warm restarts of this pool reach other optima on
     other rungs (their sums round apart, and 20 iterations from random
@@ -2877,7 +3129,8 @@ def phase_heavy(torch):
                                         own)
         k0 = launches["dense_suff_stats"] + launches["dense_cell_loglik"]
         k23 = launches["K2"] + launches["K3"]
-        want = {"int8-hybrid": _k0_launched(launches) and k23 == 0,
+        want = {"default": _k0_launched(launches) and k23 == 0,
+                "int8-hybrid": _k0_launched(launches) and k23 == 0,
                 "packed-hybrid": min(launches["K2"], launches["K3"]) > 0
                 and k0 == 0}.get(rung, k0 == 0 and k23 == 0)
         if not want or launches["K1"]:
@@ -3934,6 +4187,7 @@ def main():
     k1 = phase_k1(torch)
     k23 = phase_k23(torch)
     k0 = phase_k0(torch)
+    phase_k0_int16(torch)
     probes, probe_launches = phase_probes(torch)
     mt = phase_mt(torch)
     d = _main_pool()

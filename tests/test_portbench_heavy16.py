@@ -3,7 +3,7 @@ thousands, on the CPU at a tiny size:
 
 - the manifest resolves the cell: its configuration, traffic, limits and
   per-layer metrics;
-- on an 80 GiB card its full-size pool takes the dense float32 rung;
+- on an 80 GiB card its full-size pool takes the dense rung, in int16;
 - the tiny heavy pool through the program's `vireo_wrap` on that rung
   matches the benchmark's plain reference in float64;
 - a tiny checkout under the cell's limits reads `correct` from host
@@ -74,7 +74,7 @@ def test_the_manifest_resolves_the_cell():
 def test_the_full_pool_is_dense_float32_on_an_80_gib_card():
     from vireo_tpu_torch.ops.counts import exact_count_dtype, ladder_rung
     assert ladder_rung((30000, 100000), 2007, 0.55 * 80 * 2**30) == "dense"
-    assert exact_count_dtype(2007) == torch.float32
+    assert exact_count_dtype(2007) == torch.int16
 
 
 def test_the_tiny_heavy_pool_matches_the_reference():
@@ -95,7 +95,7 @@ def test_the_tiny_heavy_pool_matches_the_reference():
     assert DP.max() > 256
     counts = counts_from_scipy(AD, DP, device="cpu")
     assert isinstance(counts, DenseCounts)
-    assert counts.ad.dtype == counts.dp.dtype == torch.float32
+    assert counts.ad.dtype == counts.dp.dtype == torch.int16
     fit = TINY_FITS["vireo_wrap"]
     got = vireo_wrap(counts, random_seed=7, verbose=False, device="cpu",
                      **fit)
@@ -131,7 +131,7 @@ def test_a_tiny_checkout_under_the_limits_is_correct(runs):
     run = runs["sound"]
     assert run["correct"], run["checks"]
     assert run["checks"]["placement"]["value"] == 0
-    assert run["layout"] == ["DenseCounts", "torch.float32", "torch.float32"]
+    assert run["layout"] == ["DenseCounts", "torch.int16", "torch.int16"]
 
 
 @pytest.mark.parametrize("fault", sorted(CAUGHT))

@@ -61,13 +61,15 @@ def test_contractions_match_jax(pool):
 
 
 @pytest.mark.parametrize("vmax,dtype", [(None, torch.int8),
-                                        (200, torch.bfloat16),
-                                        (2000, torch.float32)])
+                                        (200, torch.int16),
+                                        (2000, torch.int16),
+                                        (20000, torch.float32)])
 def test_plain_contractions_are_counted(vmax, dtype):
     """MATMULS counts each call of DenseCounts' plain contractions of
-    non-int8 counts, and none of int8 counts (K0's); LAUNCHES counts K0's
-    kernels alone, which launch nothing on the CPU."""
-    from vireo_tpu_torch.ops.counts import LAUNCHES, MATMULS
+    counts K0 does not read (float32), and none of int8 or int16 counts
+    (K0's); LAUNCHES counts K0's kernels alone, which launch nothing on
+    the CPU, nor add to K0_HIGH."""
+    from vireo_tpu_torch.ops.counts import K0_HIGH, LAUNCHES, MATMULS
     AD, DP = _pool(vmax=vmax)
     tc = counts_from_scipy(AD, DP)
     assert isinstance(tc, DenseCounts) and tc.ad.dtype == dtype
@@ -78,11 +80,12 @@ def test_plain_contractions_are_counted(vmax, dtype):
     tc.suff_stats(W)
     tc.suff_stats(W)
     tc.cell_loglik(Wa, Wd)
-    plain = dtype != torch.int8
+    plain = dtype == torch.float32
     assert {k: MATMULS[k] - matmuls[k] for k in MATMULS} == \
         {"suff_stats": 2 * plain, "cell_loglik": 1 * plain}
     assert LAUNCHES == launches
     assert set(LAUNCHES) == {"dense_suff_stats", "dense_cell_loglik"}
+    assert dict(K0_HIGH) == {"k_blocks": 0, "high": 0}
 
 
 def test_reductions_match_jax(pool):
@@ -111,7 +114,7 @@ def test_union_pattern_and_exact_dtype():
     AD[1, 1] = 0
     AD = AD.tocsr()
     tc = counts_from_scipy(AD, DP)
-    assert tc.ad.dtype == exact_count_dtype(200) == torch.bfloat16
+    assert tc.ad.dtype == exact_count_dtype(200) == torch.int16
     np.testing.assert_array_equal(tc.dp.float().numpy(), DP.toarray())
     np.testing.assert_array_equal(tc.ad.float().numpy(), AD.toarray())
 
@@ -214,7 +217,7 @@ def test_hybrid_densify_keeps_the_exact_smallest_type():
     heavy = counts_from_scipy(AD, DP, dense_budget=AD.shape[0] * AD.shape[1])
     assert type(heavy).__name__ == "HybridCounts"
     assert heavy.densify().dp.dtype == exact_count_dtype(DP.max()) \
-        == torch.float32
+        == torch.int16
 
 
 def test_sparse_densify_promotes_a_narrow_dtype(capsys):
@@ -225,6 +228,23 @@ def test_sparse_densify_promotes_a_narrow_dtype(capsys):
     assert dense.dp.dtype == exact_count_dtype(DP.max())
     np.testing.assert_array_equal(dense.dp.double().numpy(), DP.toarray())
     assert coo.densify(dtype=torch.float64).dp.dtype == torch.float64
+
+
+def test_sparse_densify_promotes_int16_past_its_codec():
+    """An int16 `dtype` holds the counts K0 reads as int16, up to 16,383;
+    a larger count promotes the densified pool to float32, with the
+    note, instead of wrapping around."""
+    AD, DP = _pool(seed=5, V=20, C=30)
+    DP = DP.toarray()
+    DP[2, 3] = 16383
+    coo = counts_from_scipy(AD, sp.csc_matrix(DP), dense_budget=1)
+    assert coo.densify(dtype=torch.int16).dp.dtype == torch.int16
+    DP[2, 3] = 16384
+    coo = counts_from_scipy(AD, sp.csc_matrix(DP), dense_budget=1)
+    assert coo.densify().dp.dtype == torch.float32
+    wide = coo.densify(dtype=torch.int16)
+    assert wide.dp.dtype == torch.float32
+    np.testing.assert_array_equal(wide.dp.numpy(), DP)
 
 
 # ---- placement: the dense rung from each matrix's own arrays
@@ -333,7 +353,7 @@ def test_dense_rung_placed_directly_equals_the_union_path(monkeypatch, case):
     assert type(got) is DenseCounts
     dense = [_dense(X) for X in (AD, DP)]
     dtype = exact_count_dtype(max(x.max() for x in dense))
-    assert dtype == (torch.bfloat16 if case == "int16" else torch.int8)
+    assert dtype == (torch.int16 if case == "int16" else torch.int8)
     for g, want in zip((got.ad, got.dp), dense):
         assert g.dtype == dtype
         np.testing.assert_array_equal(g.double().numpy(), want)

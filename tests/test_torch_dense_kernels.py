@@ -1,8 +1,10 @@
-"""K0, the dense rung's int8 contractions (vireo_tpu_torch.ops.counts:
-`dense_suff_stats`, `dense_cell_loglik`, csrc/dense_counts.cu), on the
-CPU: the wrappers' dispatch and launch checks, and K0's arithmetic
-against vireo_tpu.ops.counts.DenseCounts, whose XLA dots read int8
-counts cast to bf16 (vireo_tpu/ops/counts.py:71-95).
+"""K0, the dense rung's int8 and int16 contractions
+(vireo_tpu_torch.ops.counts: `dense_suff_stats`, `dense_cell_loglik`,
+csrc/dense_counts.cu), on the CPU: the wrappers' dispatch and launch
+checks, and K0's arithmetic against vireo_tpu.ops.counts.DenseCounts,
+whose XLA dots read int8 counts cast to bf16 (vireo_tpu/ops/counts.py:
+71-95) and float32 counts (the JAX package's type above 256) at full
+precision.
 
 The CUDA kernels run only on a card; chip_smoke.py's `[k0]` phase holds
 them against the plain versions there. Here the host pieces of their
@@ -23,6 +25,14 @@ float32 weights:
   JAX's side (n_cell for suff_stats, 2 n_var for cell_loglik), three
   times as many on K0's (Higham's bound, as chip_smoke applies to K2 and
   K3).
+
+int16 counts c (0 to 16,383) are two exact 7-bit planes, c = lo + 128
+hi: each k-block sums both planes' products with the same three terms,
+the high plane's only in the warpgroup tiles (suff_stats: 64 variants x
+64 cells; cell_loglik: 128 cells x 64 variants) where AD or DP holds a
+count above 127. The emulation follows that, and is held against JAX's
+DenseCounts on float32 counts: bit for bit on integer weights, within
+the same bound with twice the products on K0's side on float weights.
 """
 
 import re
@@ -60,6 +70,18 @@ def _int8_pool(V, C, seed):
     return ad.astype(np.int8), dp.astype(np.int8)
 
 
+def _int16_pool(V, C, seed):
+    """int16 counts over the whole range K0 takes: 0 to 127, except a
+    tenth of the first third of the rows, 128 to 16,383 (so some
+    warpgroup tiles hold counts above 127 and some do not); AD <= DP."""
+    rng = np.random.RandomState(seed)
+    dp = rng.randint(0, 128, (V, C))
+    hot = (np.arange(V)[:, None] < V // 3) & (rng.rand(V, C) < 0.1)
+    dp = np.where(hot, rng.randint(128, 16384, (V, C)), dp)
+    ad = np.floor(rng.rand(V, C) * (dp + 1)).astype(np.int64)
+    return ad.astype(np.int16), dp.astype(np.int16)
+
+
 def _weights(V, C, N, seed, integer=False):
     rng = np.random.RandomState(seed)
     if integer:
@@ -94,40 +116,81 @@ def _k0_slices(plan, total_of):
     return total
 
 
-def _k0_emulation(A, W, plan):
+def _planes(A):
+    """The count planes K0 multiplies by the terms: int8 counts as they
+    are; int16 counts c as (c & 127, 128 (c >> 7))."""
+    if A.dtype == torch.int16:
+        return [A & 127, (A >> 7) * 128]
+    return [A]
+
+
+def _hot_tiles(ad, dp, rows, cols):
+    """Which (rows x cols) tiles of the counts hold a count above 127 in
+    AD or DP: a bool (row tiles, column tiles) array, the counts' edge
+    padded with zeros."""
+    hot = ((ad > 127) | (dp > 127)).numpy()
+    R, C = -(-hot.shape[0] // rows), -(-hot.shape[1] // cols)
+    pad = np.zeros((R * rows, C * cols), bool)
+    pad[:hot.shape[0], :hot.shape[1]] = hot
+    return torch.as_tensor(pad.reshape(R, rows, C, cols).any(axis=(1, 3)))
+
+
+def _k0_emulation(A, W, plan, hot=None):
     """Sum over k of A[:, k] * W[k, :] as K0's suff_stats forms it: W's
     three bf16 terms, each k-block of K_BLOCK cells (read in k0_k_order)
-    summed in float32 on its own, in the plan's slices."""
+    summed in float32 on its own, in the plan's slices; int16 counts'
+    high plane only in the rows of the warpgroup tiles of 64 variants
+    that `hot` (64-variant groups x k-blocks) marks."""
     terms = [t.float() for t in split_bf16x3(W)]
     order = torch.as_tensor(counts.k0_k_order("suff_stats"))
+    planes = _planes(A)
 
     def block(t):
         cells = K_BLOCK * t + order
         cells = cells[cells < A.shape[1]]
-        a = A[:, cells].float()
-        return sum(a @ term[cells] for term in terms)
+        low = sum(planes[0][:, cells].float() @ term[cells]
+                  for term in terms)
+        if len(planes) == 1:
+            return low
+        high = sum(planes[1][:, cells].float() @ term[cells]
+                   for term in terms)
+        runs = hot[:, t].repeat_interleave(64)[:A.shape[0], None]
+        return low + torch.where(runs, high, torch.zeros_like(high))
     return _k0_slices(plan, block)
 
 
 def _emulated_suff_stats(ad, dp, W, sms=SMS):
     plan = counts.k0_plan("suff_stats", ad.shape[0], ad.shape[1],
-                          W.shape[1], sms)
-    return _k0_emulation(ad, W, plan), _k0_emulation(dp, W, plan)
+                          W.shape[1], sms, ad.element_size())
+    hot = _hot_tiles(ad, dp, 64, K_BLOCK)
+    return _k0_emulation(ad, W, plan, hot), _k0_emulation(dp, W, plan, hot)
 
 
 def _emulated_cell_loglik(ad, dp, Wa, Wd, sms=SMS):
     """AD.T @ Wa + DP.T @ Wd as K0's cell_loglik forms it: a k-block of
     K_BLOCK variants takes both matrices and the three terms of each
-    weight, summed in float32 on its own, in the plan's slices."""
+    weight, summed in float32 on its own, in the plan's slices; int16
+    counts' high plane only in the warpgroup tiles of 128 cells that
+    hold a count above 127 in the k-block."""
     plan = counts.k0_plan("cell_loglik", ad.shape[0], ad.shape[1],
-                          Wa.shape[1], sms)
+                          Wa.shape[1], sms, ad.element_size())
     ta = [t.float() for t in split_bf16x3(Wa)]
     td = [t.float() for t in split_bf16x3(Wd)]
+    pa, pd = _planes(ad), _planes(dp)
+    hot = _hot_tiles(ad, dp, K_BLOCK, 128)
 
     def block(t):
         blk = slice(K_BLOCK * t, K_BLOCK * (t + 1))
-        a, d = ad[blk].float().t(), dp[blk].float().t()
-        return sum(a @ x[blk] for x in ta) + sum(d @ x[blk] for x in td)
+
+        def plane(i):
+            a, d = pa[i][blk].float().t(), pd[i][blk].float().t()
+            return sum(a @ x[blk] for x in ta) + sum(d @ x[blk] for x in td)
+        low = plane(0)
+        if len(pa) == 1:
+            return low
+        high = plane(1)
+        runs = hot[t].repeat_interleave(128)[:ad.shape[1], None]
+        return low + torch.where(runs, high, torch.zeros_like(high))
     return _k0_slices(plan, block)
 
 
@@ -178,7 +241,7 @@ def test_wrappers_raise_off_cpu_and_cuda():
 
 @pytest.mark.parametrize("bad", ["float64", "int16 counts", "counts shape",
                                  "rows", "width", "meta weights",
-                                 "vector"])
+                                 "vector", "bfloat16 counts"])
 def test_launch_checks_refuse_what_the_kernels_do_not_take(bad):
     ad, dp = (torch.as_tensor(x) for x in _int8_pool(9, 11, seed=5))
     Wa = torch.zeros((9, 3), dtype=torch.float32)
@@ -190,6 +253,8 @@ def test_launch_checks_refuse_what_the_kernels_do_not_take(bad):
         Wd, err = Wd.double(), TypeError
     elif bad == "int16 counts":
         ad, err = ad.to(torch.int16), TypeError
+    elif bad == "bfloat16 counts":
+        ad, dp, err = ad.to(torch.bfloat16), dp.to(torch.bfloat16), TypeError
     elif bad == "counts shape":
         dp = dp[1:]
     elif bad == "rows":
@@ -224,10 +289,10 @@ def _recorders(monkeypatch):
                                    torch.bfloat16, torch.float32])
 def test_int8_counts_route_through_k0_and_others_through_the_plain_product(
         dtype, monkeypatch):
-    """int8 DenseCounts go through K0's wrappers (which run the plain
-    versions on the CPU); counts of any other type straight through the
-    plain product, as JAX takes a plain dot for them. The sums are the
-    same either way."""
+    """int8 and int16 DenseCounts go through K0's wrappers (which run the
+    plain versions on the CPU); counts of any other type straight through
+    the plain product, as JAX takes a plain dot for them. The sums are
+    the same either way."""
     ad, dp = _int8_pool(23, 31, seed=6)
     W, Wa, Wd = (torch.as_tensor(x, dtype=torch.float64)
                  for x in _weights(23, 31, 3, seed=7))
@@ -236,7 +301,7 @@ def test_int8_counts_route_through_k0_and_others_through_the_plain_product(
     calls = _recorders(monkeypatch)
     S1, SS = dc.suff_stats(W)
     ll = dc.cell_loglik(Wa, Wd)
-    if dtype == torch.int8:
+    if dtype in (torch.int8, torch.int16):
         assert calls == ["dense_suff_stats", "suff_stats_reference",
                          "dense_cell_loglik", "cell_loglik_reference"]
     else:
@@ -414,6 +479,158 @@ def test_k0_arithmetic_matches_jax_on_float_weights(V, C, N):
     assert np.abs(got - ref).max() > 0   # the orders do differ
 
 
+@pytest.mark.parametrize("V,C,N", [(37, 53, 5), (130, 301, 21),
+                                   (200, 397, 33)])
+def test_k0_int16_arithmetic_equals_jax_on_integer_weights(V, C, N):
+    """int16 counts up to 16,383, both planes, the high one skipped where
+    a tile holds no count above 127: bit for bit with JAX's DenseCounts
+    on the same counts as float32 (every product and partial sum an
+    integer below 2^24)."""
+    ad, dp = _int16_pool(V, C, seed=V + C)
+    W, Wa, Wd = _weights(V, C, N, seed=N, integer=True)
+    jc = jax_dense_counts(ad, dp, dtype=jnp.float32)
+    tad, tdp = torch.as_tensor(ad), torch.as_tensor(dp)
+    assert int(tdp.max()) > 8192 and (tdp > 127).any()
+    for j, t in zip(jc.suff_stats(jnp.asarray(W)),
+                    _emulated_suff_stats(tad, tdp, torch.as_tensor(W))):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    np.testing.assert_array_equal(
+        _emulated_cell_loglik(tad, tdp, torch.as_tensor(Wa),
+                              torch.as_tensor(Wd)).numpy(),
+        np.asarray(jc.cell_loglik(jnp.asarray(Wa), jnp.asarray(Wd))))
+
+
+@pytest.mark.parametrize("V,C,N", [(37, 53, 5), (130, 301, 21)])
+def test_k0_int16_arithmetic_matches_jax_on_float_weights(V, C, N):
+    """On float weights the two planes give twice the products of the
+    int8 codec: |err| <= (gamma_6n + gamma_n) sum|terms| with n = n_cell
+    (suff_stats), (gamma_12n + gamma_2n) with n = n_var (cell_loglik)."""
+    ad, dp = _int16_pool(V, C, seed=V * C)
+    W, Wa, Wd = _weights(V, C, N, seed=N + 1)
+    jc = jax_dense_counts(ad, dp, dtype=jnp.float32)
+    tad, tdp = torch.as_tensor(ad), torch.as_tensor(dp)
+    a64, d64 = tad.double().numpy(), tdp.double().numpy()
+    got = _emulated_suff_stats(tad, tdp, torch.as_tensor(W))
+    mag = np.abs(W).astype(np.float64)
+    for j, t, m in zip(jc.suff_stats(jnp.asarray(W)), got,
+                       (a64 @ mag, d64 @ mag)):
+        bound = (_gamma(6 * C) + _gamma(C)) * m
+        assert np.all(np.abs(t.numpy() - np.asarray(j)) <= bound)
+    got = _emulated_cell_loglik(tad, tdp, torch.as_tensor(Wa),
+                                torch.as_tensor(Wd)).numpy()
+    ref = np.asarray(jc.cell_loglik(jnp.asarray(Wa), jnp.asarray(Wd)))
+    mag = a64.T @ np.abs(Wa) + d64.T @ np.abs(Wd)
+    bound = (_gamma(12 * V) + _gamma(2 * V)) * mag
+    assert np.all(np.abs(got - ref) <= bound)
+    assert np.abs(got - ref).max() > 0   # the orders do differ
+
+
+def test_int16_planes_are_exact_7_bit_halves():
+    """Every count K0 takes as int16 is lo + 128 hi with both planes in
+    [0, 127] (pair_of's range), each plane and 128 hi exact in bf16, and
+    a count is above 127 exactly where its bits 0xFF80 are set (the
+    kernels' kOver127, the high plane's vote)."""
+    c = torch.arange(16384, dtype=torch.int16)
+    lo, hi = c & 127, c >> 7
+    assert int(lo.max()) == int(hi.max()) == 127 and int(hi.min()) == 0
+    assert torch.equal(lo + 128 * hi, c)
+    for x in (lo, 128 * hi):
+        assert torch.equal(x.to(torch.bfloat16).float(), x.float())
+    assert torch.equal((c.int() & 0xFF80) != 0, c > 127)
+    text = _build.source_path("dense_counts").read_text()
+    assert "kOver127 = 0xFF80FF80u" in text and "kLow7 = 0x007F007Fu" in text
+    assert counts.K0_MAX_COUNT[torch.int16] == 16383
+
+
+@pytest.mark.parametrize("name", ["suff_stats", "cell_loglik"])
+@pytest.mark.parametrize("V,C,N", [(130, 301, 21), (301, 997, 90)])
+def test_k0_high_model_counts_the_emulations_tiles(name, V, C, N):
+    """chip_smoke's `_k0_high_model` (what the card's K0_HIGH is held to)
+    counts the warpgroup tiles the emulation runs the high plane in, once
+    a column tile, out of every tile of every unit; some tiles skip it
+    and some do not."""
+    import chip_smoke
+    ad, dp = (torch.as_tensor(x) for x in _int16_pool(V, C, seed=V))
+    plan = counts.k0_plan(name, V, C, N, SMS, 2)
+    k_blocks, high = chip_smoke._k0_high_model(
+        torch, name, DenseCounts(ad, dp), N, SMS)
+    if name == "suff_stats":
+        hot = _hot_tiles(ad, dp, 64, K_BLOCK)
+        assert hot.shape[0] <= 2 * plan.m_tiles and hot.shape[1] == plan.nkb
+        tiles = 2 * plan.m_tiles * plan.nkb
+    else:
+        hot = _hot_tiles(ad, dp, K_BLOCK, 128)
+        assert hot.shape[0] == plan.nkb and hot.shape[1] <= 2 * plan.m_tiles
+        tiles = 2 * plan.m_tiles * plan.nkb
+    assert k_blocks == tiles * plan.n_tiles
+    assert high == int(hot.sum()) * plan.n_tiles
+    assert 0 < high < k_blocks
+
+
+@pytest.mark.parametrize("vmax,dtype", [(0, torch.int8), (127, torch.int8),
+                                        (128, torch.int16),
+                                        (256, torch.int16),
+                                        (16383, torch.int16),
+                                        (16384, torch.float32),
+                                        (2 ** 24, torch.float32)])
+def test_exact_count_dtype_at_its_edges(vmax, dtype):
+    """int8 to 127 and int16 to 16,383 (both through K0; bfloat16's range
+    128-256 goes to int16 in the same bytes), float32 above."""
+    assert counts.exact_count_dtype(vmax) == dtype
+
+
+def test_k0_high_stays_at_zero_on_the_cpu():
+    """int16 contractions on the CPU run the plain versions: no launch,
+    and K0_HIGH, which only the card's int16 launches add to, stays 0."""
+    ad, dp = (torch.as_tensor(x) for x in _int16_pool(40, 70, seed=13))
+    dc = DenseCounts(ad, dp)
+    W, Wa, Wd = (torch.as_tensor(x, dtype=torch.float64)
+                 for x in _weights(40, 70, 3, seed=2))
+    before = dict(counts.LAUNCHES)
+    S1, SS = dc.suff_stats(W)
+    dc.cell_loglik(Wa, Wd)
+    assert counts.LAUNCHES == before
+    assert dict(counts.K0_HIGH) == {"k_blocks": 0, "high": 0}
+    assert counts.K0_HIGH["high"] == 0 and len(counts.K0_HIGH) == 2
+    np.testing.assert_allclose(S1.numpy(), ad.double().numpy() @ W.numpy(),
+                               rtol=1e-12)
+
+
+def test_int16_counts_reach_the_kernel_with_their_width_and_counter(
+        fake_card):
+    """int16 counts reach K0 with width 2, their row pitch in bytes and
+    K0_HIGH's counters on their device (a control adds to none); TMA for
+    aligned rows, the producer's loads for a view from an odd column.
+    int8 counts go with width 1 and no counter."""
+    V, C0, start = 9, 2000, 7
+    ad, dp = (torch.as_tensor(x) for x in _int16_pool(V, C0, seed=14))
+    whole = DenseCounts(ad, dp)
+    high = counts.K0_HIGH.tensor(ad.device).data_ptr()
+    W = torch.ones((C0, 3), dtype=torch.float32)
+    Wa = torch.ones((V, 3), dtype=torch.float32)
+    whole.suff_stats(W)
+    whole.cell_loglik(Wa, Wa)
+    view = whole.cell_slice(start, C0)
+    view.suff_stats(W[start:])
+    counts.k0_control("cell_loglik", whole, Wa, Wa, mode="no_mma")
+    (_, a1), (_, a2), (_, a3), (_, a4) = fake_card.calls
+    for args, name in ((a1, "suff_stats"), (a2, "cell_loglik")):
+        # width, counter, pitch; the int16 plan; TMA, mode full
+        assert args[11:14] == (2, high, 2 * C0) and args[-3:] == (1, 0, 0)
+        plan = counts.k0_plan(name, V, C0, 3, SMS, 2)
+        assert args[-7:-3] == (plan.bn, plan.slices, plan.slice_kb,
+                               plan.grid)
+    assert a3[0] == ad.data_ptr() + 2 * start and a3[7:9] == (V, C0 - start)
+    assert a3[11:14] == (2, high, 2 * C0) and a3[-3] == 0    # loads
+    assert a4[11:13] == (2, 0) and a4[-2] == counts.K0_MODES["no_mma"]
+    assert counts.LAUNCHES == {"dense_suff_stats": 2, "dense_cell_loglik": 1}
+    fake_card.calls.clear()
+    DenseCounts(*(torch.as_tensor(x) for x in _int8_pool(V, C0, seed=15))
+                ).suff_stats(W)
+    (_, a5), = fake_card.calls
+    assert a5[11:14] == (1, 0, C0)
+
+
 # chip_smoke's [k0] shapes (warm, refit and the K sweep's widths on the
 # main pool, the edge shapes) and ragged ones: V, C and N off every tile
 PLAN_SHAPES = [(name, V, C, N)
@@ -488,10 +705,12 @@ def test_k0_plan_fills_the_waves_at_the_main_pools_shapes(name, N, slices):
 
 def _instantiated_widths(name):
     """The column tiles csrc/dense_counts.cu instantiates K0's kernel
-    `name` at (K0_SUFF_WIDTHS, K0_LOGLIK_WIDTHS), parsed from the source;
-    its dispatch refuses any other."""
+    `name` at (K0_SUFF_WIDTHS, K0_LOGLIK_WIDTHS; "int16", both int16
+    kernels: K0_INT16_WIDTHS), parsed from the source; its dispatch
+    refuses any other."""
     macro = {"suff_stats": "K0_SUFF_WIDTHS",
-             "cell_loglik": "K0_LOGLIK_WIDTHS"}[name]
+             "cell_loglik": "K0_LOGLIK_WIDTHS",
+             "int16": "K0_INT16_WIDTHS"}[name]
     text = _build.source_path("dense_counts").read_text()
     found = re.search(r"#define %s\(X\)((?: X\(\d+\))+)\n" % macro, text)
     return [int(x) for x in re.findall(r"X\((\d+)\)", found.group(1))]
@@ -520,6 +739,20 @@ def test_every_k0_tile_is_instantiated(name):
     picked = {counts.k0_plan(name, 300, 1000, N, SMS).bn
               for N in range(1, 1025)}
     assert picked == set(widths)
+
+
+@pytest.mark.parametrize("name", ["suff_stats", "cell_loglik"])
+def test_every_int16_tile_is_instantiated(name):
+    """int16 counts' plans (K0_TILES_INT16) pick only the widths the
+    source instantiates for the int16 kernels, 16 to 48, and each of
+    them for some N; at heavy16's warm N = 320 both take 48."""
+    widths = _instantiated_widths("int16")
+    assert widths == list(range(16, counts.K0_TILES_INT16[name][1] + 1, 16))
+    picked = {counts.k0_plan(name, 300, 1000, N, SMS, 2).bn
+              for N in range(1, 1025)}
+    assert picked == set(widths)
+    assert counts.k0_plan(name, 30000, 100000, 320, SMS, 2).bn == 48
+    assert counts.K0_TILES_INT16[name][0] == counts.K0_TILES[name][0]
 
 
 def test_k0_k_order_gives_each_lane_column_16_adjacent_cells():

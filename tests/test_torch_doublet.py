@@ -11,7 +11,7 @@
   (the fused branch): both run K1's math in float32 with bf16-rounded
   W and id, so probabilities agree to atol 1e-5 and the log-likelihood
   ratio to rtol 1e-5 (float32 sum order only).
-- the unfused branch (bfloat16 counts) against JAX's default branch in
+- the unfused branch (int16 counts) against JAX's default branch in
   float64: rtol 1e-10.
 - a 23-donor pool (K + C(K,2) = 276 columns) on int8 counts: under the
   knob through K1's plain version with the fused branch's tolerances,
@@ -110,11 +110,11 @@ def test_predict_doublet_fused_branch(monkeypatch):
 
 
 def test_predict_doublet_unfused_branch(monkeypatch):
-    # counts above 127 are placed as bfloat16: the unfused branch
+    # counts above 127 are placed as int16: the unfused branch
     AD, DP = _pool(seed=8, vmax=200)
     jc = jax_dense_counts(AD, DP, dtype=jnp.float64)
     tc = counts_from_scipy(AD, DP)
-    assert tc.ad.dtype == torch.bfloat16
+    assert tc.ad.dtype == torch.int16
     mj, mt = _fitted_pair(AD, DP, jc, tc)
     monkeypatch.delenv("VIREO_FUSED_DOUBLET", raising=False)
     dj, sj, lj = jd.predict_doublet(mj, jc, None)

@@ -9,7 +9,7 @@ script's frame, then stops the script before its fit. chip_smoke's
 helper must give the same matrices and truth exactly.
 
 The rungs: the pool's largest count is above 256, so by default it lands
-on dense float32 counts; a dense_budget of 2, 1 and 0 (one byte) times
+on dense int16 counts; a dense_budget of 2, 1 and 0 (one byte) times
 n_var x n_cell bytes forces the int8-hybrid, packed-hybrid and COO
 rungs. The port's vireo_wrap there, in float64, against the JAX
 package's vireo_wrap in float64 on the same rung (its counts_from_scipy
@@ -208,7 +208,7 @@ def test_heavy_pool_rungs_match_jax(heavy, jax_default, rung, units, cls,
     else:
         assert not hasattr(counts, "base")
     if rung == "dense":
-        assert counts.ad.dtype == torch.float32
+        assert counts.ad.dtype == torch.int16
     if rung in ("dense", "packed-hybrid"):
         names, rj, j_refit = jax_default
         assert names == ("DenseCounts", "DenseCounts")

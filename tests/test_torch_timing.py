@@ -268,7 +268,7 @@ def test_placement_off_the_dense_rung_opens_the_union(pool, rung, budget,
 
 def _heavy(pool, extra=200.0):
     """The pool with a few counts above 127 (`extra` reads deeper), for
-    the hybrid rungs; above 256 for the dense float32 rung."""
+    the hybrid rungs; above 16,383 for the dense float32 rung."""
     AD, DP = pool["AD"].toarray(), pool["DP"].toarray()
     rows, cols = np.nonzero(DP)
     DP[rows[:7], cols[:7]] += extra
@@ -284,12 +284,13 @@ def test_one_contraction_span_per_call_on_every_rung(pool, monkeypatch, rung,
                                                      budget, heavy):
     """A hybrid's base and residual calls open no span of their own: each
     call of the placed counts' class lies inside exactly one span. Dense
-    float32 counts (counts above 256) open one `vireo.matmul` inside each
-    call's span; K0's int8 counts none."""
+    float32 counts (counts above 16,383) open one `vireo.matmul` inside
+    each call's span; K0's int8 and int16 counts none."""
     from vireo_tpu_torch.engine.wrap import vireo_wrap
     from vireo_tpu_torch.ops.counts import (MATMULS, counts_from_scipy,
                                             device_dense_budget, ladder_rung)
-    AD, DP = (_heavy(pool, 400.0) if heavy == "float32" else _heavy(pool)) \
+    AD, DP = (_heavy(pool, 20000.0) if heavy == "float32"
+              else _heavy(pool)) \
         if heavy else (pool["AD"], pool["DP"])
     budget = None if budget is None else budget * AD.shape[0] * AD.shape[1]
     counts = counts_from_scipy(AD, DP, device="cpu", dense_budget=budget)

@@ -15,8 +15,9 @@ the assignments to bf16 and also yields the singlet-slice statistics
 for the GT refresh. `interpret` asks for K1's math: its plain version
 on the CPU, the kernel on a card, as `1` does.
 
-One difference from the JAX package, under the knob only: bfloat16
-dense counts (counts above 127) stay unfused, as K1 reads int8 bytes.
+One difference from the JAX package, under the knob only: int16 or
+float32 dense counts (counts above 127) stay unfused, as K1 reads int8
+bytes.
 A mesh (a ShardedCounts) goes unfused, as in the JAX package, whose
 Pallas pass is not SPMD-partitioned.
 """

@@ -11,18 +11,19 @@ picks one by the pool's size and largest count (`ladder_rung`):
 
 - ``DenseCounts``: AD and DP dense, (n_var, n_cell), in the smallest
   type that holds every count exactly (`exact_count_dtype`): int8 up to
-  127, which is what real pools give. int8 counts go through K0
+  127, which is what real pools give, int16 up to 16,383 (pools counted
+  by reads), float32 above. int8 and int16 counts go through K0
   (`dense_suff_stats`, `dense_cell_loglik`): on a card the CUDA kernels
   of csrc/dense_counts.cu on a static tile schedule (`k0_plan`), which
   build bf16 operands in registers from the count bytes, as the JAX
   package's XLA dots read int8 cast to bf16
-  (vireo_tpu/ops/counts.py:71-95); on the CPU their plain versions.
-  The plain versions (`suff_stats_reference`,
-  `cell_loglik_reference`) convert the counts to the weights' type one
-  block of variant rows at a time and hand each block to
-  `torch.matmul`; counts of other types (bfloat16 or float32, for pools
-  with counts above 127) always take them, as the JAX package takes a
-  plain dot there, at `Precision.HIGHEST` for float32
+  (vireo_tpu/ops/counts.py:71-95), an int16 count as two exact 7-bit
+  planes; on the CPU their plain versions. The plain versions
+  (`suff_stats_reference`, `cell_loglik_reference`) convert the counts
+  to the weights' type one block of variant rows at a time and hand each
+  block to `torch.matmul`; counts of other types (float32, for pools
+  with counts above 16,383) always take them, as the JAX package takes
+  a plain dot there, at `Precision.HIGHEST` for float32
   (vireo_tpu/ops/counts.py:61-69).
 - ``PackedCounts`` (ops/packed.py): two cells a byte when every count is
   <= 15, with the CUDA kernels K2 and K3.
@@ -45,6 +46,7 @@ one pattern: the COO rung, and a hybrid's residual, from the entries
 above its cap alone.
 """
 
+import collections.abc
 import ctypes
 import dataclasses
 import os
@@ -64,7 +66,7 @@ __all__ = ["Counts", "DenseCounts", "SparseCounts", "HybridCounts",
            "hybrid_from_coo", "ladder_rung", "exact_count_dtype",
            "device_dense_budget", "dense_suff_stats", "dense_cell_loglik",
            "device_room", "placement_rung", "suff_stats_reference",
-           "cell_loglik_reference", "LAUNCHES", "MATMULS",
+           "cell_loglik_reference", "LAUNCHES", "MATMULS", "K0_HIGH",
            "K0Plan", "k0_plan", "k0_k_order", "k0_operand",
            "k0_device_operand", "k0_producer", "k0_shape", "k0_control"]
 
@@ -78,12 +80,55 @@ __all__ = ["Counts", "DenseCounts", "SparseCounts", "HybridCounts",
 # reductions)
 _CHUNK_BYTES = 1 << 29
 
-# launches of each CUDA kernel of K0
+# launches of each CUDA kernel of K0 (int8 and int16 counts)
 LAUNCHES = {"dense_suff_stats": 0, "dense_cell_loglik": 0}
 
-# calls of DenseCounts' plain contractions of non-int8 counts (bfloat16
-# or float32: the pools with counts above 127), on any device
+# calls of DenseCounts' plain contractions of counts K0 does not read
+# (float32: the pools with counts above 16,383, or a caller's type), on
+# any device
 MATMULS = {"suff_stats": 0, "cell_loglik": 0}
+
+# the count types K0 reads and the largest count of each: int16 counts
+# are two exact 7-bit planes (csrc/dense_counts.cu)
+K0_MAX_COUNT = {torch.int8: 127, torch.int16: 16383}
+
+
+class _DeviceCounters(collections.abc.Mapping):
+    """Counters that kernels add to on each card, each read (one device
+    sync) only when asked: `tensor(device)` is the int64 vector the
+    launches on `device` add to, a key's value the sum over the cards."""
+
+    def __init__(self, *keys):
+        self._keys = keys
+        self._on = {}
+
+    def tensor(self, device):
+        key = str(device)
+        if key not in self._on:
+            self._on[key] = torch.zeros(len(self._keys), dtype=torch.int64,
+                                        device=device)
+        return self._on[key]
+
+    def __getitem__(self, key):
+        i = self._keys.index(key)
+        return sum(int(t[i]) for t in self._on.values())
+
+    def __iter__(self):
+        return iter(self._keys)
+
+    def __len__(self):
+        return len(self._keys)
+
+    def reset(self):
+        for t in self._on.values():
+            t.zero_()
+
+
+# int16 launches of K0: the k-blocks their warpgroups ran (a warpgroup's
+# 64 variants x 64 cells in suff_stats, 128 cells x 64 variants in
+# cell_loglik) and those of them that ran the high plane, as some count
+# there was above 127; kept on the card, read when asked
+K0_HIGH = _DeviceCounters("k_blocks", "high")
 
 _LIB = None
 
@@ -138,12 +183,14 @@ def _library():
         lib = load_library("dense_counts")
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         for fn in (lib.vireo_dense_suff_stats, lib.vireo_dense_cell_loglik):
-            fn.argtypes = [ptr] * 7 + [i32] * 4 + [i64] + [i32] * 6 + [ptr]
+            fn.argtypes = [ptr] * 7 + [i32] * 5 + [ptr, i64] + [i32] * 6 + [
+                ptr]
             fn.restype = i32
         lib.vireo_dense_operand.argtypes = [i32, ptr, ptr] + [i32] * 3 + [
             ptr, ptr]
         lib.vireo_dense_operand.restype = i32
-        lib.vireo_dense_shape.argtypes = [i32, i32, ctypes.POINTER(i32)]
+        lib.vireo_dense_shape.argtypes = [i32, i32, i32,
+                                          ctypes.POINTER(i32)]
         lib.vireo_dense_shape.restype = i32
         lib.vireo_dense_error_string.argtypes = [i32]
         lib.vireo_dense_error_string.restype = ctypes.c_char_p
@@ -156,6 +203,9 @@ def _library():
 # tile; the contracted axis in k-blocks of K0_KBLOCK, split into at most
 # K0_MAX_SLICES slices where the tiles leave a tail wave.
 K0_TILES = {"suff_stats": (128, 80), "cell_loglik": (256, 64)}
+# the same for int16 counts: their kernels stop at 48 columns (wider,
+# their consumers spilled and ran 1.5-3x slower on an H100)
+K0_TILES_INT16 = {"suff_stats": (128, 48), "cell_loglik": (256, 48)}
 K0_KBLOCK = 64
 K0_MAX_SLICES = 8
 # the kernels' modes: the contraction, and the two controls that time it
@@ -192,13 +242,14 @@ def pick_tile(N, max_bn, unit=16):
     return unit * -(-chunks // tiles)
 
 
-def k0_plan(name, n_var, n_cell, N, sms):
-    """K0's tile schedule for `name` on a card of `sms` SMs: the column
+def k0_plan(name, n_var, n_cell, N, sms, width=1):
+    """K0's tile schedule for `name` on a card of `sms` SMs, for counts
+    of `width` bytes (K0_TILES, or K0_TILES_INT16 for 2): the column
     tile, and the number of slices of the contracted axis (1 to
     K0_MAX_SLICES, whole k-blocks each) that makes the waves of units
     shortest, each extra slice charged 1% for its scratch and the ordered
     adds of the slices."""
-    rows, max_bn = K0_TILES[name]
+    rows, max_bn = (K0_TILES if width == 1 else K0_TILES_INT16)[name]
     m_len, k_len = ((n_var, n_cell) if name == "suff_stats"
                     else (n_cell, n_var))
     bn = pick_tile(N, max_bn)
@@ -297,30 +348,32 @@ def _sms(device):
     return _SMS[key]
 
 
-def k0_shape(name, bn):
-    """K0's kernel `name` at column tile `bn`, from the library: ring
-    stages, bytes a stage, threads a block, dynamic shared memory, blocks
-    an SM, registers a thread and spilled bytes a thread."""
+def k0_shape(name, bn, width=1):
+    """K0's kernel `name` at column tile `bn` for counts of `width` bytes
+    (1: int8, 2: int16), from the library: ring stages, bytes a stage,
+    threads a block, dynamic shared memory, blocks an SM, registers a
+    thread and spilled bytes a thread."""
     out = (ctypes.c_int * 7)()
     err = _library().vireo_dense_shape(
-        0 if name == "suff_stats" else 1, bn, out)
+        0 if name == "suff_stats" else 1, bn, width, out)
     if err:
-        raise ValueError("K0 %s has no kernel of tile %d" % (name, bn))
+        raise ValueError("K0 %s has no kernel of tile %d for %d-byte "
+                         "counts" % (name, bn, width))
     keys = ("stages", "stage_bytes", "threads", "smem", "blocks_per_sm",
             "registers", "spill_bytes")
     return dict(zip(keys, out))
 
 
 def _check_launch(name, ad, dp, weights, rows):
-    """Validate what the kernels take: two int8 (n_var, n_cell) count
-    matrices on one device and float32 weights of `rows` rows and one
-    width. Returns (ad, dp, pitch, weights): the counts as they are when
-    their cells are contiguous and both rows lie `pitch` bytes apart (a
-    cell range of a wider matrix), else contiguous copies; the weights
-    contiguous."""
-    if ad.dtype != torch.int8 or dp.dtype != torch.int8:
-        raise TypeError("%s reads int8 counts, got %s/%s"
-                        % (name, ad.dtype, dp.dtype))
+    """Validate what the kernels take: two (n_var, n_cell) count matrices
+    of one K0 type (int8, or int16 in [0, 16383]) on one device and
+    float32 weights of `rows` rows and one width. Returns (ad, dp, pitch,
+    weights): the counts as they are when their cells are contiguous and
+    both rows lie `pitch` bytes apart (a cell range of a wider matrix),
+    else contiguous copies; the weights contiguous."""
+    if ad.dtype not in K0_MAX_COUNT or dp.dtype != ad.dtype:
+        raise TypeError("%s reads int8 or int16 counts of one type, got "
+                        "%s/%s" % (name, ad.dtype, dp.dtype))
     if ad.dim() != 2 or dp.shape != ad.shape:
         raise ValueError("%s: count shapes %s/%s differ"
                          % (name, tuple(ad.shape), tuple(dp.shape)))
@@ -330,7 +383,7 @@ def _check_launch(name, ad, dp, weights, rows):
         V <= 1 or ad.stride(0) == dp.stride(0) >= C)
     if not pitched:
         ad, dp = ad.contiguous(), dp.contiguous()
-    pitch = ad.stride(0) if V > 1 else C
+    pitch = (ad.stride(0) if V > 1 else C) * ad.element_size()
     return ad, dp, pitch, weights
 
 
@@ -342,7 +395,8 @@ def _k0_launch(name, ad, dp, pitch, weights, outs, mode="full"):
     V, C = ad.shape
     N = weights[0].shape[1]
     dev = weights[0].device
-    plan = k0_plan(name, V, C, N, _sms(dev))
+    width = ad.element_size()
+    plan = k0_plan(name, V, C, N, _sms(dev), width)
     # the B operand's scratch, which the call's operand kernel fills
     b = torch.empty((3 * len(weights), N,
                      _k0_ld(name, C if name == "suff_stats" else V)),
@@ -353,6 +407,9 @@ def _k0_launch(name, ad, dp, pitch, weights, outs, mode="full"):
             (2, V, N) if name == "suff_stats" else (C, N)),
             dtype=torch.float32, device=dev)
     tma = k0_producer(ad, dp, pitch) == "tma"
+    # int16 calls add their k-blocks to K0_HIGH; the controls count none
+    high = (K0_HIGH.tensor(dev).data_ptr() if width == 2 and mode == "full"
+            else 0)
     lib = _library()
     fn = (lib.vireo_dense_suff_stats if name == "suff_stats"
           else lib.vireo_dense_cell_loglik)
@@ -360,18 +417,18 @@ def _k0_launch(name, ad, dp, pitch, weights, outs, mode="full"):
             + tuple(w.data_ptr() for w in weights) + (b.data_ptr(),)
             + tuple(o.data_ptr() for o in outs)
             + (0 if part is None else part.data_ptr(), V, C, N, b.shape[2],
-               pitch, plan.bn, plan.slices, plan.slice_kb, plan.grid,
-               int(tma), K0_MODES[mode]))
+               width, high, pitch, plan.bn, plan.slices, plan.slice_kb,
+               plan.grid, int(tma), K0_MODES[mode]))
     launch("dense_" + name, fn, args, dev, lib.vireo_dense_error_string)
     return plan
 
 
 def dense_suff_stats(ad, dp, W, row_chunk=None):
-    """K0's suff_stats: (AD @ W, DP @ W) for int8 counts and W
-    (n_cell, N) -> two (n_var, N). CPU tensors run the plain version
-    (`row_chunk` sizes its blocks); CUDA tensors launch the kernel
-    (float32 weights only) or raise. Empty counts or weights give zeros
-    without a launch."""
+    """K0's suff_stats: (AD @ W, DP @ W) for int8 or int16 counts (the
+    latter in [0, 16383]) and W (n_cell, N) -> two (n_var, N). CPU
+    tensors run the plain version (`row_chunk` sizes its blocks); CUDA
+    tensors launch the kernel (float32 weights only) or raise. Empty
+    counts or weights give zeros without a launch."""
     if on_cpu("dense_suff_stats", ad):
         return suff_stats_reference(ad, dp, W, row_chunk)
     ad, dp, pitch, (W,) = _check_launch("dense_suff_stats", ad, dp, [W],
@@ -389,8 +446,8 @@ def dense_suff_stats(ad, dp, W, row_chunk=None):
 
 
 def dense_cell_loglik(ad, dp, Wa, Wd, row_chunk=None):
-    """K0's cell_loglik: AD.T @ Wa + DP.T @ Wd for int8 counts and
-    (n_var, N) weights -> (n_cell, N). CPU tensors run the plain
+    """K0's cell_loglik: AD.T @ Wa + DP.T @ Wd for int8 or int16 counts
+    and (n_var, N) weights -> (n_cell, N). CPU tensors run the plain
     version; CUDA tensors launch the kernel (float32 weights only) or
     raise. Empty counts or weights give zeros without a launch."""
     if on_cpu("dense_cell_loglik", ad):
@@ -426,13 +483,14 @@ def k0_control(name, counts, *weights, mode):
 class DenseCounts:
     """Dense AD/DP counts of shape (n_var, n_cell).
 
-    The contractions of int8 counts are K0 (`dense_suff_stats`,
-    `dense_cell_loglik`), on a card its CUDA kernels; those of other
-    types are the plain versions, each call counted in `MATMULS` and
-    recorded as a `matmul` span inside the call's own. `row_chunk`
-    fixes the number of variant rows the plain versions and the
-    reductions convert per block; None sizes blocks to about 512 MB of
-    the target type (`_CHUNK_BYTES`). The kernels convert nothing in
+    The contractions of int8 and int16 counts are K0 (`dense_suff_stats`,
+    `dense_cell_loglik`), on a card its CUDA kernels, which take int16
+    counts in [0, 16383] (what `exact_count_dtype` places as int16);
+    those of other types are the plain versions, each call counted in
+    `MATMULS` and recorded as a `matmul` span inside the call's own.
+    `row_chunk` fixes the number of variant rows the plain versions and
+    the reductions convert per block; None sizes blocks to about 512 MB
+    of the target type (`_CHUNK_BYTES`). The kernels convert nothing in
     device memory.
     """
     ad: torch.Tensor
@@ -460,7 +518,7 @@ class DenseCounts:
     def suff_stats(self, W):
         """(AD @ W, DP @ W) for W of shape (n_cell, N) -> two (n_var, N)."""
         with span("suff_stats"):
-            if self.ad.dtype == torch.int8:
+            if self.ad.dtype in K0_MAX_COUNT:
                 return dense_suff_stats(self.ad, self.dp, W, self.row_chunk)
             MATMULS["suff_stats"] += 1
             with span("matmul"):
@@ -470,7 +528,7 @@ class DenseCounts:
     def cell_loglik(self, Wa, Wd):
         """AD.T @ Wa + DP.T @ Wd for (n_var, N) weights -> (n_cell, N)."""
         with span("cell_loglik"):
-            if self.ad.dtype == torch.int8:
+            if self.ad.dtype in K0_MAX_COUNT:
                 return dense_cell_loglik(self.ad, self.dp, Wa, Wd,
                                          self.row_chunk)
             MATMULS["cell_loglik"] += 1
@@ -527,12 +585,12 @@ def _row_index(idx, device):
 
 
 def exact_count_dtype(vmax):
-    """Smallest type holding integer counts up to `vmax` exactly: int8
-    (<= 127), bfloat16 (<= 256, 8-bit mantissa), else float32 (<= 2^24)."""
-    if vmax <= 127:
-        return torch.int8
-    if vmax <= 256:
-        return torch.bfloat16
+    """Smallest type holding integer counts up to `vmax` exactly that the
+    contractions read: int8 (<= 127) or int16 (<= 16,383), both through
+    K0, else float32 (<= 2^24)."""
+    for dtype, top in K0_MAX_COUNT.items():
+        if vmax <= top:
+            return dtype
     return torch.float32
 
 
@@ -613,15 +671,21 @@ def _host_union_triplets(AD, DP):
 # nonzeros scattered per device call while densifying
 _SCATTER_BLOCK = 1 << 22
 
+# the narrow types `SparseCounts.densify` promotes past their largest
+# exact count
+_NARROW = {**K0_MAX_COUNT, torch.bfloat16: 256}
+
 
 def _upload_vals(vals, dtype, device):
     """Host count values on `device` as a `dtype` target takes them: up
-    in the smallest exact type (int8 for an int8 target, float32
-    otherwise), then converted. Values above 127 are clipped to 127 for
-    an int8 target (the hybrid base), as the JAX package's int8 scatter
-    clips them."""
+    in the smallest exact type (the target's own for int8 and int16,
+    float32 otherwise), then converted. Values above 127 are clipped to
+    127 for an int8 target (the hybrid base), as the JAX package's int8
+    scatter clips them; an int16 target takes values up to 16,383."""
     if dtype == torch.int8:
         vals = np.minimum(vals, 127).astype(np.int8)
+    elif dtype == torch.int16:
+        vals = np.asarray(vals).astype(np.int16)
     else:
         vals = np.asarray(vals).astype(np.float32)
     return torch.from_numpy(vals).to(device).to(dtype)
@@ -828,16 +892,15 @@ class SparseCounts:
         """Dense (n_var, n_cell) DenseCounts scattered on the device.
 
         `dtype` defaults to the smallest type that holds every count
-        exactly (`exact_count_dtype`). With `check_overflow`, an int8 or
-        bfloat16 `dtype` too narrow for the largest count is promoted,
-        with the JAX package's note, instead of truncating."""
+        exactly (`exact_count_dtype`). With `check_overflow`, an int8,
+        int16 or bfloat16 `dtype` too narrow for the largest count is
+        promoted, with the JAX package's note, instead of truncating."""
         vmax = self.max_count()
         if dtype is None:
             dtype = exact_count_dtype(vmax)
-        elif check_overflow and dtype in (torch.int8, torch.bfloat16):
+        elif check_overflow and dtype in _NARROW:
             promoted = exact_count_dtype(vmax)
-            if (dtype == torch.int8 and vmax > 127) or \
-                    (dtype == torch.bfloat16 and vmax > 256):
+            if vmax > _NARROW[dtype]:
                 print("[vireo] counts up to %.0f exceed the exact range "
                       "of %s; using %s" % (vmax, str(dtype)[6:],
                                            str(promoted)[6:]))
@@ -959,7 +1022,8 @@ class HybridCounts:
 
         JAX's `densify` returns float32 (vireo_tpu/ops/counts.py:384).
         The port returns the smallest type that holds the true counts
-        exactly (int8 up to 127; `exact_count_dtype`): its one caller,
+        exactly (int8 up to 127, int16 up to 16,383;
+        `exact_count_dtype`): its one caller,
         the ambient phase, reads the selected variants' block in cell
         chunks and converts each to float, so a float32 copy would only
         quadruple the block's memory. The sums are the same

@@ -547,9 +547,11 @@ class ShardedCounts:
                                    layout=lay)
 
     def _common_dtype(self, dtype):
-        """The widest of the ranks' dense types (int8, bfloat16,
-        float32), so that their blocks can travel together."""
-        order = (torch.int8, torch.bfloat16, torch.float32, torch.float64)
+        """The widest of the ranks' dense types (int8, bfloat16, int16,
+        float32), so that their blocks can travel together: each holds
+        every count of the ones before it exactly."""
+        order = (torch.int8, torch.bfloat16, torch.int16, torch.float32,
+                 torch.float64)
         i = torch.tensor([order.index(dtype)], device=self.mesh.device)
         return order[int(self.mesh.all_reduce(i, op="max"))]
 
